@@ -1,0 +1,406 @@
+"""Bordered saddle-point solve: FEM core + MNA border via Schur complement.
+
+Port of the single-device DIA route of padne_tpu.ops.schur.  With
+A the assembled SPSD Laplacian, C the border injection columns, B the
+border constraint rows, the full system
+
+    -A v + C j = r_core
+     B v       = r_border
+
+is reduced by the pseudo-inverse: v = A^+ (C j - r_core) + Z c, with Z
+the per-component constants.  The expensive part, A^+ applied to m+1
+vectors, is one deflated multi-RHS PCG (ops.cg) on the block-offset DIA
+operator preconditioned by the aligned AMG cycle (ops.amg); the small
+dense (m+p) Schur block is solved with lstsq on the host.  A refinement
+ladder on the compensated f64 operator (ops.comp) then drives the exact
+full-system residual to the target with f32 inner solves.
+
+Out of scope here (raises NotImplementedError, never falls back):
+more than 63 deflation components, systems too small for a DIA
+hierarchy, and multi-device row sharding.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from . import amg, assembly, cg, comp, dia
+
+
+@dataclass
+class BorderSpec:
+    """Sparse description of the MNA border.
+
+    Border variables k = 0..m-1 (voltage sources, regulators, ground pin).
+    Rows:    sum_i B[k, i] v_i = rhs[k]
+    Columns: current injections C[i, k] added to core equations.
+    """
+
+    m: int
+    row_idx: np.ndarray   # (nnzB,) border variable index k
+    row_node: np.ndarray  # (nnzB,) core node i
+    row_val: np.ndarray   # (nnzB,)
+    col_idx: np.ndarray   # (nnzC,) border variable index k
+    col_node: np.ndarray  # (nnzC,) core node i
+    col_val: np.ndarray   # (nnzC,)
+    rhs: np.ndarray       # (m,)
+
+
+@dataclass
+class CoreSystem:
+    """The assembled system (host arrays)."""
+
+    n: int
+    ell: assembly.EllMatrix
+    comp_id: np.ndarray
+    num_components: int
+    border: BorderSpec
+    r_core: np.ndarray    # (n,)
+    ground_var: int       # border variable index of the ground pin
+    coords: Optional[np.ndarray] = None  # (n, 2) node coordinates (mm)
+    group: Optional[np.ndarray] = None   # (n,) int mesh/layer label
+
+
+@dataclass
+class BorderedSolution:
+    v: np.ndarray            # (n,) node potentials
+    j: np.ndarray            # (m,) border currents
+    residual_norm: float     # || full system residual ||
+    ground_current: float
+    cg_iterations: int
+    refinement_steps: int
+
+
+def bordered_scipy_system(system: CoreSystem):
+    """(L, r, A, B, C): the full sparse system in the reference layout
+    [[-A, C], [B, 0]] z = [r_core, rhs]."""
+    import scipy.sparse
+
+    n, m = system.n, system.border.m
+    b = system.border
+    A = system.ell.to_scipy()
+    C = scipy.sparse.coo_matrix(
+        (b.col_val, (b.col_node, b.col_idx)), shape=(n, m))
+    B = scipy.sparse.coo_matrix(
+        (b.row_val, (b.row_idx, b.row_node)), shape=(m, n))
+    L = scipy.sparse.bmat([[-A, C], [B, None]], format="csc")
+    r = np.concatenate([system.r_core, b.rhs])
+    return L, r, A, B, C
+
+
+def _index(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
+def _f64(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float64)).to(device)
+
+
+class DiaBorderedSolver:
+    """The block-offset-DIA solve path, set up once and solvable
+    repeatedly.
+
+    Defaults are the JAX package's settings: 8 ExtraSlots per level-0
+    row block (`slots`), 4 level-0 offsets (`max_offsets`), a 3000-row
+    dense bottom (`coarse_size`), inner CG tolerances 1e-5 (first pass /
+    host passes) and 3e-4 (compensated ladder passes).  `cycle_dtype`
+    and `w_levels` follow the device as in the JAX package (accelerator
+    vs CPU): bf16 cycle slabs and a W-cycle on coarse levels 2..3 on
+    CUDA, where bf16 halves the dominant slab stream; f32 slabs and the
+    plain V-cycle on the CPU.
+
+    Data flow: the inner CG, the V-cycle, the border products and the
+    compensated refinement residuals all stay on the device; the host
+    solves the small (m+p) Schur block, and verifies the final residual
+    in f64 on its CSR copy of the operator.
+    """
+
+    def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
+                 maxiter: int = 40000, cycle_dtype=None,
+                 w_levels: "int | None" = None, slots: int = 8,
+                 max_offsets: int = 4,
+                 coarse_size: int = 3000, inner_tol: float = 1e-5,
+                 comp_inner_tol: float = 3e-4):
+        import scipy.sparse
+
+        dev = device_mod.resolve(device)
+        self.device = dev
+        on_card = dev.type == "cuda"
+        if cycle_dtype is None:
+            cycle_dtype = torch.bfloat16 if on_card else torch.float32
+        if w_levels is None:
+            w_levels = 3 if on_card else 0
+        self.system = system
+        n, m = system.n, system.border.m
+        p = system.num_components
+        b = system.border
+        if system.coords is None:
+            raise ValueError("the DIA path needs node coordinates "
+                             "(CoreSystem.coords) for the Hilbert ordering")
+        if p + 1 > 64:
+            raise NotImplementedError(
+                f"{p} deflation components: the dense one-hot projector "
+                "covers at most 63 (the segment-sum PCG is not ported)")
+        self.A_host = system.ell.to_scipy()
+        hierarchy = amg.build_hierarchy_dia(
+            system.ell, system.coords, coarse_size=coarse_size,
+            group=system.group, a_csr=self.A_host, max_offsets=max_offsets)
+        if not hierarchy.levels:
+            raise NotImplementedError(
+                f"n={n} is too small for a DIA hierarchy at "
+                f"coarse_size={coarse_size} (the generic ELL path is not "
+                "ported)")
+        self.hierarchy = hierarchy
+        level0 = hierarchy.levels[0]
+        meta0 = level0.pack.meta
+
+        op_params = amg.make_dia_cg_operator(hierarchy, dev, slots=slots)
+        w0 = op_params["w"].to(cycle_dtype)     # no copy when f32
+        vcycle_apply, vparams = amg.make_vcycle_dia_t(
+            hierarchy, dev, slab_dtype=cycle_dtype, w0=w0, slots=slots,
+            w_levels=w_levels)
+
+        posmap = hierarchy.posmap0
+        np0 = hierarchy.np0
+        # Deflation over padded rows: dummies form one extra component.
+        comp_pad = np.full(np0, p, dtype=np.int64)
+        comp_pad[posmap] = system.comp_id
+        self.comp_pad_dev = _index(comp_pad, dev)
+
+        def a_apply_t(prm, xt):
+            return dia.dia_matvec_t(meta0, prm, xt)
+
+        self.cg_solver = cg.make_pcg_t(
+            operator=(a_apply_t, op_params),
+            precond=(vcycle_apply, vparams),
+            comp_id=self.comp_pad_dev, num_components=p + 1)
+        self.inner_tol = max(tol, inner_tol)
+        self.comp_inner_tol = max(tol, comp_inner_tol)
+        # f32 CG gains stall after a few dozen cycles; the outer ladder
+        # multiplies per-pass gains, so cap the inner solve.
+        self.maxiter = min(maxiter, 300)
+
+        self.posmap = posmap
+        self.np0 = np0
+        self.m, self.p = m, p
+        self.posmap_dev = _index(posmap, dev)
+        self._row_node_pos = _index(posmap[b.row_node], dev)
+        self._row_idx = _index(b.row_idx, dev)
+        self._row_val64 = _f64(b.row_val, dev)
+        self._col_node_pos = _index(posmap[b.col_node], dev)
+        self._col_idx = _index(b.col_idx, dev)
+        self._col_val64 = _f64(b.col_val, dev)
+        self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
+        self._b64[self.posmap_dev] = _f64(system.r_core, dev)
+
+        self._comp = comp.build_slab_mode(meta0, op_params, level0.pack)
+
+        # Host-side small dense pieces.
+        self.BZ = np.zeros((m, p))
+        np.add.at(self.BZ, (b.row_idx, system.comp_id[b.row_node]),
+                  b.row_val)
+        self.ZtC = np.zeros((p, m))
+        np.add.at(self.ZtC, (system.comp_id[b.col_node], b.col_idx),
+                  b.col_val)
+        self.C_host = scipy.sparse.coo_matrix(
+            (b.col_val, (b.col_node, b.col_idx)), shape=(n, m)).tocsr()
+        self.B_host = scipy.sparse.coo_matrix(
+            (b.row_val, (b.row_idx, b.row_node)), shape=(m, n)).tocsr()
+        self._cg_iters = 0
+        self._BXc_host = None
+        # A^+ C: the m border columns never change across passes or
+        # solves (only the residual column does), so they solve once.
+        self._Xc = None
+
+    # -- device pieces ----------------------------------------------------
+
+    def _build_rhs(self, rc_pad):
+        """[C | rc] as a padded (np0, m+1) f32 block."""
+        m = self.m
+        rhs = torch.zeros(self.np0, m + 1, dtype=torch.float32,
+                          device=self.device)
+        rhs.index_put_((self._col_node_pos, self._col_idx),
+                       self._col_val64.float(), accumulate=True)
+        rhs[:, m] = rc_pad
+        return rhs
+
+    def _border_apply(self, x64):
+        """B @ x for padded f64 x of shape (np0,) or (np0, R)."""
+        g = x64[self._row_node_pos] * (
+            self._row_val64 if x64.ndim == 1 else self._row_val64[:, None])
+        out = torch.zeros((self.m,) + tuple(x64.shape[1:]),
+                          dtype=torch.float64, device=self.device)
+        return out.index_add_(0, self._row_idx, g)
+
+    def _c_apply(self, j64):
+        """C @ j as a padded f64 (np0,) vector."""
+        out = torch.zeros(self.np0, dtype=torch.float64, device=self.device)
+        return out.index_add_(0, self._col_node_pos,
+                              self._col_val64 * j64[self._col_idx])
+
+    def _ztr(self, r64):
+        """Z^T r per component (without the dummy padding slot)."""
+        out = torch.zeros(self.p + 1, dtype=torch.float64,
+                          device=self.device)
+        return out.index_add_(0, self.comp_pad_dev, r64)[:self.p]
+
+    def _run_cg(self, rhs, tol=None):
+        res = self.cg_solver(rhs, self.inner_tol if tol is None else tol,
+                             self.maxiter)
+        self._cg_iters += res.iterations
+        return res.x
+
+    def _solve_once(self, rc, rb, tol=None):
+        """One Schur pass; rc (n,) rb (m,) host f64 -> (v_pad, j): the
+        padded f32 device correction and the host f64 border unknowns."""
+        m, p = self.m, self.p
+        dev = self.device
+        rc_pad = torch.zeros(self.np0, dtype=torch.float32, device=dev)
+        rc_pad[self.posmap_dev] = torch.from_numpy(
+            rc.astype(np.float32)).to(dev)
+        if self._Xc is None:
+            X = self._run_cg(self._build_rhs(rc_pad))       # (np0, m+1)
+            self._Xc = X[:, :m]
+        else:
+            x_rc = self._run_cg(rc_pad[:, None], tol=tol)   # (np0, 1)
+            X = torch.cat([self._Xc, x_rc], dim=1)
+        bx = self._border_apply(X.double()).cpu().numpy()
+        BXc, Bxr = bx[:, :m], bx[:, m]
+        self._BXc_host = BXc
+        Ztr = np.zeros(p)
+        np.add.at(Ztr, self.system.comp_id, rc)
+        j, c = self._small_correction(BXc, Bxr, rb, Ztr)
+        c_full = torch.from_numpy(
+            np.concatenate([c, [0.0]]).astype(np.float32)).to(dev)
+        jt = torch.from_numpy(j.astype(np.float32)).to(dev)
+        v_pad = X[:, :m] @ jt - X[:, m] + c_full[self.comp_pad_dev]
+        return v_pad, j
+
+    def _small_correction(self, BXc, Bxr, rb, Ztr):
+        """Solve the small dense (m+p) Schur block with lstsq (graceful
+        on ill-posed borders): returns the border correction (j, c)."""
+        m, p = self.m, self.p
+        top = np.concatenate([BXc, self.BZ], axis=1)
+        bot = np.concatenate([self.ZtC, np.zeros((p, p))], axis=1)
+        M = np.concatenate([top, bot], axis=0)
+        rhs_small = np.concatenate([rb + Bxr, Ztr])
+        sol, *_ = np.linalg.lstsq(M, rhs_small, rcond=None)
+        return sol[:m], sol[m:]
+
+    def _full_residual(self, v, j):
+        """Exact host f64 residual (core, border) of (v, j)."""
+        b = self.system.border
+        res_core = self.system.r_core + self.A_host @ v - self.C_host @ j
+        res_border = b.rhs - self.B_host @ v
+        return res_core, res_border
+
+    # -- compensated ladder -----------------------------------------------
+
+    def _fused_pass(self, xr, pinv, BXc64, BZ64, r64, rb64, dcorr64, j64):
+        """One refinement pass on the device: border products, the small
+        correction through the prefactored pinv of the constant Schur
+        block (minimum-norm, like the host lstsq), and the compensated
+        residual update.  Returns (r, rb, dcorr, j, ||r||^2)."""
+        xr64 = xr.double()
+        Bxr = self._border_apply(xr64)
+        rhs_small = torch.cat([rb64 + Bxr, self._ztr(r64)])
+        sol = pinv @ rhs_small
+        dj, c = sol[:self.m], sol[self.m:]
+        c_full = torch.cat([c, c.new_zeros(1)]).float()
+        dj32 = dj.float()
+        dv = self._Xc @ dj32 - xr + c_full[self.comp_pad_dev]
+        av = comp.matvec_slab(self._comp, dv)
+        r_new = r64 + av - self._c_apply(dj32.double())
+        rb_new = rb64 - (BXc64 @ dj - Bxr + BZ64 @ c)
+        n2 = (r_new * r_new).sum() + (rb_new * rb_new).sum()
+        return r_new, rb_new, dcorr64 + dv.double(), j64 + dj, n2
+
+    def _comp_refine(self, v1_pad, j, target_residual, max_refinements):
+        """Device-resident refinement ladder on the compensated operator:
+        nothing n-sized crosses to the host until the final v; one scalar
+        per pass steers the loop.  The returned residual is the exact
+        host f64 one of the returned (v, j).
+
+        Returns (v, j, res_core, res_border, res_norm, refinements)."""
+        dev = self.device
+        b = self.system.border
+        j64 = _f64(j, dev)
+        r64 = (self._b64 + comp.matvec_slab(self._comp, v1_pad)
+               - self._c_apply(j64))
+        rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
+        res_norm = float(((r64 * r64).sum() + (rb64 * rb64).sum()).sqrt())
+        p = self.p
+        M = np.concatenate([
+            np.concatenate([self._BXc_host, self.BZ], axis=1),
+            np.concatenate([self.ZtC, np.zeros((p, p))], axis=1),
+        ], axis=0)
+        pinv = _f64(np.linalg.pinv(M), dev)
+        BXc64, BZ64 = _f64(self._BXc_host, dev), _f64(self.BZ, dev)
+        dcorr64 = torch.zeros(self.np0, dtype=torch.float64, device=dev)
+        refinements = 0
+        while (res_norm > target_residual
+               and refinements < max_refinements):
+            tol_pass = min(0.05, max(self.comp_inner_tol,
+                                     0.2 * target_residual / res_norm))
+            xr = self._run_cg(r64.float()[:, None], tol=tol_pass)[:, 0]
+            out = self._fused_pass(xr, pinv, BXc64, BZ64, r64, rb64,
+                                   dcorr64, j64)
+            new_norm = float(out[4].sqrt())
+            refinements += 1
+            if new_norm >= res_norm:
+                break   # CG stall: keep the better iterate
+            r64, rb64, dcorr64, j64 = out[:4]
+            res_norm = new_norm
+        v = (v1_pad.double() + dcorr64)[self.posmap_dev].cpu().numpy()
+        j = j64.cpu().numpy()
+        res_core, res_border = self._full_residual(v, j)
+        res_norm = float(np.sqrt((res_core ** 2).sum()
+                                 + (res_border ** 2).sum()))
+        return v, j, res_core, res_border, res_norm, refinements
+
+    def solve(self, target_residual: float = 1e-10,
+              max_refinements: int = 8) -> BorderedSolution:
+        system, b = self.system, self.system.border
+        self._cg_iters = 0
+        v1_pad, j = self._solve_once(system.r_core, b.rhs)
+        (v, j, res_core, res_border, res_norm,
+         refinements) = self._comp_refine(v1_pad, j, target_residual,
+                                          max_refinements)
+        # Host-anchored mop-up passes, only if the ladder stopped above
+        # the target (e.g. a CG stall).
+        while res_norm > target_residual and refinements < max_refinements:
+            tol_pass = min(0.05, max(self.inner_tol,
+                                     0.2 * target_residual / res_norm))
+            dv_pad, dj = self._solve_once(res_core, res_border, tol=tol_pass)
+            dv = dv_pad.double()[self.posmap_dev].cpu().numpy()
+            v_new, j_new = v + dv, j + dj
+            rc_new, rb_new = self._full_residual(v_new, j_new)
+            new_norm = float(np.sqrt((rc_new**2).sum() + (rb_new**2).sum()))
+            refinements += 1
+            if new_norm >= res_norm:
+                break
+            v, j = v_new, j_new
+            res_core, res_border = rc_new, rb_new
+            res_norm = new_norm
+
+        gc = float(j[system.ground_var]) if self.m > 0 else 0.0
+        return BorderedSolution(
+            v=v, j=np.asarray(j), residual_norm=res_norm,
+            ground_current=gc, cg_iterations=self._cg_iters,
+            refinement_steps=refinements,
+        )
+
+
+def solve_bordered_dia(system: CoreSystem, device=None,
+                       target_residual: float = 1e-10,
+                       max_refinements: int = 8,
+                       **solver_kw) -> BorderedSolution:
+    """One-shot wrapper around DiaBorderedSolver."""
+    solver = DiaBorderedSolver(system, device=device, **solver_kw)
+    return solver.solve(target_residual=target_residual,
+                        max_refinements=max_refinements)
