@@ -4,6 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py [--dof 1000000] [--scipy-dof 200000]
+                          [--ell-dof 140000]
 
 Phases (any failure exits non-zero; there is no CPU path):
 
@@ -16,16 +17,32 @@ Phases (any failure exits non-zero; there is no CPU path):
    and ms per call of each, by CUDA events;
 4. kernel K2 (compensated slab residual) against its f64 plain version,
    bound 2e-13 * max(|A| |x|), and both times;
-5. padne_tpu_torch.solver.solve on the generated 4-layer bench board at
-   --dof (sized as bench.py sizes it), with the kernels' launch counters
-   reset just before and read just after: both must be > 0, and the
-   full-system residual must meet the repo's 1e-9 gate;
-6. a second solve at --scipy-dof with the potentials held against
+5. the DIA route: padne_tpu_torch.solver.solve on the generated 4-layer
+   bench board at --dof (sized as bench.py sizes it), with the kernels'
+   launch counters reset just before and read just after: K1 and K2
+   must be > 0, the route "dia", and the full-system residual must meet
+   the repo's 1e-9 gate;
+6. a second DIA solve at --scipy-dof with the potentials held against
    scipy.sparse.linalg.spsolve on the same bordered system (max |dV|
-   <= 1e-6 V).
+   <= 1e-6 V);
+7. kernel K3 (ELL SpMV) against its plain version at the ELL phase's
+   shapes (its board's operator and the level-0 prolongation of its AMG
+   hierarchy): square f32 at R = 1 and R = m+1, square f64 at R = 1,
+   rectangular f32 at R = m+1; bounds 1e-5 (f32) and 1e-12 (f64) of
+   max|y|, and both times;
+8. the ELL route: the bench board at --ell-dof (n between 120,000 and
+   199,999, the largest the auto route sends to ELL on the card),
+   solved with counters reset: K3 > 0, K1 = K2 = 0, route "ell",
+   residual < 1e-9, max |dV| vs spsolve <= 1e-6 V;
+9. four small generated boards through the auto route, each within
+   1e-6 V of spsolve at residual < 1e-9.
 
-The line before the last is a JSON object with the per-kernel results;
-the last line is {"ok": true, "device": {...}}.
+Beside each kernel, the line before the last reports the least time the
+card could take for the same call (bytes over 3.35 TB/s, or flops over
+67 TFLOP/s f32 / 34 TFLOP/s f64, whichever is larger) and the time of
+torch.sparse.mm (cuSPARSE) on a CSR tensor of the same operator and
+inputs: f32 for K1 and K3, f64 for K2.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +59,12 @@ REPO = pathlib.Path(__file__).resolve().parent
 L0_NP, L0_OFFS = 1_276_928, (-2, -1, 0, 1)       # level 0 at ~1.09M DoF
 DEEP_NP = 217_088                                 # level 1 at ~1.09M DoF
 DEEP_OFFS = (-32, *range(-11, 11), 32)            # D = 24, dmax 32
+HBM_BPS = 3.35e12                                 # H100 SXM data sheet
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}         # non-tensor-core FMA
+SMALL_BOARDS = ("gen_regulator", "gen_resistor_divider",
+                "gen_via_stack_4layer", "gen_floating_island")
+ELL_N = (120_000, 199_999)   # the sizes the auto route sends to ELL
+DEV = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -66,13 +89,72 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_case(name, np_, offs, dtype, r, e, seed):
+def bound(nbytes: float, flops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time of a call that must
+    move `nbytes` and do `flops` of type `kind` on this card."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slab_csr(meta, w, slots=None, w_lo=None):
+    """The operator of a slab (plus slot entries) as a torch CSR tensor on
+    the card: row rb*128 + c holds W[rb, o, k, c] at column (rb+o)*128 + k
+    (offsets off the block range become explicit zeros), f64 (W + W_lo)
+    when w_lo is given, else f32.  Columns sorted within each row."""
+    import torch
+
+    np_, b, g, ng, offs = meta
+    nb, d = np_ // b, len(offs)
+    dev = w.device
+    dtype = torch.float64 if w_lo is not None else torch.float32
+    wb = w.reshape(nb, d, b, b).to(dtype)
+    if w_lo is not None:
+        wb = wb + w_lo.reshape(nb, d, b, b).to(dtype)
+    rb = torch.arange(nb, device=dev)[:, None]
+    cb = rb + torch.tensor(offs, device=dev)[None, :]
+    valid = (cb >= 0) & (cb < nb)
+    cb = torch.where(valid, cb, rb)
+    vals = (wb * valid[:, :, None, None]).permute(0, 3, 1, 2)  # rb c o k
+    lane = torch.arange(b, device=dev, dtype=torch.int32)
+    cols = (cb.to(torch.int32)[:, None, :, None] * b + lane).expand(
+        nb, b, d, b)
+    vals, cols = vals.reshape(np_, d * b), cols.reshape(np_, d * b)
+    del wb
+    if slots is not None:
+        tgt, ci, we = slots
+        e = we.shape[1]
+        scol = tgt.reshape(nb, e, 1) * b + ci                  # rb e c
+        cols = torch.cat([cols, scol.permute(0, 2, 1).reshape(np_, e)], 1)
+        vals = torch.cat([vals, we.to(dtype).permute(0, 2, 1).reshape(
+            np_, e)], 1)
+    cols, order = cols.sort(dim=1)
+    vals = torch.gather(vals, 1, order)
+    del order
+    per_row = cols.shape[1]
+    crow = torch.arange(0, np_ + 1, device=dev, dtype=torch.int64) * per_row
+    return torch.sparse_csr_tensor(crow.to(torch.int32), cols.reshape(-1),
+                                   vals.reshape(-1), size=(np_, np_))
+
+
+def scipy_csr(a, dtype, dev):
+    """A scipy CSR matrix as a torch CSR tensor on the card."""
+    import torch
+
+    a = a.tocoo().tocsr()     # canonical: sorted columns, no duplicates
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype("int32")),
+        torch.from_numpy(a.indices.astype("int32")),
+        torch.from_numpy(a.data), size=a.shape).to(device=dev, dtype=dtype)
+
+
+def k1_case(name, np_, offs, dtype, r, e, seed, library=False):
     """K1 vs its plain version on random data of the given shape."""
     import torch
 
     from padne_tpu_torch.ops import dia
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     nb = np_ // 128
     gen = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn(nb // 8, 8, len(offs), 128, 128, generator=gen,
@@ -94,14 +176,31 @@ def k1_case(name, np_, offs, dtype, r, e, seed):
     ms = time_ms(lambda: dia.slab_matvec(meta, w, xt, slots))
     plain_ms = time_ms(lambda: dia.slab_matvec_plain(meta, w, xt, slots))
     gbytes = w.numel() * w.element_size() / 1e9
+    nslot = (nb * e * 128) if e else 0
+    bound_ms, bound_by = bound(
+        w.numel() * w.element_size() + 2 * xt.numel() * 4
+        + nslot * 8 + nb * e * 4, 2 * r * (w.numel() + nslot), "f32")
+    library_ms = None
+    if library:
+        csr = slab_csr(meta, w, slots)
+        xn = xt.T.contiguous()
+        lib_err = float((torch.sparse.mm(csr, xn).T - ref).abs().max())
+        library_ms = time_ms(lambda: torch.sparse.mm(csr, xn))
+        check(lib_err <= 1e-5 * float(ref.abs().max()),
+              f"the CSR yardstick of K1 {name} computes another function")
+        del csr, xn
+        torch.cuda.empty_cache()
     print(f"[K1 {name}] np={np_} D={len(offs)} dmax={max(map(abs, offs))} "
           f"R={r} E={e} {str(dtype).removeprefix('torch.')}: "
           f"max_rel_err={rel:.3e} max_abs_err={abs_err:.3e} "
           f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.0f} GB/s slab stream) "
-          f"plain {plain_ms:.4f} ms", flush=True)
+          f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+          f"library(csr) {library_ms} ms", flush=True)
     check(rel <= 1e-5, f"K1 {name} disagrees with its plain version "
                        f"({rel:.3e})")
-    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def k2_case(seed):
@@ -109,7 +208,7 @@ def k2_case(seed):
 
     from padne_tpu_torch.ops import comp
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     nb = L0_NP // 128
     gen = torch.Generator(device=dev).manual_seed(seed)
     w64 = torch.randn(nb, len(L0_OFFS), 128, 128, generator=gen,
@@ -121,18 +220,31 @@ def k2_case(seed):
     meta = (L0_NP, 128, 8, nb // 8, L0_OFFS)
     y = comp.comp_slab(meta, w, w_lo, x)
     ref = comp.comp_slab_plain(meta, w, w_lo, x)
-    bound = 2e-13 * float(
+    tol = 2e-13 * float(
         comp.comp_slab_plain(meta, w.abs(), w_lo.abs(), x.abs()).max())
     torch.cuda.synchronize()
     abs_err = float((y - ref).abs().max())
     ms = time_ms(lambda: comp.comp_slab(meta, w, w_lo, x))
     plain_ms = time_ms(lambda: comp.comp_slab_plain(meta, w, w_lo, x))
+    bound_ms, bound_by = bound(2 * w.numel() * 4 + L0_NP * (4 + 8),
+                               4 * w.numel(), "f64")
+    csr = slab_csr(meta, w, w_lo=w_lo)
+    x64 = x.double()[:, None]
+    lib_err = float((torch.sparse.mm(csr, x64)[:, 0] - ref).abs().max())
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x64))
+    check(lib_err <= tol, "the CSR yardstick of K2 computes another function")
+    del csr
+    torch.cuda.empty_cache()
     print(f"[K2 l0] np={L0_NP} D={len(L0_OFFS)} f32 hi+lo -> f64: "
-          f"max_abs_err={abs_err:.3e} (bound {bound:.3e}) "
+          f"max_abs_err={abs_err:.3e} (bound {tol:.3e}) "
           f"kernel {ms:.4f} ms ({2 * w.numel() * 4 / ms / 1e6:.0f} GB/s "
-          f"slab streams) plain(f64 bmm) {plain_ms:.4f} ms", flush=True)
-    check(abs_err <= bound, "K2 disagrees with its f64 plain version")
-    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+          f"slab streams) plain(f64 bmm) {plain_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}) "
+          f"library(csr f64) {library_ms:.4f} ms", flush=True)
+    check(abs_err <= tol, "K2 disagrees with its f64 plain version")
+    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_fields(sol, n: int) -> None:
@@ -159,30 +271,257 @@ def check_fields(sol, n: int) -> None:
           f"potential range {hi - lo:.6f} V is not that of a 1 V source")
 
 
+def boardgen():
+    """tests/boardgen.py, loaded by file path: an installed top-level
+    `tests` package would shadow the repository's (namespace) tests
+    directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "boardgen", REPO / "tests" / "boardgen.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def bench_problem(tmp: pathlib.Path, dof: int):
     """The generated 4-layer bench board and a mesher config for `dof`
     (vertices ~ area / (0.43 size^2), as bench.py sizes it)."""
-    import importlib.util
+    from padne_tpu_torch import kicad, mesh
 
-    from padne_tpu import kicad, mesh
-
-    # By file path: an installed top-level `tests` package would shadow
-    # the repository's (namespace) tests directory.
-    spec = importlib.util.spec_from_file_location(
-        "boardgen", REPO / "tests" / "boardgen.py")
-    boardgen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(boardgen)
-    prob = kicad.load_kicad_project(boardgen.gen_bench_4layer(tmp))
+    prob = kicad.load_kicad_project(boardgen().gen_bench_4layer(tmp))
     area = sum(layer.shape.area for layer in prob.layers)
     size = max(0.05, (area / (0.43 * dof)) ** 0.5)
     return prob, mesh.Mesher.Config(maximum_size=size,
                                     variable_size_maximum_factor=1.0)
 
 
+def k3_case(name, cols, vals, diag, x, csr, tol):
+    """K3 against its plain version and against torch.sparse.mm on the
+    CSR tensor of the same operator, on the card."""
+    import torch
+
+    from padne_tpu_torch.ops import spmv
+
+    if diag is None:
+        def kernel():
+            return spmv.ell_rect_spmv(cols, vals, x)
+
+        def plain():
+            return spmv.ell_rect_spmv_plain(cols, vals, x)
+    else:
+        def kernel():
+            return spmv.ell_spmv(cols, vals, diag, x)
+
+        def plain():
+            return spmv.ell_spmv_plain(cols, vals, diag, x)
+    y, ref = kernel(), plain()
+    lib = torch.sparse.mm(csr, x)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    abs_err = float((y - ref).abs().max())
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+    k, n = cols.shape
+    s = x.element_size()
+    kind = "f64" if x.dtype == torch.float64 else "f32"
+    r = x.shape[1]
+    bound_ms, bound_by = bound(
+        (4 + s) * k * n + (0 if diag is None else s * n) + s * x.numel()
+        + s * n * r, 2 * k * n * r + (0 if diag is None else 2 * n * r),
+        kind)
+    print(f"[K3 {name}] n={n} nx={x.shape[0]} K={k} R={r} {kind}: "
+          f"max_rel_err={abs_err / scale:.3e} max_abs_err={abs_err:.3e} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}) "
+          f"library(csr) {library_ms:.4f} ms", flush=True)
+    check(abs_err <= tol * scale,
+          f"K3 {name} disagrees with its plain version "
+          f"({abs_err / scale:.3e})")
+    check(float((lib - ref).abs().max()) <= 1e-5 * scale,
+          f"the CSR yardstick of K3 {name} computes another function")
+    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def k3_cases(system):
+    """K3 at the ELL phase's shapes, on its own operator: the square
+    form at R = 1 and m+1 (f32) and R = 1 (f64, the full residual), and
+    the level-0 prolongation of its AMG hierarchy at R = m+1."""
+    import numpy as np
+    import scipy.sparse
+    import torch
+
+    from padne_tpu_torch.ops import amg
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, r = system.n, system.border.m + 1
+    a = system.ell.to_scipy()
+    out = []
+    for dtype, nrhs, tol in ((torch.float32, 1, 1e-5),
+                             (torch.float32, r, 1e-5),
+                             (torch.float64, 1, 1e-12)):
+        cols, vals, diag = system.ell.to_device(dev, dtype)
+        x = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dtype)
+        out.append(k3_case(f"A {str(dtype)[6:]}", cols, vals, diag, x,
+                           scipy_csr(a, dtype, dev), tol))
+    lv = amg.build_hierarchy(system.ell).levels[0]
+    nf, kp = lv.p_cols.shape
+    p_csr = scipy.sparse.coo_matrix(
+        (lv.p_vals.ravel(), (np.repeat(np.arange(nf), kp),
+                             lv.p_cols.ravel())),
+        shape=(nf, len(lv.r_cols))).tocsr()
+    p_csr.eliminate_zeros()   # the ELL padding
+    cols = torch.from_numpy(np.ascontiguousarray(lv.p_cols.T)).to(dev)
+    vals = torch.from_numpy(np.ascontiguousarray(lv.p_vals.T)).to(
+        device=dev, dtype=torch.float32)
+    x = torch.randn(len(lv.r_cols), r, generator=gen, device=dev)
+    out.append(k3_case("P f32", cols, vals, None, x,
+                       scipy_csr(p_csr, torch.float32, dev), 1e-5))
+    return out
+
+
+def launch_counts() -> dict:
+    from padne_tpu_torch.ops import comp, dia, spmv
+
+    return {"dia_slab": dia.slab_matvec.launches,
+            "comp_slab": comp.comp_slab.launches,
+            "ell_spmv": spmv.ell_spmv.launches,
+            "ell_rect_spmv": spmv.ell_rect_spmv.launches}
+
+
+def reset_counts() -> None:
+    from padne_tpu_torch.ops import comp, dia, spmv
+
+    dia.slab_matvec.launches = comp.comp_slab.launches = 0
+    spmv.ell_spmv.launches = spmv.ell_rect_spmv.launches = 0
+
+
+def dia_phases(args, tmp: pathlib.Path) -> dict:
+    """The DIA route at --dof, then the scipy check at --scipy-dof.
+    Returns the main solve's launch counts."""
+    from padne_tpu_torch import solver
+
+    t0 = time.perf_counter()
+    prob, cfg = bench_problem(tmp, args.dof)
+    t_load = time.perf_counter() - t0
+
+    reset_counts()
+    stats = {}
+    sol = solver.solve(prob, mesher_config=cfg, stats=stats)
+    launches = launch_counts()
+    info = sol.solver_info
+    print(f"[slice] route={stats['route']} n={stats['n']} m={stats['m']} "
+          f"levels={stats['levels']} load={t_load:.2f}s "
+          f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
+          f"setup={stats['setup_s']:.2f}s solve={stats['solve_s']:.2f}s "
+          f"postproc={stats['postproc_s']:.2f}s "
+          f"cg_iterations={info.cg_iterations} "
+          f"refinement_passes={info.refinement_steps + 1} "
+          f"residual_norm={info.residual_norm:.3e} "
+          f"launches={launches}", flush=True)
+    check(stats["route"] == "dia", f"route {stats['route']} is not dia")
+    for k in ("dia_slab", "comp_slab"):
+        check(launches[k] > 0, f"the slice never launched {k}")
+    check(info.residual_norm < 1e-9,
+          f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
+    check_fields(sol, stats["n"])
+    del sol
+
+    prob, cfg = bench_problem(tmp / "scipy", args.scipy_dof)
+    stats2 = {}
+    sol = solver.solve(prob, mesher_config=cfg, check_against_scipy=True,
+                       stats=stats2)
+    dv = stats2["scipy_max_dv"]
+    print(f"[scipy] route={stats2['route']} n={stats2['n']} "
+          f"solve={stats2['solve_s']:.2f}s "
+          f"residual_norm={sol.solver_info.residual_norm:.3e} "
+          f"max|dV| vs spsolve={dv:.3e} V", flush=True)
+    check(stats2["route"] == "dia", "the scipy check did not take the DIA "
+                                    "route")
+    check(dv <= 1e-6, f"max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
+    check_fields(sol, stats2["n"])
+    check(sol.solver_info.residual_norm < 1e-9,
+          "scipy-check solve misses the 1e-9 gate")
+    return launches
+
+
+def ell_phases(args, tmp: pathlib.Path):
+    """K3 at the ELL phase's shapes, the ELL route at --ell-dof, and the
+    small boards.  Returns (K3 cases, the ELL solve's launch counts)."""
+    import torch
+
+    from padne_tpu_torch import kicad, solver
+
+    t0 = time.perf_counter()
+    prob, cfg = bench_problem(tmp / "ell", args.ell_dof)
+    t_load = time.perf_counter() - t0
+    system = solver.build_system(prob, cfg)[0]
+    check(ELL_N[0] <= system.n <= ELL_N[1],
+          f"--ell-dof {args.ell_dof} gave n={system.n}, outside the ELL "
+          f"range {ELL_N}")
+    k3 = k3_cases(system)
+    del system
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    stats = {}
+    sol = solver.solve(prob, mesher_config=cfg, check_against_scipy=True,
+                       stats=stats)
+    launches = launch_counts()
+    info = sol.solver_info
+    dv = stats["scipy_max_dv"]
+    print(f"[ell] route={stats['route']} n={stats['n']} m={stats['m']} "
+          f"levels={stats['levels']} ell_k={stats['ell_k']} "
+          f"load={t_load:.2f}s "
+          f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
+          f"setup={stats['setup_s']:.2f}s solve={stats['solve_s']:.2f}s "
+          f"postproc={stats['postproc_s']:.2f}s "
+          f"cg_iterations={info.cg_iterations} "
+          f"refinement_passes={info.refinement_steps + 1} "
+          f"escalated={stats['escalated']} "
+          f"residual_norm={info.residual_norm:.3e} "
+          f"max|dV| vs spsolve={dv:.3e} V launches={launches}", flush=True)
+    check(stats["route"] == "ell", f"route {stats['route']} is not ell")
+    check(launches["ell_spmv"] > 0 and launches["ell_rect_spmv"] > 0,
+          "the ELL route never launched K3")
+    check(launches["dia_slab"] == launches["comp_slab"] == 0,
+          "the ELL route launched a DIA kernel")
+    check(info.residual_norm < 1e-9,
+          f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
+    check(dv <= 1e-6, f"ELL max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
+    check_fields(sol, stats["n"])
+    del sol
+
+    gen = boardgen()
+    for name in SMALL_BOARDS:
+        getattr(gen, name)(tmp)
+        prob = kicad.load_kicad_project(tmp / name / f"{name}.kicad_pro")
+        st = {}
+        sol = solver.solve(prob, check_against_scipy=True, stats=st)
+        res = sol.solver_info.residual_norm
+        disconnected = sum(len(l.disconnected_meshes)
+                           for l in sol.layer_solutions)
+        print(f"[board {name}] route={st['route']} n={st['n']} m={st['m']} "
+              f"cg_iterations={sol.solver_info.cg_iterations} "
+              f"escalated={st.get('escalated')} residual_norm={res:.3e} "
+              f"max|dV| vs spsolve={st['scipy_max_dv']:.3e} V "
+              f"disconnected_meshes={disconnected}", flush=True)
+        check(res < 1e-9, f"{name}: residual {res:.3e} misses the gate")
+        check(st["scipy_max_dv"] <= 1e-6, f"{name}: max |dV| vs scipy")
+        if name == "gen_floating_island":
+            check(disconnected == 1, "the floating island did not reach "
+                                     "the display meshes")
+    return k3, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dof", type=int, default=1_000_000)
     ap.add_argument("--scipy-dof", type=int, default=200_000)
+    ap.add_argument("--ell-dof", type=int, default=140_000)
     args = ap.parse_args()
 
     import torch
@@ -198,7 +537,6 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
 
     from padne_tpu_torch import device, kernels
-    from padne_tpu_torch.ops import comp, dia
 
     device.resolve(None)   # TF32 off, CUDA required
     t0 = time.perf_counter()
@@ -207,74 +545,43 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     k1 = [k1_case("l0 CG operator", L0_NP, L0_OFFS, torch.float32, 1, 8, 1),
-          k1_case("l0 CG operator", L0_NP, L0_OFFS, torch.float32, 4, 8, 2),
+          k1_case("l0 CG operator", L0_NP, L0_OFFS, torch.float32, 4, 8, 2,
+                  library=True),
           k1_case("deep cycle level", DEEP_NP, DEEP_OFFS, torch.bfloat16,
                   4, 0, 3)]
     k2 = k2_case(4)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    from padne_tpu import geom  # noqa: F401  builds the C++ core (g++)
-    from padne_tpu_torch import solver
+    from padne_tpu_torch import geom  # noqa: F401  builds the C++ core (g++)
     print(f"[setup] host geometry core ready in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        t0 = time.perf_counter()
-        prob, cfg = bench_problem(pathlib.Path(tmp), args.dof)
-        t_load = time.perf_counter() - t0
+        dia_launches = dia_phases(args, pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+        k3, ell_launches = ell_phases(args, pathlib.Path(tmp))
 
-        dia.slab_matvec.launches = 0
-        comp.comp_slab.launches = 0
-        stats = {}
-        sol = solver.solve(prob, mesher_config=cfg, stats=stats)
-        launches = {"dia_slab": dia.slab_matvec.launches,
-                    "comp_slab": comp.comp_slab.launches}
-        info = sol.solver_info
-        print(f"[slice] n={stats['n']} m={stats['m']} "
-              f"levels={stats['levels']} load={t_load:.2f}s "
-              f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
-              f"setup={stats['setup_s']:.2f}s solve={stats['solve_s']:.2f}s "
-              f"postproc={stats['postproc_s']:.2f}s "
-              f"cg_iterations={info.cg_iterations} "
-              f"refinement_passes={info.refinement_steps + 1} "
-              f"residual_norm={info.residual_norm:.3e} "
-              f"launches={launches}", flush=True)
-        for k, v in launches.items():
-            check(v > 0, f"the slice never launched {k}")
-        check(info.residual_norm < 1e-9,
-              f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
-        check_fields(sol, stats["n"])
-        del sol
-
-        prob, cfg = bench_problem(pathlib.Path(tmp) / "scipy",
-                                  args.scipy_dof)
-        stats2 = {}
-        sol = solver.solve(prob, mesher_config=cfg,
-                           check_against_scipy=True, stats=stats2)
-        dv = stats2["scipy_max_dv"]
-        print(f"[scipy] n={stats2['n']} solve={stats2['solve_s']:.2f}s "
-              f"residual_norm={sol.solver_info.residual_norm:.3e} "
-              f"max|dV| vs spsolve={dv:.3e} V", flush=True)
-        check(dv <= 1e-6, f"max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
-        check_fields(sol, stats2["n"])
-        check(sol.solver_info.residual_norm < 1e-9,
-              "scipy-check solve misses the 1e-9 gate")
+    def entry(name, source, replaces, launches, cases, main_case):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["abs_err"] for c in cases),
+                **{key: main_case[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
 
     kernels_line = {"kernels": [
-        {"name": "dia_slab", "route": "cuda",
-         "source": "padne_tpu_torch/csrc/dia_slab.cu",
-         "replaces": "padne_tpu/ops/dia.py:802",
-         "launches": launches["dia_slab"],
-         "max_abs_err": max(c["abs_err"] for c in k1),
-         "ms": k1[1]["ms"], "plain_ms": k1[1]["plain_ms"]},
-        {"name": "comp_slab", "route": "cuda",
-         "source": "padne_tpu_torch/csrc/comp_slab.cu",
-         "replaces": "padne_tpu/ops/comp.py:274",
-         "launches": launches["comp_slab"],
-         "max_abs_err": k2["abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        entry("dia_slab", "padne_tpu_torch/csrc/dia_slab.cu",
+              "padne_tpu/ops/dia.py:802", dia_launches["dia_slab"], k1,
+              k1[1]),
+        entry("comp_slab", "padne_tpu_torch/csrc/comp_slab.cu",
+              "padne_tpu/ops/comp.py:274", dia_launches["comp_slab"], [k2],
+              k2),
+        entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
+              "padne_tpu/ops/spmv_pallas.py:84",
+              ell_launches["ell_spmv"] + ell_launches["ell_rect_spmv"], k3,
+              k3[1]),
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

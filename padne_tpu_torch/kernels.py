@@ -4,7 +4,7 @@ The sources are compiled at first use with nvcc into one shared library
 with a plain C interface, bound with ctypes — no PyTorch headers, so the
 build takes seconds.  The library lands in padne_tpu_torch/_build/,
 keyed by a hash of the sources and flags (stale builds are replaced),
-as padne_tpu/native does for its C++ core.  Nothing here runs at import.
+as padne_tpu_torch/native does for its C++ core.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import subprocess
 
 _SRC_DIR = pathlib.Path(__file__).parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-_SOURCES = ("dia_slab.cu", "comp_slab.cu")
+_SOURCES = ("dia_slab.cu", "comp_slab.cu", "ell_spmv.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -73,6 +73,8 @@ def load() -> ctypes.CDLL:
                                 i32, vp, vp]
     lib.pg_comp_slab.restype = i32
     lib.pg_comp_slab.argtypes = [vp, i64, vp, vp, i32, ip, vp, vp]
+    lib.pg_ell_spmv.restype = i32
+    lib.pg_ell_spmv.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, vp, vp]
     return lib
 
 

@@ -1,23 +1,30 @@
-"""Aligned smoothed-aggregation AMG on DIA levels: host setup + device cycle.
+"""Smoothed-aggregation AMG: host setup + device cycle, on DIA and ELL levels.
 
-Port of the DIA half of padne_tpu.ops.amg.  The host build (Hilbert
+Port of padne_tpu.ops.amg.  DIA half: the host build (Hilbert
 order, capped aggregation, smoothed prolongation, Galerkin operators,
 aligned padded row layouts, dense coarse inverse) is carried as numpy
-and reuses the jax-free native kernels of padne_tpu.native.  The device
+and calls the port's own copy of the native core (..native).  The device
 cycle is plain torch around ops.dia matvecs (kernel K1 on every level,
 however small) in the transposed (R, n) layout; every transfer between
 levels is a reshape plus a child-permutation scatter/gather.
+
+ELL half (the generic route): `build_hierarchy` (greedy aggregation,
+smoothed prolongation, Galerkin coarse operators, dense pinv bottom) is
+carried as numpy; `make_vcycle` runs every level product through kernel
+K3 (ops.spmv).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from . import bell, dia
+from ..utils.validation import checked
+from . import assembly, bell, dia
 
 
 def _lambda_max_dinv_a(A, iters: int = 12, seed: int = 3) -> float:
@@ -47,7 +54,7 @@ def _strength_pattern(A, theta: float):
     |a_ij| >= theta * sqrt(d_i d_j), diagonal excluded (one native pass)."""
     import ctypes
 
-    from padne_tpu import native
+    from .. import native
 
     A = A.tocsr()
     n = A.shape[0]
@@ -76,7 +83,7 @@ def _aggregate_capped(A, cap: int, theta: float = 0.08, strength=None):
     — reused across the cap retry loop."""
     import ctypes
 
-    from padne_tpu import native
+    from .. import native
 
     n = A.shape[0]
     indptr, indices = (strength if strength is not None
@@ -230,7 +237,7 @@ def build_hierarchy_dia(
     inv0 = np.empty(n0, dtype=np.int64)
     inv0[perm0] = np.arange(n0)
     if A.nnz >= 200_000:
-        from padne_tpu import native
+        from .. import native
 
         A = native.csr_permute(A, perm0)
     else:
@@ -321,7 +328,7 @@ def build_hierarchy_dia(
         # dropped and LUMPED into the diagonal so row sums (the Neumann
         # kernel) are preserved.
         if A.nnz >= 200_000:
-            from padne_tpu import native
+            from .. import native
 
             Ac = native.galerkin(A, agg, nc, dinv, omega_p, drop_tol)
         else:
@@ -504,3 +511,240 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device,
         return cycle_t(0, p, bt)
 
     return apply_t, params
+
+
+# ---------------------------------------------------------------------------
+# Smoothed aggregation on ELL levels (the generic route): host setup carried
+# from padne_tpu.ops.amg as numpy, device cycle over kernel K3 (ops.spmv).
+
+
+@dataclass
+class Level:
+    """One AMG level (host arrays; make_vcycle uploads them)."""
+
+    # Fine operator in ELL form.
+    a_cols: np.ndarray
+    a_vals: np.ndarray
+    a_diag: np.ndarray
+    # Prolongation P (n_fine x n_coarse) in ELL rows; restriction is P^T
+    # stored as ELL over coarse rows (padded member lists).
+    p_cols: Optional[np.ndarray]  # (n, KP)
+    p_vals: Optional[np.ndarray]
+    r_cols: Optional[np.ndarray]  # (nc, KR) fine indices per coarse row
+    r_vals: Optional[np.ndarray]
+    omega: float  # damped-Jacobi smoothing weight
+
+
+@dataclass
+class AMGHierarchy:
+    levels: list[Level]
+    coarse_inv: np.ndarray  # dense inverse of the coarsest operator
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+
+def _to_csr(ell: assembly.EllMatrix):
+    return ell.to_scipy().tocsr()
+
+
+def _aggregate(A, theta: float = 0.08) -> tuple[np.ndarray, int]:
+    """Greedy aggregation over the strength graph (native sweep).
+
+    Returns (agg_id per node, num_aggregates).  Strong connection:
+    |a_ij| >= theta * sqrt(a_ii * a_jj)."""
+    import ctypes
+
+    import scipy.sparse
+
+    from .. import native
+
+    n = A.shape[0]
+    d = np.asarray(A.diagonal())
+    d = np.where(d > 0, d, 1.0)
+    coo = A.tocoo()
+    strong = (coo.row != coo.col) & (
+        np.abs(coo.data) >= theta * np.sqrt(d[coo.row] * d[coo.col])
+    )
+    S = scipy.sparse.csr_matrix(
+        (np.ones(strong.sum(), dtype=np.int8),
+         (coo.row[strong], coo.col[strong])),
+        shape=(n, n),
+    )
+    indptr = np.ascontiguousarray(S.indptr.astype(np.int32))
+    indices = np.ascontiguousarray(S.indices.astype(np.int32))
+    agg32 = np.zeros(n, dtype=np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    num_agg = native.lib.pg_greedy_aggregate(
+        indptr.ctypes.data_as(i32p), indices.ctypes.data_as(i32p), n,
+        agg32.ctypes.data_as(i32p),
+    )
+    return agg32.astype(np.int64), int(num_agg)
+
+
+def _pack_ell(rows, cols_in, vals_in, n, pad_self_col: bool):
+    """Vectorized COO (sorted by rows) -> padded ELL."""
+    counts = np.bincount(rows, minlength=n)
+    K = max(int(counts.max(initial=1)), 1)
+    order = np.argsort(rows, kind="stable")
+    rows, cols_in, vals_in = rows[order], cols_in[order], vals_in[order]
+    slot = np.arange(len(rows)) - np.concatenate([[0], np.cumsum(counts)])[rows]
+    if pad_self_col:
+        cols = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, K))
+    else:
+        cols = np.zeros((n, K), dtype=np.int64)
+    vals = np.zeros((n, K), dtype=np.float64)
+    cols[rows, slot] = cols_in
+    vals[rows, slot] = vals_in
+    return cols.astype(np.int32), vals
+
+
+def _ell_from_csr(A):
+    """CSR -> (cols, vals, diag) padded ELL (off-diagonal entries)."""
+    coo = A.tocoo()
+    diag = np.asarray(A.diagonal(), dtype=np.float64)
+    mask = coo.row != coo.col
+    cols, vals = _pack_ell(
+        coo.row[mask].astype(np.int64), coo.col[mask].astype(np.int64),
+        coo.data[mask], A.shape[0], pad_self_col=True,
+    )
+    return cols, vals, diag
+
+
+def _ell_matrix(P):
+    """CSR rectangular matrix -> padded ELL (padding entries point at
+    column 0 with zero value)."""
+    coo = P.tocoo()
+    return _pack_ell(
+        coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data,
+        P.shape[0], pad_self_col=False,
+    )
+
+
+@checked
+def build_hierarchy(
+    ell: assembly.EllMatrix,
+    theta: float = 0.08,
+    coarse_size: int = 400,
+    max_levels: int = 12,
+    omega: Optional[float] = None,
+    alpha: float = 1.66,
+) -> AMGHierarchy:
+    """Host-side setup: aggregation + smoothed prolongation + Galerkin
+    coarse operators, down to a dense-invertible coarsest level.
+
+    omega: fixed damped-Jacobi weight for both the prolongation smoother
+    and the cycle smoother; None (default) estimates lambda_max(D^-1 A)
+    per level by power iteration and uses 4/(3*lambda) for prolongation
+    smoothing and alpha/lambda (capped at 1.8/lambda, inside the
+    2/lambda stability bound) for the cycle smoother."""
+    import scipy.sparse
+
+    levels: list[Level] = []
+    A = _to_csr(ell)
+    a_cols, a_vals, a_diag = ell.cols, ell.vals, ell.diag
+
+    def level_omegas(A):
+        if omega is not None:
+            return omega, omega
+        lam = _lambda_max_dinv_a(A)
+        return 4.0 / (3.0 * lam), min(alpha, 1.8) / lam
+
+    for _ in range(max_levels):
+        n = A.shape[0]
+        if n <= coarse_size:
+            break
+        agg, nc = _aggregate(A, theta)
+        if nc >= n or nc == 0:
+            break
+        p_omega, sm_omega = level_omegas(A)
+        P0 = scipy.sparse.csr_matrix(
+            (np.ones(n), (np.arange(n), agg)), shape=(n, nc)
+        )
+        # Smoothed prolongation: P = (I - p_omega D^-1 A) P0.
+        d = np.asarray(A.diagonal())
+        dinv = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+        Dinv = scipy.sparse.diags(dinv)
+        P = (P0 - p_omega * (Dinv @ (A @ P0))).tocsr()
+        Ac = (P.T @ A @ P).tocsr()
+        Ac.eliminate_zeros()
+
+        p_cols, p_vals = _ell_matrix(P)
+        r_cols, r_vals = _ell_matrix(P.T.tocsr())
+        levels.append(Level(a_cols=a_cols, a_vals=a_vals, a_diag=a_diag,
+                            p_cols=p_cols, p_vals=p_vals, r_cols=r_cols,
+                            r_vals=r_vals, omega=sm_omega))
+        A = Ac
+        a_cols, a_vals, a_diag = _ell_from_csr(A)
+
+    # Coarsest level: dense pseudo-inverse (handles the Neumann nullspace).
+    Ad = np.asarray(A.todense())
+    coarse_inv = np.linalg.pinv(Ad, rcond=1e-12)
+    levels.append(Level(a_cols=a_cols, a_vals=a_vals, a_diag=a_diag,
+                        p_cols=None, p_vals=None, r_cols=None, r_vals=None,
+                        omega=level_omegas(A)[1]))
+    return AMGHierarchy(levels=levels, coarse_inv=coarse_inv)
+
+
+def _ell_t(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """(N, K) host ELL array -> the K-major (K, N) device layout of K3."""
+    t = torch.from_numpy(np.ascontiguousarray(a.T))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def make_vcycle(h: AMGHierarchy, device, dtype=None):
+    """(apply, params): z = apply(params, r) on (N, R) tensors, a
+    symmetric V(1,1) cycle (damped-Jacobi pre/post smoothing from a zero
+    guess), so an SPD preconditioner for CG.  Single device.
+
+    dtype: the cycle's working precision (None: float64).  Every level
+    operator, restriction and prolongation is an ELL product through
+    ops.spmv (kernel K3 on the card, K-major arrays uploaded once here);
+    the dense coarsest solve is one matmul."""
+    from . import spmv
+
+    dtype = dtype or torch.float64
+    params = []
+    for lv in h.levels:
+        d = torch.from_numpy(lv.a_diag).to(device=device, dtype=dtype)
+        entry = {
+            "a_cols": _ell_t(lv.a_cols.astype(np.int32), device),
+            "a_vals": _ell_t(lv.a_vals, device, dtype),
+            "a_diag": d,
+            "dinv": torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
+                                0.0),
+        }
+        if lv.p_cols is not None:
+            entry["p_cols"] = _ell_t(lv.p_cols.astype(np.int32), device)
+            entry["p_vals"] = _ell_t(lv.p_vals, device, dtype)
+            entry["r_cols"] = _ell_t(lv.r_cols.astype(np.int32), device)
+            entry["r_vals"] = _ell_t(lv.r_vals, device, dtype)
+        params.append(entry)
+    params.append({"coarse_inv": torch.from_numpy(h.coarse_inv).to(
+        device=device, dtype=dtype)})
+    omegas = [lv.omega for lv in h.levels]
+    num_levels = len(h.levels)
+
+    def a_matvec(entry, x):
+        return spmv.ell_spmv(entry["a_cols"], entry["a_vals"],
+                             entry["a_diag"], x)
+
+    def cycle(level: int, p, b):
+        entry = p[level]
+        if level == num_levels - 1:
+            return p[-1]["coarse_inv"] @ b
+        omega = omegas[level]
+        dinv = entry["dinv"][:, None]
+        # Pre-smooth from a zero guess needs no SpMV: x = omega D^-1 b.
+        x = omega * dinv * b
+        r = b - a_matvec(entry, x)
+        rc = spmv.ell_rect_spmv(entry["r_cols"], entry["r_vals"], r)
+        xc = cycle(level + 1, p, rc)
+        x = x + spmv.ell_rect_spmv(entry["p_cols"], entry["p_vals"], xc)
+        return x + omega * dinv * (b - a_matvec(entry, x))
+
+    def apply(p, r):
+        return cycle(0, p, r)
+
+    return apply, params

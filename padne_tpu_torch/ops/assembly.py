@@ -1,10 +1,11 @@
 """FEM stiffness assembly: edge weights -> ELL sparse operator (host).
 
 Carried from padne_tpu.ops.assembly as numpy (that module imports
-jax.numpy).  Sign conventions follow the reference: A = -L_reference,
-symmetric positive semidefinite with A[i,i] = sum_j w_ij and
-A[i,j] = -w_ij, where w_ij >= 0 are |cot| edge weights times layer
-conductance plus lumped resistor conductances 1/R.
+jax.numpy); `EllMatrix.to_device` uploads as torch tensors.  Sign
+conventions follow the reference: A = -L_reference, symmetric positive
+semidefinite with A[i,i] = sum_j w_ij and A[i,j] = -w_ij, where
+w_ij >= 0 are |cot| edge weights times layer conductance plus lumped
+resistor conductances 1/R.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -27,6 +29,17 @@ class EllMatrix:
         n = len(self.diag)
         return (n, n)
 
+    def to_device(self, device, dtype=torch.float64):
+        """(cols, vals, diag) as torch tensors on `device`: cols int32 and
+        vals in `dtype`, both K-major (K, N) — the layout of the ELL
+        kernel K3 (ops.spmv) — and diag (N,) in `dtype`."""
+        cols = torch.from_numpy(np.ascontiguousarray(
+            self.cols.T, dtype=np.int32))
+        vals = torch.from_numpy(np.ascontiguousarray(self.vals.T))
+        return (cols.to(device), vals.to(device=device, dtype=dtype),
+                torch.from_numpy(np.asarray(self.diag)).to(device=device,
+                                                           dtype=dtype))
+
     def to_scipy(self):
         """CSR of the full operator (off-diagonals + diagonal), diagonal
         first in each row."""
@@ -36,7 +49,7 @@ class EllMatrix:
         if n * k >= 1_000_000:
             # Native two-pass fill (exact-size buffers) instead of ~10
             # nnz-sized numpy temporaries.
-            from padne_tpu import native
+            from .. import native
 
             indptr, indices, data = native.ell_to_csr(
                 self.cols, self.vals, self.diag)
@@ -71,7 +84,7 @@ def build_ell(n: int, edges: np.ndarray, weights: np.ndarray) -> EllMatrix:
     if len(edges) >= 100_000:
         # Native counting-sort pass: same semantics, columns ascending
         # within each row.
-        from padne_tpu import native
+        from .. import native
 
         cols, vals, diag = native.build_ell(
             n, edges[:, 0], edges[:, 1], weights)

@@ -32,7 +32,7 @@ def hilbert_order(coords: np.ndarray, bits: int = 16,
         # so it needs non-negative groups and bits <= 16).
         import ctypes
 
-        from padne_tpu import native
+        from .. import native
 
         xy = np.ascontiguousarray(coords)
         perm = np.empty(n, dtype=np.int64)

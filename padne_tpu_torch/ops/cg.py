@@ -1,21 +1,33 @@
-"""Deflated multi-RHS preconditioned conjugate gradients, (R, N) layout.
+"""Deflated multi-RHS preconditioned conjugate gradients.
 
-Port of padne_tpu.ops.cg's `make_pcg_t`.  A is an SPSD graph Laplacian
-whose nullspace is the per-component constants; the solver works in the
-orthogonal complement by projecting the RHS, every preconditioned
-residual and (periodically) the residual itself, which yields A^+ B.
-Each column keeps its own alpha/beta and stops on its own tolerance;
-all columns share one multi-RHS matvec and one V-cycle per iteration.
+Port of padne_tpu.ops.cg: `make_pcg` (the generic route, (N, R) layout,
+ELL operator through kernel K3 or a custom operator, AMG or Jacobi
+preconditioner) and `make_pcg_t` (the DIA route, (R, N) layout).  A is
+an SPSD graph Laplacian whose nullspace is the per-component constants;
+the solver works in the orthogonal complement by projecting the RHS,
+every preconditioned residual and (periodically) the residual itself,
+which yields A^+ B.  Each column keeps its own alpha/beta and stops on
+its own tolerance; all columns share one multi-RHS matvec and one
+preconditioner application per iteration.
 
 The JAX `while_loop` is a Python loop here: the continue condition is
 read on the host once per iteration (one device sync per iteration).
+The stateful chunked restarts of the JAX package (`solve.stateful`,
+`dispatch_cap`) exist for a TPU runtime's dispatch time limit and are
+not carried.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from . import spmv
+
+# 2^31 - 2 == stall exit disabled: the counter cannot reach it before
+# maxiter.
+_NO_STALL = 2**31 - 2
 
 
 class CGResult(NamedTuple):
@@ -26,8 +38,52 @@ class CGResult(NamedTuple):
 
 def make_projector(comp_id: torch.Tensor, num_components: int):
     """Orthogonal projector onto the complement of per-component constant
-    vectors, for (R, N) arrays: x <- x - mean_of_component(x), as dense
-    one-hot matmuls (fine up to a few dozen components)."""
+    vectors, for (N, R) arrays: x <- x - mean_of_component(x).
+
+    One component: subtract the column means.  Up to 64: dense one-hot
+    matmuls.  Beyond 64 the (N, p) one-hot would be accidentally
+    quadratic (eroded boards fragment into thousands of islands), so a
+    segment sum (index_add_) and a gather take over."""
+    if num_components == 1:
+        def project(x):
+            return x - x.mean(dim=0, keepdim=True)
+
+        return project
+
+    comp_id = comp_id.long()
+    if num_components > 64:
+        counts = torch.zeros(num_components, dtype=torch.float64,
+                             device=comp_id.device).index_add_(
+            0, comp_id, torch.ones(comp_id.shape[0], dtype=torch.float64,
+                                   device=comp_id.device)).clamp_min(1.0)
+
+        def project(x):
+            sums = torch.zeros((num_components,) + tuple(x.shape[1:]),
+                               dtype=x.dtype, device=x.device).index_add_(
+                0, comp_id, x)                                  # (p, R)
+            means = sums / counts[:, None].to(x.dtype)
+            return x - means[comp_id]
+
+        return project
+
+    # One-hot held in f32 (exact 0/1 values) and cast to the iterate's
+    # dtype at use: exact for f64 solves, f32 state stays f32.
+    onehot = torch.nn.functional.one_hot(
+        comp_id, num_components).to(torch.float32)             # (N, p)
+    counts = onehot.sum(dim=0).double().clamp_min(1.0)
+
+    def project(x):
+        oh = onehot.to(x.dtype)
+        sums = oh.T @ x                                         # (p, R)
+        means = sums / counts[:, None].to(x.dtype)
+        return x - oh @ means
+
+    return project
+
+
+def _make_projector_t(comp_id: torch.Tensor, num_components: int):
+    """The projector of make_pcg_t, for (R, N) arrays, as dense one-hot
+    matmuls (the DIA route carries at most 64 components)."""
     onehot = torch.nn.functional.one_hot(
         comp_id.long(), num_components).to(torch.float32)      # (N, p)
     # Clamp: an empty component (e.g. a dummy padding component when the
@@ -41,6 +97,104 @@ def make_projector(comp_id: torch.Tensor, num_components: int):
         return xt - means @ oh.T
 
     return project
+
+
+def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
+             precond: Optional[tuple] = None,
+             operator: Optional[tuple] = None,
+             stall_window: Optional[int] = None):
+    """Deflated PCG bound to one operator, state kept as (N, R).
+
+    cols/vals/diag: the ELL operator in the device layout of
+    assembly.EllMatrix.to_device (K-major); its matvec is kernel K3.
+    operator: optional (apply, params) replacing it, y = apply(params, x)
+    on (N, R); the Jacobi fallback then reads params["diag"].
+    precond: (apply, params) with z = apply(params, r) on (N, R), e.g.
+    amg.make_vcycle; None selects Jacobi.
+
+    stall_window: exit once no active column has improved 3% in this
+    many iterations.  Only safe under an outer refinement loop with an
+    inner precision floor below the requested tol (the mixed f32 case);
+    in a full-precision solve CG may plateau longer than any window
+    before converging, so leave it None there.
+
+    Returns solve(b, tol, maxiter) -> CGResult."""
+    if precond is None:
+        if operator is not None and not (
+                isinstance(operator[1], dict) and "diag" in operator[1]):
+            raise ValueError(
+                "Jacobi fallback needs the operator's diagonal: pass "
+                "precond=, or an operator params dict with a 'diag' key")
+        dg = operator[1]["diag"] if operator is not None else diag
+        minv = torch.where(dg > 0, 1.0 / torch.where(dg > 0, dg, 1.0), 1.0)
+
+        def apply_m(r):
+            return minv[:, None] * r
+    else:
+        m_apply, m_params = precond
+
+        def apply_m(r):
+            return m_apply(m_params, r)
+
+    if operator is not None:
+        a_apply, a_params = operator
+
+        def matvec(x):
+            return a_apply(a_params, x)
+    else:
+        def matvec(x):
+            return spmv.ell_spmv(cols, vals, diag, x)
+
+    project = make_projector(comp_id, num_components)
+    window = _NO_STALL if stall_window is None else stall_window
+
+    def dot(a, b2):
+        return (a * b2).sum(dim=0)              # (R,)
+
+    def solve(b, tol, maxiter: int = 10000) -> CGResult:
+        b = project(b)
+        target = tol * dot(b, b).sqrt().clamp_min(1e-300)
+        x = torch.zeros_like(b)
+        r = b
+        z = project(apply_m(r))
+        p = z
+        rz = dot(r, z)
+        best = dot(r, r).sqrt()
+        stall = torch.zeros_like(best, dtype=torch.int32)
+        k = 0
+        while k < maxiter:
+            active = dot(r, r).sqrt() > target
+            if not bool((active & (stall < window)).any()):
+                break
+            ap = matvec(p)
+            pap = dot(p, ap)
+            alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0),
+                                0.0)
+            alpha = torch.where(active, alpha, 0.0)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * ap
+            if k % 50 == 49:
+                # Periodic re-projection kills drift into the nullspace.
+                r = project(r)
+            z = project(apply_m(r))
+            rz_new = dot(r, z)
+            beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0),
+                               0.0)
+            # Restart (p = z) on negative beta: below the f32 residual
+            # floor rz is rounding noise and beta > 1 runs would grow p.
+            beta = torch.where(active & (beta > 0), beta, 0.0)
+            p = z + beta[None, :] * p
+            rz = rz_new
+            rn = dot(r, r).sqrt()
+            improved = rn < 0.97 * best
+            best = torch.minimum(best, rn)
+            stall = torch.where(improved, 0, stall + 1)
+            k += 1
+        rtrue = b - matvec(x)
+        return CGResult(x=project(x), iterations=k,
+                        residual_norms=dot(rtrue, rtrue).sqrt())
+
+    return solve
 
 
 def make_pcg_t(operator, precond, comp_id: torch.Tensor,
@@ -59,9 +213,8 @@ def make_pcg_t(operator, precond, comp_id: torch.Tensor,
     whose x is (N, R): one transpose each way per solve."""
     a_apply, a_params = operator
     m_apply, m_params = precond
-    project = make_projector(comp_id, num_components)
-    # 2^31 - 2 == disabled: the counter cannot reach it before maxiter.
-    window = stall_window if stall_window is not None else 2**31 - 2
+    project = _make_projector_t(comp_id, num_components)
+    window = stall_window if stall_window is not None else _NO_STALL
 
     def dot(a, b2):
         return (a * b2).sum(dim=1)              # (R,)

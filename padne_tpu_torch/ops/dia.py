@@ -257,7 +257,7 @@ def pack_dia(
     if len(rows) >= 200_000:
         # Native single-pass packer (offset histogram + split W index +
         # row-sorted remainder), shared with the JAX package.
-        from padne_tpu import native
+        from .. import native
 
         nat = native.pack_dia(b, rows, cols, vals, coverage, max_offsets,
                               offs=offs)
@@ -398,7 +398,7 @@ def pack_csr_pos_as_dia(a, pos, diag, np_override, b: int = DEFAULT_B,
     skipped and supplied pre-padded as `diag`)."""
     a = a.tocsr()
     if a.nnz >= 200_000:
-        from padne_tpu import native
+        from .. import native
 
         nat = native.pack_dia_csr(a, pos, b, coverage, max_offsets)
         offs, hi, lo16, wv, rr, rcc, rv = nat

@@ -1,27 +1,34 @@
 """Bordered saddle-point solve: FEM core + MNA border via Schur complement.
 
-Port of the single-device DIA route of padne_tpu.ops.schur.  With
-A the assembled SPSD Laplacian, C the border injection columns, B the
-border constraint rows, the full system
+Port of padne_tpu.ops.schur.  With A the assembled SPSD Laplacian, C the
+border injection columns, B the border constraint rows, the full system
 
     -A v + C j = r_core
      B v       = r_border
 
 is reduced by the pseudo-inverse: v = A^+ (C j - r_core) + Z c, with Z
 the per-component constants.  The expensive part, A^+ applied to m+1
-vectors, is one deflated multi-RHS PCG (ops.cg) on the block-offset DIA
-operator preconditioned by the aligned AMG cycle (ops.amg); the small
-dense (m+p) Schur block is solved with lstsq on the host.  A refinement
-ladder on the compensated f64 operator (ops.comp) then drives the exact
-full-system residual to the target with f32 inner solves.
+vectors, is one deflated multi-RHS PCG (ops.cg); the small dense (m+p)
+Schur block is solved with lstsq on the host; full-system iterative
+refinement drives the exact residual to the target.
+
+`solve_bordered` routes as the JAX package does: small cores with a
+wide border that touches every component go to a host sparse direct
+solve; large mixed-precision solves with coordinates (or
+operator="dia") take the block-offset DIA route (`DiaBorderedSolver`:
+slab operator K1, aligned AMG, compensated refinement ladder K2); all
+others, and systems too small for a DIA hierarchy, take the generic
+ELL route (ELL AMG + `cg.make_pcg`, every SpMV through K3, f32 inner
+solves with f64 residuals and an escalation to f64 on a stall).
 
 Out of scope here (raises NotImplementedError, never falls back):
-more than 63 deflation components, systems too small for a DIA
-hierarchy, and multi-device row sharding.
+DIA solves with more than 63 deflation components, and multi-device
+row sharding.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from . import amg, assembly, cg, comp, dia
+from . import amg, assembly, cg, comp, dia, spmv
 
 
 @dataclass
@@ -101,6 +108,62 @@ def _f64(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float64)).to(device)
 
 
+def _border_covers_components(system: CoreSystem) -> bool:
+    """True when every copper component is touched by at least one
+    border row or column — a necessary condition for the direct
+    bordered matrix to be nonsingular (an untouched floating component
+    makes it singular; those need the iterative route's deflation)."""
+    touched = np.zeros(system.num_components, dtype=bool)
+    b = system.border
+    touched[system.comp_id[b.row_node]] = True
+    touched[system.comp_id[b.col_node]] = True
+    return bool(touched.all())
+
+
+def _solve_bordered_direct(system: CoreSystem):
+    """Host sparse direct solve (SuperLU) of the full bordered system
+    [[-A, C], [B, 0]] — only for small border-covered cores with wide
+    borders (see solve_bordered).  Returns None when the factorization
+    is singular (the caller takes the deflated iterative route)."""
+    import warnings
+
+    import scipy.sparse.linalg
+
+    n, m = system.n, system.border.m
+    b = system.border
+    L, r, A, B, C = bordered_scipy_system(system)
+    with warnings.catch_warnings():
+        # A singular factorization surfaces as MatrixRankWarning +
+        # inf/NaN; the finite check below turns that into a fall-through.
+        warnings.simplefilter("ignore",
+                              scipy.sparse.linalg.MatrixRankWarning)
+        z = scipy.sparse.linalg.spsolve(L, r)
+    if not np.isfinite(z).all():
+        return None
+    v, j = z[:n], z[n:]
+    res_core = system.r_core + A @ v - C @ j
+    res_border = b.rhs - B @ v
+    res_norm = float(np.sqrt((res_core**2).sum() + (res_border**2).sum()))
+    gc = float(j[system.ground_var]) if m > 0 else 0.0
+    return BorderedSolution(
+        v=v, j=np.asarray(j), residual_norm=res_norm,
+        ground_current=gc, cg_iterations=0, refinement_steps=0)
+
+
+def _dense_border(system: CoreSystem, device):
+    """B (m, n) rows and C (n, m) columns as dense f64 tensors (m is
+    small: sources + ground)."""
+    b = system.border
+    n, m = system.n, b.m
+    B = torch.zeros(m, n, dtype=torch.float64, device=device)
+    B.index_put_((_index(b.row_idx, device), _index(b.row_node, device)),
+                 _f64(b.row_val, device), accumulate=True)
+    C = torch.zeros(n, m, dtype=torch.float64, device=device)
+    C.index_put_((_index(b.col_node, device), _index(b.col_idx, device)),
+                 _f64(b.col_val, device), accumulate=True)
+    return B, C
+
+
 class DiaBorderedSolver:
     """The block-offset-DIA solve path, set up once and solvable
     repeatedly.
@@ -142,19 +205,19 @@ class DiaBorderedSolver:
         if system.coords is None:
             raise ValueError("the DIA path needs node coordinates "
                              "(CoreSystem.coords) for the Hilbert ordering")
-        if p + 1 > 64:
-            raise NotImplementedError(
-                f"{p} deflation components: the dense one-hot projector "
-                "covers at most 63 (the segment-sum PCG is not ported)")
         self.A_host = system.ell.to_scipy()
         hierarchy = amg.build_hierarchy_dia(
             system.ell, system.coords, coarse_size=coarse_size,
             group=system.group, a_csr=self.A_host, max_offsets=max_offsets)
         if not hierarchy.levels:
-            raise NotImplementedError(
+            raise _NoDiaHierarchy(
                 f"n={n} is too small for a DIA hierarchy at "
-                f"coarse_size={coarse_size} (the generic ELL path is not "
-                "ported)")
+                f"coarse_size={coarse_size}")
+        if p + 1 > 64:
+            raise NotImplementedError(
+                f"{p} deflation components: the DIA route's (R, n) PCG "
+                "projects with a dense one-hot of at most 64 columns (the "
+                "normal-layout DIA branch is not ported)")
         self.hierarchy = hierarchy
         level0 = hierarchy.levels[0]
         meta0 = level0.pack.meta
@@ -404,3 +467,222 @@ def solve_bordered_dia(system: CoreSystem, device=None,
     solver = DiaBorderedSolver(system, device=device, **solver_kw)
     return solver.solve(target_residual=target_residual,
                         max_refinements=max_refinements)
+
+
+class _NoDiaHierarchy(Exception):
+    """No DIA hierarchy could be built (system too small)."""
+
+
+def solve_bordered(
+    system: CoreSystem,
+    tol: float = 1e-14,
+    maxiter: int = 40000,
+    max_refinements: int = 8,
+    target_residual: float = 1e-10,
+    precond: str = "auto",
+    amg_threshold: int = 5000,
+    inner_dtype=None,
+    operator: str = "auto",
+    dia_threshold: int = 200_000,
+    device=None,
+    stats: Optional[dict] = None,
+) -> BorderedSolution:
+    """Solve the full bordered system, routed as the JAX package routes.
+
+    inner_dtype: torch dtype of the inner CG/AMG solve (the JAX
+    package's device_dtype); None means float64.  A lower precision runs
+    classic mixed-precision iterative refinement: f32 inner solves, f64
+    residuals and accumulated solution.
+
+    operator: "auto" sends mixed-precision solves of n >= dia_threshold
+    with coordinates to the DIA route and everything else, including
+    systems too small for a DIA hierarchy, to the ELL route; "dia" and
+    "ell" force one.  precond: "auto" (AMG from amg_threshold core
+    unknowns), "amg" or "jacobi" — the ELL route's preconditioner.
+
+    stats: optional dict that receives the route ("direct", "dia" or
+    "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
+    uploads) and, on the ELL route, ell_k and escalated."""
+    n, m = system.n, system.border.m
+    stats = {} if stats is None else stats
+    if operator == "dia" and system.coords is None:
+        raise ValueError("operator='dia' needs node coordinates "
+                         "(CoreSystem.coords) for the Hilbert ordering")
+    # Small core + WIDE MNA border: m+1 Schur columns of CG work are out
+    # of proportion to a system SuperLU factors in milliseconds.  A
+    # copper component no border row touches leaves the bordered matrix
+    # singular, so such boards keep the iterative route.
+    if (operator == "auto" and m > 16 and n <= 50_000
+            and _border_covers_components(system)):
+        direct = _solve_bordered_direct(system)
+        if direct is not None:
+            stats.update(route="direct", levels=[], setup_s=0.0)
+            return direct
+
+    dev = device_mod.resolve(device)
+    use_dia = operator == "dia" or (
+        operator == "auto" and inner_dtype is not None
+        and system.coords is not None and n >= dia_threshold)
+    if use_dia:
+        t0 = time.perf_counter()
+        try:
+            solver = DiaBorderedSolver(system, device=dev, tol=tol,
+                                       maxiter=maxiter)
+        except _NoDiaHierarchy:
+            solver = None   # fall through to the ELL route
+        if solver is not None:
+            stats.update(route="dia", setup_s=time.perf_counter() - t0,
+                         levels=[lv.pack.np_
+                                 for lv in solver.hierarchy.levels])
+            return solver.solve(target_residual=target_residual,
+                                max_refinements=max_refinements)
+    return _solve_bordered_ell(
+        system, dev, tol=tol, maxiter=maxiter,
+        max_refinements=max_refinements, target_residual=target_residual,
+        precond=precond, amg_threshold=amg_threshold,
+        inner_dtype=inner_dtype, stats=stats)
+
+
+def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
+                        max_refinements, target_residual, precond,
+                        amg_threshold, inner_dtype, stats) -> BorderedSolution:
+    """The generic ELL route of solve_bordered: one multi-RHS deflated
+    PCG per Schur pass over the ELL operator (kernel K3), the small
+    dense block by host lstsq, f64 full-system refinement."""
+    t0 = time.perf_counter()
+    n, m = system.n, system.border.m
+    p = system.num_components
+    f64 = torch.float64
+    cols, vals, diag = system.ell.to_device(dev, f64)
+    comp_id = _index(system.comp_id, dev)
+    B, C = _dense_border(system, dev)
+    mixed = inner_dtype is not None and inner_dtype != f64
+    inner = inner_dtype if mixed else f64
+    if mixed:
+        cols_i, vals_i, diag_i = system.ell.to_device(dev, inner)
+        inner_tol = max(tol, 1e-5)
+    else:
+        cols_i, vals_i, diag_i = cols, vals, diag
+        inner_tol = tol
+    use_amg = precond == "amg" or (precond == "auto" and n >= amg_threshold)
+    if use_amg and not mixed:
+        # The V-cycle's attainable f64 residual floor sits around 1e-11
+        # relative; the outer refinement multiplies the gain per pass.
+        inner_tol = max(inner_tol, 1e-9)
+
+    def zt(y):
+        """Z^T y: per-component sums, (p, ...) for y of shape (n, ...)."""
+        out = torch.zeros((p,) + tuple(y.shape[1:]), dtype=y.dtype,
+                          device=dev)
+        return out.index_add_(0, comp_id, y)
+
+    r_core = _f64(system.r_core, dev)
+    r_border = _f64(system.border.rhs, dev)
+    hierarchy = vcycle = None
+    if use_amg:
+        hierarchy = amg.build_hierarchy(system.ell)
+        vcycle = amg.make_vcycle(hierarchy, dev, dtype=inner)
+    # Stall exit only with a mixed-precision inner solve (see make_pcg).
+    cg_solver = cg.make_pcg(cols_i, vals_i, diag_i, comp_id, p,
+                            precond=vcycle,
+                            stall_window=30 if mixed else None)
+    BZ = zt(B.T).T.cpu().numpy()          # (m, p)
+    ZtC = zt(C).cpu().numpy()             # (p, m)
+    stats.update(route="ell", ell_k=int(system.ell.cols.shape[1]),
+                 levels=([len(lv.a_diag) for lv in hierarchy.levels]
+                         if hierarchy is not None else []),
+                 setup_s=time.perf_counter() - t0)
+    total_cg_iters = 0
+
+    def solve_once(rc, rb, tol_pass=None):
+        """One Schur pass for core rhs rc and border rhs rb (f64 device
+        tensors); tol_pass: inner CG tolerance (default inner_tol)."""
+        nonlocal total_cg_iters
+        rhs = torch.cat([C, rc[:, None]], dim=1)              # (n, m+1)
+        res = cg_solver(rhs.to(inner),
+                        inner_tol if tol_pass is None else tol_pass,
+                        maxiter)
+        total_cg_iters += res.iterations
+        X = res.x.to(f64)                  # [A^+ C | A^+ rc]
+        Xc, xr = X[:, :m], X[:, m]
+        BXc = (B @ Xc).cpu().numpy()                          # (m, m)
+        Bxr = (B @ xr).cpu().numpy()                          # (m,)
+        Ztr = zt(rc).cpu().numpy()                            # (p,)
+        rb_h = rb.cpu().numpy()
+        if p > 256:
+            # Heavily fragmented copper: the block matrix is almost all
+            # the (p, p) zero block — solve the thin blocks directly:
+            # lstsq(ZtC) for j, then the minimum-norm c from the first
+            # block; the outer refinement guards rank-deficient corners.
+            j, *_ = np.linalg.lstsq(ZtC, Ztr, rcond=None)
+            c, *_ = np.linalg.lstsq(BZ, (rb_h + Bxr) - BXc @ j, rcond=None)
+        else:
+            M = np.concatenate([
+                np.concatenate([BXc, BZ], axis=1),
+                np.concatenate([ZtC, np.zeros((p, p))], axis=1)], axis=0)
+            sol, *_ = np.linalg.lstsq(M, np.concatenate([rb_h + Bxr, Ztr]),
+                                      rcond=None)
+            j, c = sol[:m], sol[m:]
+        jt, ct = _f64(j, dev), _f64(c, dev)
+        return Xc @ jt - xr + ct[comp_id], jt
+
+    def full_residual(v, j):
+        # core: r_core - (-A v + C j);  border: r_border - B v
+        av = spmv.ell_spmv(cols, vals, diag, v[:, None])[:, 0]
+        return r_core + av - C @ j, r_border - B @ v
+
+    def norm(rc, rb):
+        return float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
+
+    def escalate_inner_to_f64():
+        """Swap the inner solve to f64 after a mixed-precision stall: an
+        f32 inner operator contracts per pass by ~kappa(A)*eps32, and
+        boards mixing milliohm couplings with thin-sliver cotan weights
+        push kappa past 1e7, above the target."""
+        nonlocal cg_solver, inner_tol, inner
+        vc64 = amg.make_vcycle(hierarchy, dev) if use_amg else None
+        cg_solver = cg.make_pcg(cols, vals, diag, comp_id, p,
+                                precond=vc64, stall_window=None)
+        inner = f64
+        inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)
+
+    v, j = solve_once(r_core, r_border)
+    refinements = 0
+    escalated = False
+    budget = max_refinements
+    res_core, res_border = full_residual(v, j)
+    res_norm = norm(res_core, res_border)
+    while res_norm > target_residual:
+        if refinements >= budget:
+            if mixed and not escalated:
+                escalate_inner_to_f64()
+                escalated = True
+                budget = refinements + 4
+                continue
+            break
+        # Pass-adaptive inner tolerance: request only the remaining
+        # contraction to the outer target, with a 5x margin.
+        tol_pass = min(0.05, max(inner_tol, 0.2 * target_residual / res_norm))
+        dv, dj = solve_once(res_core, res_border, tol_pass=tol_pass)
+        v_new, j_new = v + dv, j + dj
+        rc_new, rb_new = full_residual(v_new, j_new)
+        new_norm = norm(rc_new, rb_new)
+        refinements += 1
+        if new_norm >= res_norm:
+            if mixed and not escalated:
+                # Discard the failed iterate; retry the pass in f64.
+                escalate_inner_to_f64()
+                escalated = True
+                budget = refinements + 4
+                continue
+            break  # no progress; keep the better iterate
+        v, j = v_new, j_new
+        res_core, res_border = rc_new, rb_new
+        res_norm = new_norm
+
+    stats["escalated"] = escalated
+    j = j.cpu().numpy()
+    gc = float(j[system.ground_var]) if m > 0 else 0.0
+    return BorderedSolution(
+        v=v.cpu().numpy(), j=j, residual_norm=res_norm, ground_current=gc,
+        cg_iterations=total_cg_iters, refinement_steps=refinements)

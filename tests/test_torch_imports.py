@@ -1,10 +1,20 @@
-"""The port never imports jax (the CUDA machine has none) nor lxml."""
+"""The port never imports jax (the CUDA machine has none), lxml, or any
+module of the JAX package padne_tpu (it keeps its own copies of the
+jax-free host modules)."""
 
 import pathlib
 import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+# Exact names: padne_tpu_torch shares the prefix of padne_tpu.
+_FORBIDDEN = (
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'lxml')\n"
+    "             or m == 'padne_tpu' or m.startswith('padne_tpu.'))\n"
+    "assert not bad, bad\n"
+)
 
 
 def _port_modules():
@@ -17,13 +27,13 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "padne_tpu_torch.ops.dia" in mods and len(mods) >= 14
+    assert "padne_tpu_torch.ops.dia" in mods and len(mods) >= 24
+    assert "padne_tpu_torch.kicad" in mods and "padne_tpu_torch.native" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in ('jax', 'jaxlib', 'lxml') if m in sys.modules)\n"
-        "assert not bad, bad\n"
+        f"{_FORBIDDEN}"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -38,7 +48,7 @@ def test_chip_smoke_imports_without_jax():
         "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
         "except SystemExit:\n"
         "    pass\n"
-        "assert 'jax' not in sys.modules\n"
+        f"{_FORBIDDEN}"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -63,6 +63,20 @@ def test_reported_residual_is_exact():
 
 
 def test_unported_routes_raise():
+    """A system too small for a DIA hierarchy raises the private
+    _NoDiaHierarchy, on which solve_bordered(operator="dia") falls
+    through to the ELL route, as the JAX package does; a DIA solve with
+    more than 63 deflation components is not ported and raises."""
     system = convert.core_system_from_numpy(make_system(g=20))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(schur._NoDiaHierarchy):
         schur.DiaBorderedSolver(system, device="cpu")
+    stats = {}
+    sol = schur.solve_bordered(system, operator="dia", device="cpu",
+                               stats=stats)
+    assert stats["route"] == "ell" and sol.residual_norm < 1e-9
+
+    fragmented = convert.core_system_from_numpy(make_system(g=64, seed=1))
+    fragmented.comp_id = np.arange(fragmented.n) % 70
+    fragmented.num_components = 70
+    with pytest.raises(NotImplementedError):
+        schur.DiaBorderedSolver(fragmented, device="cpu", coarse_size=COARSE)
