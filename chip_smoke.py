@@ -11,12 +11,14 @@ Phases (any failure exits non-zero; there is no CPU path):
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from padne_tpu_torch/csrc, timed;
 3. kernel K1 (slab SpMV) against its plain PyTorch version on the card,
-   at the main path's shapes: the level-0 f32 slab with 8 slots at
-   R = 1 and 4, and a deep-level bf16 slab with 24 offsets (dmax 32);
-   max relative error (bound 1e-5 of max|y|: f32 sums in another order)
-   and ms per call of each, by CUDA events;
-4. kernel K2 (compensated slab residual) against its f64 plain version,
-   bound 2e-13 * max(|A| |x|), and both times;
+   on the operators of the DIA route's own set-up of the bench board at
+   --dof: the level-0 f32 CG slab with its 8 slots at R = 1 and 4, and
+   the level-1 bf16 cycle slab at R = 4 (random x); max relative error
+   (bound 1e-5 of max|y|: f32 sums in another order) and ms per call of
+   each, by CUDA events;
+4. kernel K2 (compensated slab residual) on the same level-0 hi and lo
+   slabs against its f64 plain version, bound 2e-13 * max(|A| |x|), and
+   both times;
 5. the DIA route: padne_tpu_torch.solver.solve on the generated 4-layer
    bench board at --dof (sized as bench.py sizes it), with the kernels'
    launch counters reset just before and read just after: K1 and K2
@@ -38,11 +40,13 @@ Phases (any failure exits non-zero; there is no CPU path):
    1e-6 V of spsolve at residual < 1e-9.
 
 Beside each kernel, the line before the last reports the least time the
-card could take for the same call (bytes over 3.35 TB/s, or flops over
-67 TFLOP/s f32 / 34 TFLOP/s f64, whichever is larger) and the time of
-torch.sparse.mm (cuSPARSE) on a CSR tensor of the same operator and
-inputs: f32 for K1 and K3, f64 for K2.  The last line is
-{"ok": true, "device": {...}}.
+card could take for the same call (bound_ms: the bytes of the kernel's
+operands over 3.35 TB/s, or flops over 67 TFLOP/s f32 / 34 TFLOP/s f64,
+whichever is larger), the same bytes bound for a CSR of the operator's
+nonzeros (csr_bound_ms: a slab stores every entry of its 128 x 128
+blocks, mostly zeros), and the time of torch.sparse.mm (cuSPARSE) on
+that CSR and the same inputs: f32 for K1 and K3, f64 for K2.  The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,9 +60,6 @@ import tempfile
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
-L0_NP, L0_OFFS = 1_276_928, (-2, -1, 0, 1)       # level 0 at ~1.09M DoF
-DEEP_NP = 217_088                                 # level 1 at ~1.09M DoF
-DEEP_OFFS = (-32, *range(-11, 11), 32)            # D = 24, dmax 32
 HBM_BPS = 3.35e12                                 # H100 SXM data sheet
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}         # non-tensor-core FMA
 SMALL_BOARDS = ("gen_regulator", "gen_resistor_divider",
@@ -98,10 +99,10 @@ def bound(nbytes: float, flops: float, kind: str):
 
 
 def slab_csr(meta, w, slots=None, w_lo=None):
-    """The operator of a slab (plus slot entries) as a torch CSR tensor on
-    the card: row rb*128 + c holds W[rb, o, k, c] at column (rb+o)*128 + k
-    (offsets off the block range become explicit zeros), f64 (W + W_lo)
-    when w_lo is given, else f32.  Columns sorted within each row."""
+    """The operator of a slab (plus slot entries) as a torch CSR tensor of
+    its nonzeros on the card: row rb*128 + c holds W[rb, o, k, c] at
+    column (rb+o)*128 + k, f64 (W + W_lo) when w_lo is given, else f32.
+    Columns sorted within each row."""
     import torch
 
     np_, b, g, ng, offs = meta
@@ -131,10 +132,11 @@ def slab_csr(meta, w, slots=None, w_lo=None):
     cols, order = cols.sort(dim=1)
     vals = torch.gather(vals, 1, order)
     del order
-    per_row = cols.shape[1]
-    crow = torch.arange(0, np_ + 1, device=dev, dtype=torch.int64) * per_row
-    return torch.sparse_csr_tensor(crow.to(torch.int32), cols.reshape(-1),
-                                   vals.reshape(-1), size=(np_, np_))
+    keep = vals != 0
+    crow = torch.zeros(np_ + 1, dtype=torch.int64, device=dev)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), cols[keep],
+                                   vals[keep], size=(np_, np_))
 
 
 def scipy_csr(a, dtype, dev):
@@ -148,26 +150,27 @@ def scipy_csr(a, dtype, dev):
         torch.from_numpy(a.data), size=a.shape).to(device=dev, dtype=dtype)
 
 
-def k1_case(name, np_, offs, dtype, r, e, seed, library=False):
-    """K1 vs its plain version on random data of the given shape."""
+def csr_bytes(csr, x, y_cols: int) -> int:
+    """Bytes a CSR product must move: indices, values, row pointers, x
+    read once, y (rows x y_cols in x's dtype) written once."""
+    nnz = csr.values().numel()
+    s = x.element_size()
+    return (nnz * (csr.col_indices().element_size()
+                   + csr.values().element_size())
+            + csr.crow_indices().numel() * 4 + x.numel() * s
+            + csr.shape[0] * y_cols * s)
+
+
+def k1_case(name, meta, w, slots, r, seed, library=False):
+    """K1 vs its plain version on one slab of the main path (random x)."""
     import torch
 
     from padne_tpu_torch.ops import dia
 
-    dev = torch.device(DEV)
+    np_, offs = meta[0], meta[4]
     nb = np_ // 128
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    w = torch.randn(nb // 8, 8, len(offs), 128, 128, generator=gen,
-                    device=dev).to(dtype)
-    xt = torch.randn(r, np_, generator=gen, device=dev)
-    slots = None
-    if e:
-        slots = (torch.randint(0, nb, (nb * e,), generator=gen, device=dev,
-                               dtype=torch.int32),
-                 torch.randint(0, 128, (nb, e, 128), generator=gen,
-                               device=dev, dtype=torch.int32),
-                 torch.randn(nb, e, 128, generator=gen, device=dev))
-    meta = (np_, 128, 8, nb // 8, offs)
+    gen = torch.Generator(device=w.device).manual_seed(seed)
+    xt = torch.randn(r, np_, generator=gen, device=w.device)
     y = dia.slab_matvec(meta, w, xt, slots)
     ref = dia.slab_matvec_plain(meta, w, xt, slots)
     torch.cuda.synchronize()
@@ -176,48 +179,48 @@ def k1_case(name, np_, offs, dtype, r, e, seed, library=False):
     ms = time_ms(lambda: dia.slab_matvec(meta, w, xt, slots))
     plain_ms = time_ms(lambda: dia.slab_matvec_plain(meta, w, xt, slots))
     gbytes = w.numel() * w.element_size() / 1e9
-    nslot = (nb * e * 128) if e else 0
+    e = slots[2].shape[1] if slots is not None else 0
+    nslot = nb * e * 128
     bound_ms, bound_by = bound(
         w.numel() * w.element_size() + 2 * xt.numel() * 4
         + nslot * 8 + nb * e * 4, 2 * r * (w.numel() + nslot), "f32")
-    library_ms = None
+    library_ms = csr_bound_ms = None
     if library:
         csr = slab_csr(meta, w, slots)
         xn = xt.T.contiguous()
         lib_err = float((torch.sparse.mm(csr, xn).T - ref).abs().max())
         library_ms = time_ms(lambda: torch.sparse.mm(csr, xn))
+        csr_bound_ms = csr_bytes(csr, xn, r) / HBM_BPS * 1e3
+        nnz = csr.values().numel()
         check(lib_err <= 1e-5 * float(ref.abs().max()),
               f"the CSR yardstick of K1 {name} computes another function")
         del csr, xn
         torch.cuda.empty_cache()
     print(f"[K1 {name}] np={np_} D={len(offs)} dmax={max(map(abs, offs))} "
-          f"R={r} E={e} {str(dtype).removeprefix('torch.')}: "
+          f"R={r} E={e} {str(w.dtype).removeprefix('torch.')}: "
           f"max_rel_err={rel:.3e} max_abs_err={abs_err:.3e} "
           f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.0f} GB/s slab stream) "
           f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-          f"library(csr) {library_ms} ms", flush=True)
+          f"library(csr) {library_ms} ms"
+          + (f" csr nnz {nnz} ({nnz / (np_ * (len(offs) * 128 + e)):.4f} "
+             f"of the slab's entries) csr_bound {csr_bound_ms:.4f} ms"
+             if library else ""), flush=True)
     check(rel <= 1e-5, f"K1 {name} disagrees with its plain version "
                        f"({rel:.3e})")
     return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
 
 
-def k2_case(seed):
+def k2_case(meta, w, w_lo, seed):
+    """K2 vs its f64 plain version on the level-0 hi and lo slabs."""
     import torch
 
     from padne_tpu_torch.ops import comp
 
-    dev = torch.device(DEV)
-    nb = L0_NP // 128
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    w64 = torch.randn(nb, len(L0_OFFS), 128, 128, generator=gen,
-                      device=dev, dtype=torch.float64) * 2081.0
-    w = w64.float()
-    w_lo = (w64 - w.double()).float()
-    del w64
-    x = torch.randn(L0_NP, generator=gen, device=dev) + 1.0
-    meta = (L0_NP, 128, 8, nb // 8, L0_OFFS)
+    np_, offs = meta[0], meta[4]
+    gen = torch.Generator(device=w.device).manual_seed(seed)
+    x = torch.randn(np_, generator=gen, device=w.device) + 1.0
     y = comp.comp_slab(meta, w, w_lo, x)
     ref = comp.comp_slab_plain(meta, w, w_lo, x)
     tol = 2e-13 * float(
@@ -226,25 +229,52 @@ def k2_case(seed):
     abs_err = float((y - ref).abs().max())
     ms = time_ms(lambda: comp.comp_slab(meta, w, w_lo, x))
     plain_ms = time_ms(lambda: comp.comp_slab_plain(meta, w, w_lo, x))
-    bound_ms, bound_by = bound(2 * w.numel() * 4 + L0_NP * (4 + 8),
+    bound_ms, bound_by = bound(2 * w.numel() * 4 + np_ * (4 + 8),
                                4 * w.numel(), "f64")
     csr = slab_csr(meta, w, w_lo=w_lo)
     x64 = x.double()[:, None]
     lib_err = float((torch.sparse.mm(csr, x64)[:, 0] - ref).abs().max())
     library_ms = time_ms(lambda: torch.sparse.mm(csr, x64))
+    csr_bound_ms = csr_bytes(csr, x64, 1) / HBM_BPS * 1e3
     check(lib_err <= tol, "the CSR yardstick of K2 computes another function")
     del csr
     torch.cuda.empty_cache()
-    print(f"[K2 l0] np={L0_NP} D={len(L0_OFFS)} f32 hi+lo -> f64: "
+    print(f"[K2 l0] np={np_} D={len(offs)} f32 hi+lo -> f64: "
           f"max_abs_err={abs_err:.3e} (bound {tol:.3e}) "
           f"kernel {ms:.4f} ms ({2 * w.numel() * 4 / ms / 1e6:.0f} GB/s "
           f"slab streams) plain(f64 bmm) {plain_ms:.4f} ms "
           f"bound {bound_ms:.4f} ms ({bound_by}) "
-          f"library(csr f64) {library_ms:.4f} ms", flush=True)
+          f"library(csr f64) {library_ms:.4f} ms "
+          f"csr_bound {csr_bound_ms:.4f} ms", flush=True)
     check(abs_err <= tol, "K2 disagrees with its f64 plain version")
     return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
+
+
+def dia_kernel_cases(system):
+    """K1 and K2 on the slabs the DIA route sets up for `system`, with
+    the route's own defaults.  Returns (K1 cases, K2 case)."""
+    import torch
+
+    from padne_tpu_torch.ops import dia, schur
+
+    t0 = time.perf_counter()
+    s = schur.DiaBorderedSolver(system, device=DEV)
+    print(f"[kernels] DIA set-up of the main path's operators "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    levels = s.hierarchy.levels
+    meta0 = levels[0].pack.meta
+    slots = dia._slots(s.op_params)
+    w0 = s.op_params["w"]
+    k1 = [k1_case("l0 CG operator", meta0, w0, slots, 1, 1),
+          k1_case("l0 CG operator", meta0, w0, slots, 4, 2, library=True),
+          k1_case("l1 cycle slab", levels[1].pack.meta,
+                  s.cycle_params[1]["w"], None, 4, 3)]
+    k2 = k2_case(meta0, w0, s._comp.params["w_lo"], 4)
+    del s
+    torch.cuda.empty_cache()
+    return k1, k2
 
 
 def check_fields(sol, n: int) -> None:
@@ -330,11 +360,13 @@ def k3_case(name, cols, vals, diag, x, csr, tol):
         (4 + s) * k * n + (0 if diag is None else s * n) + s * x.numel()
         + s * n * r, 2 * k * n * r + (0 if diag is None else 2 * n * r),
         kind)
+    csr_bound_ms = csr_bytes(csr, x, r) / HBM_BPS * 1e3
     print(f"[K3 {name}] n={n} nx={x.shape[0]} K={k} R={r} {kind}: "
           f"max_rel_err={abs_err / scale:.3e} max_abs_err={abs_err:.3e} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
           f"bound {bound_ms:.4f} ms ({bound_by}) "
-          f"library(csr) {library_ms:.4f} ms", flush=True)
+          f"library(csr) {library_ms:.4f} ms "
+          f"csr_bound {csr_bound_ms:.4f} ms", flush=True)
     check(abs_err <= tol * scale,
           f"K3 {name} disagrees with its plain version "
           f"({abs_err / scale:.3e})")
@@ -342,7 +374,7 @@ def k3_case(name, cols, vals, diag, x, csr, tol):
           f"the CSR yardstick of K3 {name} computes another function")
     return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
 
 
 def k3_cases(system):
@@ -353,7 +385,7 @@ def k3_cases(system):
     import scipy.sparse
     import torch
 
-    from padne_tpu_torch.ops import amg
+    from padne_tpu_torch.ops import amg, spmv
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -374,9 +406,7 @@ def k3_cases(system):
                              lv.p_cols.ravel())),
         shape=(nf, len(lv.r_cols))).tocsr()
     p_csr.eliminate_zeros()   # the ELL padding
-    cols = torch.from_numpy(np.ascontiguousarray(lv.p_cols.T)).to(dev)
-    vals = torch.from_numpy(np.ascontiguousarray(lv.p_vals.T)).to(
-        device=dev, dtype=torch.float32)
+    cols, vals = spmv.to_kmajor(lv.p_cols, lv.p_vals, dev, torch.float32)
     x = torch.randn(len(lv.r_cols), r, generator=gen, device=dev)
     out.append(k3_case("P f32", cols, vals, None, x,
                        scipy_csr(p_csr, torch.float32, dev), 1e-5))
@@ -399,14 +429,19 @@ def reset_counts() -> None:
     spmv.ell_spmv.launches = spmv.ell_rect_spmv.launches = 0
 
 
-def dia_phases(args, tmp: pathlib.Path) -> dict:
-    """The DIA route at --dof, then the scipy check at --scipy-dof.
-    Returns the main solve's launch counts."""
+def dia_phases(args, tmp: pathlib.Path):
+    """K1 and K2 on the DIA route's operators at --dof, the DIA route at
+    --dof, then the scipy check at --scipy-dof.  Returns (K1 cases, K2
+    case, the main solve's launch counts)."""
+    import torch
+
     from padne_tpu_torch import solver
 
     t0 = time.perf_counter()
     prob, cfg = bench_problem(tmp, args.dof)
     t_load = time.perf_counter() - t0
+    k1, k2 = dia_kernel_cases(solver.build_system(prob, cfg)[0])
+    torch.cuda.empty_cache()
 
     reset_counts()
     stats = {}
@@ -445,7 +480,7 @@ def dia_phases(args, tmp: pathlib.Path) -> dict:
     check_fields(sol, stats2["n"])
     check(sol.solver_info.residual_norm < 1e-9,
           "scipy-check solve misses the 1e-9 gate")
-    return launches
+    return k1, k2, launches
 
 
 def ell_phases(args, tmp: pathlib.Path):
@@ -544,14 +579,6 @@ def main() -> int:
     print(f"[build] CUDA kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    k1 = [k1_case("l0 CG operator", L0_NP, L0_OFFS, torch.float32, 1, 8, 1),
-          k1_case("l0 CG operator", L0_NP, L0_OFFS, torch.float32, 4, 8, 2,
-                  library=True),
-          k1_case("deep cycle level", DEEP_NP, DEEP_OFFS, torch.bfloat16,
-                  4, 0, 3)]
-    k2 = k2_case(4)
-    torch.cuda.empty_cache()
-
     t0 = time.perf_counter()
     from padne_tpu_torch import geom  # noqa: F401  builds the C++ core (g++)
     print(f"[setup] host geometry core ready in "
@@ -559,7 +586,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        dia_launches = dia_phases(args, pathlib.Path(tmp))
+        k1, k2, dia_launches = dia_phases(args, pathlib.Path(tmp))
         torch.cuda.empty_cache()
         k3, ell_launches = ell_phases(args, pathlib.Path(tmp))
 
@@ -569,7 +596,7 @@ def main() -> int:
                 "max_abs_err": max(c["abs_err"] for c in cases),
                 **{key: main_case[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                    "library_ms", "csr_bound_ms")}}
 
     kernels_line = {"kernels": [
         entry("dia_slab", "padne_tpu_torch/csrc/dia_slab.cu",
@@ -579,7 +606,8 @@ def main() -> int:
               "padne_tpu/ops/comp.py:274", dia_launches["comp_slab"], [k2],
               k2),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
-              "padne_tpu/ops/spmv_pallas.py:84",
+              "padne_tpu/ops/spmv_pallas.py:84, "
+              "padne_tpu/ops/spmv_pallas.py:172",
               ell_launches["ell_spmv"] + ell_launches["ell_rect_spmv"], k3,
               k3[1]),
     ]}

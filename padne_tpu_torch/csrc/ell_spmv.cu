@@ -16,9 +16,11 @@
 // they gather a valid x row and add nothing.
 //
 // Layout: cols/vals are stored K-major, (K, n) — the transposed ELL arrays,
-// laid out once at upload (padne_tpu_torch/ops/assembly.py
-// `EllMatrix.to_device`, ops/amg.py `make_vcycle`) — so that the 32 rows of
-// a warp read slot k of cols and vals from 32 neighbouring addresses.
+// laid out once at upload by padne_tpu_torch/ops/spmv.py `to_kmajor` — so
+// that the 32 rows of a warp read slot k of cols and vals from 32
+// neighbouring addresses.  The rectangular form does not check that cols
+// index rows of x: the caller checks once at upload (ops/amg.py
+// `make_vcycle`).
 //
 // The TPU variants work around the TPU's missing vector gather: K3a builds a
 // one-hot tile per 128 rows (iota == index) and multiplies a 3-block x

@@ -687,39 +687,44 @@ def build_hierarchy(
     return AMGHierarchy(levels=levels, coarse_inv=coarse_inv)
 
 
-def _ell_t(a: np.ndarray, device, dtype=None) -> torch.Tensor:
-    """(N, K) host ELL array -> the K-major (K, N) device layout of K3."""
-    t = torch.from_numpy(np.ascontiguousarray(a.T))
-    return t.to(device=device, dtype=dtype or t.dtype)
-
-
-def make_vcycle(h: AMGHierarchy, device, dtype=None):
+def make_vcycle(h: AMGHierarchy, device, dtype=None, a0=None):
     """(apply, params): z = apply(params, r) on (N, R) tensors, a
     symmetric V(1,1) cycle (damped-Jacobi pre/post smoothing from a zero
     guess), so an SPD preconditioner for CG.  Single device.
 
     dtype: the cycle's working precision (None: float64).  Every level
     operator, restriction and prolongation is an ELL product through
-    ops.spmv (kernel K3 on the card, K-major arrays uploaded once here);
-    the dense coarsest solve is one matmul."""
+    ops.spmv (kernel K3 on the card, arrays uploaded once here in its
+    layout); the dense coarsest solve is one matmul.  a0: level 0's
+    (cols, vals, diag) already on the device in that layout and dtype
+    (the CG operator's), shared instead of uploaded again."""
     from . import spmv
 
     dtype = dtype or torch.float64
+    sizes = [len(lv.a_diag) for lv in h.levels] + [h.coarse_inv.shape[0]]
     params = []
-    for lv in h.levels:
-        d = torch.from_numpy(lv.a_diag).to(device=device, dtype=dtype)
+    for i, lv in enumerate(h.levels):
+        if i == 0 and a0 is not None:
+            a_cols, a_vals, d = a0
+        else:
+            a_cols, a_vals = spmv.to_kmajor(lv.a_cols, lv.a_vals, device,
+                                            dtype)
+            d = torch.from_numpy(lv.a_diag).to(device=device, dtype=dtype)
         entry = {
-            "a_cols": _ell_t(lv.a_cols.astype(np.int32), device),
-            "a_vals": _ell_t(lv.a_vals, device, dtype),
-            "a_diag": d,
+            "a_cols": a_cols, "a_vals": a_vals, "a_diag": d,
             "dinv": torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
                                 0.0),
         }
         if lv.p_cols is not None:
-            entry["p_cols"] = _ell_t(lv.p_cols.astype(np.int32), device)
-            entry["p_vals"] = _ell_t(lv.p_vals, device, dtype)
-            entry["r_cols"] = _ell_t(lv.r_cols.astype(np.int32), device)
-            entry["r_vals"] = _ell_t(lv.r_vals, device, dtype)
+            # K3 gathers x[cols] unchecked: hold the transfers' columns
+            # to the row counts of the levels they read, once, here.
+            if (lv.p_cols.max() >= sizes[i + 1]
+                    or lv.r_cols.max() >= sizes[i]):
+                raise ValueError(f"level {i}: transfer columns out of range")
+            entry["p_cols"], entry["p_vals"] = spmv.to_kmajor(
+                lv.p_cols, lv.p_vals, device, dtype)
+            entry["r_cols"], entry["r_vals"] = spmv.to_kmajor(
+                lv.r_cols, lv.r_vals, device, dtype)
         params.append(entry)
     params.append({"coarse_inv": torch.from_numpy(h.coarse_inv).to(
         device=device, dtype=dtype)})

@@ -33,12 +33,11 @@ class EllMatrix:
         """(cols, vals, diag) as torch tensors on `device`: cols int32 and
         vals in `dtype`, both K-major (K, N) — the layout of the ELL
         kernel K3 (ops.spmv) — and diag (N,) in `dtype`."""
-        cols = torch.from_numpy(np.ascontiguousarray(
-            self.cols.T, dtype=np.int32))
-        vals = torch.from_numpy(np.ascontiguousarray(self.vals.T))
-        return (cols.to(device), vals.to(device=device, dtype=dtype),
-                torch.from_numpy(np.asarray(self.diag)).to(device=device,
-                                                           dtype=dtype))
+        from .spmv import to_kmajor
+
+        cols, vals = to_kmajor(self.cols, self.vals, device, dtype)
+        return cols, vals, torch.from_numpy(np.asarray(self.diag)).to(
+            device=device, dtype=dtype)
 
     def to_scipy(self):
         """CSR of the full operator (off-diagonals + diagonal), diagonal

@@ -1,8 +1,9 @@
 """Deflated multi-RHS preconditioned conjugate gradients.
 
-Port of padne_tpu.ops.cg: `make_pcg` (the generic route, (N, R) layout,
-ELL operator through kernel K3 or a custom operator, AMG or Jacobi
-preconditioner) and `make_pcg_t` (the DIA route, (R, N) layout).  A is
+Port of padne_tpu.ops.cg's `make_pcg` and `make_pcg_t` as one solver:
+the generic route runs it in (N, R) layout over the ELL operator
+(kernel K3) with the ELL AMG cycle or Jacobi, the DIA route in (R, N)
+layout over the slab operator with the aligned DIA cycle.  A is
 an SPSD graph Laplacian whose nullspace is the per-component constants;
 the solver works in the orthogonal complement by projecting the RHS,
 every preconditioned residual and (periodically) the residual itself,
@@ -36,17 +37,19 @@ class CGResult(NamedTuple):
     residual_norms: torch.Tensor  # (R,) final ||b - A x|| per column
 
 
-def make_projector(comp_id: torch.Tensor, num_components: int):
+def make_projector(comp_id: torch.Tensor, num_components: int,
+                   dim: int = 0):
     """Orthogonal projector onto the complement of per-component constant
-    vectors, for (N, R) arrays: x <- x - mean_of_component(x).
+    vectors: x <- x - mean_of_component(x), for arrays whose axis `dim`
+    runs over the N unknowns ((N, R) for dim 0, (R, N) for dim 1).
 
-    One component: subtract the column means.  Up to 64: dense one-hot
+    One component: subtract the means.  Up to 64: dense one-hot
     matmuls.  Beyond 64 the (N, p) one-hot would be accidentally
     quadratic (eroded boards fragment into thousands of islands), so a
     segment sum (index_add_) and a gather take over."""
     if num_components == 1:
         def project(x):
-            return x - x.mean(dim=0, keepdim=True)
+            return x - x.mean(dim=dim, keepdim=True)
 
         return project
 
@@ -58,43 +61,30 @@ def make_projector(comp_id: torch.Tensor, num_components: int):
                                    device=comp_id.device)).clamp_min(1.0)
 
         def project(x):
-            sums = torch.zeros((num_components,) + tuple(x.shape[1:]),
-                               dtype=x.dtype, device=x.device).index_add_(
-                0, comp_id, x)                                  # (p, R)
-            means = sums / counts[:, None].to(x.dtype)
-            return x - means[comp_id]
+            shape = list(x.shape)
+            shape[dim] = num_components
+            sums = torch.zeros(shape, dtype=x.dtype,
+                               device=x.device).index_add_(dim, comp_id, x)
+            means = sums / counts.to(x.dtype).unsqueeze(1 - dim)
+            return x - means.index_select(dim, comp_id)
 
         return project
 
     # One-hot held in f32 (exact 0/1 values) and cast to the iterate's
-    # dtype at use: exact for f64 solves, f32 state stays f32.
+    # dtype at use: exact for f64 solves, f32 state stays f32.  Clamp: an
+    # empty component (e.g. a dummy padding component when the padded
+    # size equals n) must not turn means into NaN.
     onehot = torch.nn.functional.one_hot(
         comp_id, num_components).to(torch.float32)             # (N, p)
     counts = onehot.sum(dim=0).double().clamp_min(1.0)
 
     def project(x):
         oh = onehot.to(x.dtype)
-        sums = oh.T @ x                                         # (p, R)
-        means = sums / counts[:, None].to(x.dtype)
-        return x - oh @ means
-
-    return project
-
-
-def _make_projector_t(comp_id: torch.Tensor, num_components: int):
-    """The projector of make_pcg_t, for (R, N) arrays, as dense one-hot
-    matmuls (the DIA route carries at most 64 components)."""
-    onehot = torch.nn.functional.one_hot(
-        comp_id.long(), num_components).to(torch.float32)      # (N, p)
-    # Clamp: an empty component (e.g. a dummy padding component when the
-    # padded size equals n) must not turn means into NaN.
-    counts = onehot.sum(dim=0).double().clamp_min(1.0)
-
-    def project(xt):
-        oh = onehot.to(xt.dtype)
-        sums = xt @ oh                                          # (R, p)
-        means = sums / counts.to(xt.dtype)[None, :]
-        return xt - means @ oh.T
+        if dim == 0:
+            means = (oh.T @ x) / counts[:, None].to(x.dtype)     # (p, R)
+            return x - oh @ means
+        means = (x @ oh) / counts.to(x.dtype)[None, :]           # (R, p)
+        return x - means @ oh.T
 
     return project
 
@@ -102,15 +92,21 @@ def _make_projector_t(comp_id: torch.Tensor, num_components: int):
 def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
              precond: Optional[tuple] = None,
              operator: Optional[tuple] = None,
-             stall_window: Optional[int] = None):
-    """Deflated PCG bound to one operator, state kept as (N, R).
+             stall_window: Optional[int] = None, dim: int = 0):
+    """Deflated PCG bound to one operator.
 
     cols/vals/diag: the ELL operator in the device layout of
     assembly.EllMatrix.to_device (K-major); its matvec is kernel K3.
-    operator: optional (apply, params) replacing it, y = apply(params, x)
-    on (N, R); the Jacobi fallback then reads params["diag"].
-    precond: (apply, params) with z = apply(params, r) on (N, R), e.g.
+    operator: optional (apply, params) replacing it, y = apply(params, x);
+    the Jacobi fallback then reads params["diag"].
+    precond: (apply, params) with z = apply(params, r), e.g.
     amg.make_vcycle; None selects Jacobi.
+
+    dim: the axis of the N unknowns in the solver's state, the layout in
+    which operator and precond take and return arrays: 0 keeps (N, R)
+    (the ELL route), 1 keeps (R, N) (the DIA route: dia.dia_matvec_t and
+    amg.make_vcycle_dia_t; it needs an operator).  solve takes and
+    returns (N, R) either way: with dim 1, one transpose each way.
 
     stall_window: exit once no active column has improved 3% in this
     many iterations.  Only safe under an outer refinement loop with an
@@ -119,6 +115,9 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
     before converging, so leave it None there.
 
     Returns solve(b, tol, maxiter) -> CGResult."""
+    if operator is None and dim != 0:
+        raise ValueError("the ELL operator runs in the (N, R) layout; "
+                         "pass operator= for dim=1")
     if precond is None:
         if operator is not None and not (
                 isinstance(operator[1], dict) and "diag" in operator[1]):
@@ -126,10 +125,11 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
                 "Jacobi fallback needs the operator's diagonal: pass "
                 "precond=, or an operator params dict with a 'diag' key")
         dg = operator[1]["diag"] if operator is not None else diag
-        minv = torch.where(dg > 0, 1.0 / torch.where(dg > 0, dg, 1.0), 1.0)
+        minv = torch.where(dg > 0, 1.0 / torch.where(dg > 0, dg, 1.0),
+                           1.0).unsqueeze(1 - dim)
 
         def apply_m(r):
-            return minv[:, None] * r
+            return minv * r
     else:
         m_apply, m_params = precond
 
@@ -145,91 +145,17 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
         def matvec(x):
             return spmv.ell_spmv(cols, vals, diag, x)
 
-    project = make_projector(comp_id, num_components)
+    project = make_projector(comp_id, num_components, dim)
     window = _NO_STALL if stall_window is None else stall_window
 
     def dot(a, b2):
-        return (a * b2).sum(dim=0)              # (R,)
+        return (a * b2).sum(dim=dim)            # (R,)
 
     def solve(b, tol, maxiter: int = 10000) -> CGResult:
-        b = project(b)
+        b = project(b if dim == 0 else b.T.contiguous())
         target = tol * dot(b, b).sqrt().clamp_min(1e-300)
         x = torch.zeros_like(b)
         r = b
-        z = project(apply_m(r))
-        p = z
-        rz = dot(r, z)
-        best = dot(r, r).sqrt()
-        stall = torch.zeros_like(best, dtype=torch.int32)
-        k = 0
-        while k < maxiter:
-            active = dot(r, r).sqrt() > target
-            if not bool((active & (stall < window)).any()):
-                break
-            ap = matvec(p)
-            pap = dot(p, ap)
-            alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0),
-                                0.0)
-            alpha = torch.where(active, alpha, 0.0)
-            x = x + alpha[None, :] * p
-            r = r - alpha[None, :] * ap
-            if k % 50 == 49:
-                # Periodic re-projection kills drift into the nullspace.
-                r = project(r)
-            z = project(apply_m(r))
-            rz_new = dot(r, z)
-            beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0),
-                               0.0)
-            # Restart (p = z) on negative beta: below the f32 residual
-            # floor rz is rounding noise and beta > 1 runs would grow p.
-            beta = torch.where(active & (beta > 0), beta, 0.0)
-            p = z + beta[None, :] * p
-            rz = rz_new
-            rn = dot(r, r).sqrt()
-            improved = rn < 0.97 * best
-            best = torch.minimum(best, rn)
-            stall = torch.where(improved, 0, stall + 1)
-            k += 1
-        rtrue = b - matvec(x)
-        return CGResult(x=project(x), iterations=k,
-                        residual_norms=dot(rtrue, rtrue).sqrt())
-
-    return solve
-
-
-def make_pcg_t(operator, precond, comp_id: torch.Tensor,
-               num_components: int, stall_window: "int | None" = 30):
-    """Deflated PCG with state kept as (R, N).
-
-    operator: (apply, params) with yt = apply(params, xt) on (R, N).
-    precond: (apply, params) in the same layout (amg.make_vcycle_dia_t).
-
-    stall_window: exit once no active column has improved 3% in this
-    many iterations.  Only safe under an outer refinement loop that
-    multiplies partial gains (columns pinned at the f32 noise floor
-    would otherwise spin to maxiter); None disables it.
-
-    Returns solve(b, tol, maxiter) with b of shape (N, R) and a CGResult
-    whose x is (N, R): one transpose each way per solve."""
-    a_apply, a_params = operator
-    m_apply, m_params = precond
-    project = _make_projector_t(comp_id, num_components)
-    window = stall_window if stall_window is not None else _NO_STALL
-
-    def dot(a, b2):
-        return (a * b2).sum(dim=1)              # (R,)
-
-    def matvec(xt):
-        return a_apply(a_params, xt)
-
-    def apply_m(rt):
-        return m_apply(m_params, rt)
-
-    def solve(b, tol, maxiter: int = 10000) -> CGResult:
-        bt = project(b.T.contiguous())
-        target = tol * dot(bt, bt).sqrt().clamp_min(1e-300)
-        x = torch.zeros_like(bt)
-        r = bt
         z = project(apply_m(r))
         p = z
         rz = dot(r, z)
@@ -245,9 +171,9 @@ def make_pcg_t(operator, precond, comp_id: torch.Tensor,
             pap = dot(p, ap)
             alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0),
                                 0.0)
-            alpha = torch.where(active, alpha, 0.0)
-            x = x + alpha[:, None] * p
-            r = r - alpha[:, None] * ap
+            alpha = torch.where(active, alpha, 0.0).unsqueeze(dim)
+            x = x + alpha * p
+            r = r - alpha * ap
             if k % 50 == 49:
                 # Periodic re-projection kills drift into the nullspace.
                 r = project(r)
@@ -258,15 +184,16 @@ def make_pcg_t(operator, precond, comp_id: torch.Tensor,
             # Restart (p = z) on negative beta: below the f32 residual
             # floor rz is rounding noise and beta > 1 runs would grow p.
             beta = torch.where(active & (beta > 0), beta, 0.0)
-            p = z + beta[:, None] * p
+            p = z + beta.unsqueeze(dim) * p
             rz = rz_new
             rn = dot(r, r).sqrt()
             improved = rn < 0.97 * best
             best = torch.minimum(best, rn)
             stall = torch.where(improved, 0, stall + 1)
             k += 1
-        rtrue = bt - matvec(x)
-        return CGResult(x=project(x).T, iterations=k,
+        rtrue = b - matvec(x)
+        x = project(x)
+        return CGResult(x=x if dim == 0 else x.T, iterations=k,
                         residual_norms=dot(rtrue, rtrue).sqrt())
 
     return solve

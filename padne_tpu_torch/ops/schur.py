@@ -238,10 +238,14 @@ class DiaBorderedSolver:
         def a_apply_t(prm, xt):
             return dia.dia_matvec_t(meta0, prm, xt)
 
-        self.cg_solver = cg.make_pcg_t(
+        # The device operands of K1: the CG operator's level-0 slab and
+        # slots, and the cycle's slabs level by level.
+        self.op_params, self.cycle_params = op_params, vparams
+
+        self.cg_solver = cg.make_pcg(
+            None, None, None, self.comp_pad_dev, p + 1,
             operator=(a_apply_t, op_params),
-            precond=(vcycle_apply, vparams),
-            comp_id=self.comp_pad_dev, num_components=p + 1)
+            precond=(vcycle_apply, vparams), stall_window=30, dim=1)
         self.inner_tol = max(tol, inner_tol)
         self.comp_inner_tol = max(tol, comp_inner_tol)
         # f32 CG gains stall after a few dozen cycles; the outer ladder
@@ -473,17 +477,21 @@ class _NoDiaHierarchy(Exception):
     """No DIA hierarchy could be built (system too small)."""
 
 
+# The JAX package's routing thresholds: mixed-precision solves with
+# coordinates take the DIA route from _DIA_THRESHOLD core unknowns, the
+# ELL route preconditions with AMG from _AMG_THRESHOLD (Jacobi below).
+_DIA_THRESHOLD = 200_000
+_AMG_THRESHOLD = 5000
+
+
 def solve_bordered(
     system: CoreSystem,
     tol: float = 1e-14,
     maxiter: int = 40000,
     max_refinements: int = 8,
     target_residual: float = 1e-10,
-    precond: str = "auto",
-    amg_threshold: int = 5000,
     inner_dtype=None,
     operator: str = "auto",
-    dia_threshold: int = 200_000,
     device=None,
     stats: Optional[dict] = None,
 ) -> BorderedSolution:
@@ -494,11 +502,11 @@ def solve_bordered(
     classic mixed-precision iterative refinement: f32 inner solves, f64
     residuals and accumulated solution.
 
-    operator: "auto" sends mixed-precision solves of n >= dia_threshold
+    operator: "auto" sends mixed-precision solves of n >= _DIA_THRESHOLD
     with coordinates to the DIA route and everything else, including
     systems too small for a DIA hierarchy, to the ELL route; "dia" and
-    "ell" force one.  precond: "auto" (AMG from amg_threshold core
-    unknowns), "amg" or "jacobi" — the ELL route's preconditioner.
+    "ell" force one.  The ELL route preconditions with AMG from
+    _AMG_THRESHOLD core unknowns, with Jacobi below.
 
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
@@ -522,7 +530,7 @@ def solve_bordered(
     dev = device_mod.resolve(device)
     use_dia = operator == "dia" or (
         operator == "auto" and inner_dtype is not None
-        and system.coords is not None and n >= dia_threshold)
+        and system.coords is not None and n >= _DIA_THRESHOLD)
     if use_dia:
         t0 = time.perf_counter()
         try:
@@ -539,13 +547,12 @@ def solve_bordered(
     return _solve_bordered_ell(
         system, dev, tol=tol, maxiter=maxiter,
         max_refinements=max_refinements, target_residual=target_residual,
-        precond=precond, amg_threshold=amg_threshold,
         inner_dtype=inner_dtype, stats=stats)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
-                        max_refinements, target_residual, precond,
-                        amg_threshold, inner_dtype, stats) -> BorderedSolution:
+                        max_refinements, target_residual, inner_dtype,
+                        stats) -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
     PCG per Schur pass over the ELL operator (kernel K3), the small
     dense block by host lstsq, f64 full-system refinement."""
@@ -553,18 +560,16 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     n, m = system.n, system.border.m
     p = system.num_components
     f64 = torch.float64
+    # One upload of the operator: the f64 residual, the inner solve and
+    # the cycle's level 0 share its int32 cols.
     cols, vals, diag = system.ell.to_device(dev, f64)
     comp_id = _index(system.comp_id, dev)
     B, C = _dense_border(system, dev)
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
-    if mixed:
-        cols_i, vals_i, diag_i = system.ell.to_device(dev, inner)
-        inner_tol = max(tol, 1e-5)
-    else:
-        cols_i, vals_i, diag_i = cols, vals, diag
-        inner_tol = tol
-    use_amg = precond == "amg" or (precond == "auto" and n >= amg_threshold)
+    vals_i, diag_i = vals.to(inner), diag.to(inner)   # no copy in f64
+    inner_tol = max(tol, 1e-5) if mixed else tol
+    use_amg = n >= _AMG_THRESHOLD
     if use_amg and not mixed:
         # The V-cycle's attainable f64 residual floor sits around 1e-11
         # relative; the outer refinement multiplies the gain per pass.
@@ -581,9 +586,10 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     hierarchy = vcycle = None
     if use_amg:
         hierarchy = amg.build_hierarchy(system.ell)
-        vcycle = amg.make_vcycle(hierarchy, dev, dtype=inner)
+        vcycle = amg.make_vcycle(hierarchy, dev, dtype=inner,
+                                 a0=(cols, vals_i, diag_i))
     # Stall exit only with a mixed-precision inner solve (see make_pcg).
-    cg_solver = cg.make_pcg(cols_i, vals_i, diag_i, comp_id, p,
+    cg_solver = cg.make_pcg(cols, vals_i, diag_i, comp_id, p,
                             precond=vcycle,
                             stall_window=30 if mixed else None)
     BZ = zt(B.T).T.cpu().numpy()          # (m, p)
@@ -640,7 +646,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         boards mixing milliohm couplings with thin-sliver cotan weights
         push kappa past 1e7, above the target."""
         nonlocal cg_solver, inner_tol, inner
-        vc64 = amg.make_vcycle(hierarchy, dev) if use_amg else None
+        vc64 = (amg.make_vcycle(hierarchy, dev, a0=(cols, vals, diag))
+                if use_amg else None)
         cg_solver = cg.make_pcg(cols, vals, diag, comp_id, p,
                                 precond=vc64, stall_window=None)
         inner = f64

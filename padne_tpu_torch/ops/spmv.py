@@ -8,16 +8,25 @@ tensors both wrappers launch K3 (csrc/ell_spmv.cu); on CPU tensors they
 run the plain PyTorch version.  There is no fallback between the two.
 
 Device layout: cols (int32) and vals are K-major, shape (K, N) — the
-transposed ELL arrays, laid out once at upload (assembly.EllMatrix.
-to_device, amg.make_vcycle) so the kernel's slot loads are coalesced.
-x and y are (rows, R) in f32 or f64.
+transposed ELL arrays, laid out once at upload by `to_kmajor` (the one
+owner of that layout) so the kernel's slot loads are coalesced.  x and
+y are (rows, R) in f32 or f64.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
+
+
+def to_kmajor(cols: np.ndarray, vals: np.ndarray, device, dtype):
+    """(N, K) host ELL arrays -> (cols, vals) in K3's device layout:
+    K-major (K, N), cols int32 and vals in `dtype`."""
+    c = torch.from_numpy(np.ascontiguousarray(cols.T, dtype=np.int32))
+    v = torch.from_numpy(np.ascontiguousarray(vals.T))
+    return c.to(device), v.to(device=device, dtype=dtype)
 
 
 def ell_spmv_plain(cols, vals, diag, x) -> torch.Tensor:
@@ -73,7 +82,9 @@ def ell_spmv(cols, vals, diag, x) -> torch.Tensor:
 
 def ell_rect_spmv(cols, vals, x) -> torch.Tensor:
     """Rectangular ELL product (kernel K3 on CUDA tensors): the AMG
-    prolongation and restriction, cols/vals (K, N), x (Nx, R)."""
+    prolongation and restriction, cols/vals (K, N), x (Nx, R).  Every
+    column must be < Nx; the kernel does not check it (make_vcycle does,
+    once, at upload)."""
     if x.device.type == "cpu":
         return ell_rect_spmv_plain(cols, vals, x)
     y = _launch(cols, vals, None, x.contiguous())

@@ -1,9 +1,11 @@
 """Port parity for ops.cg.
 
-* make_pcg_t: the deflated multi-RHS PCG in (R, N) layout, preconditioned
-  by the DIA V-cycle, against the JAX `make_pcg_t` on the same hierarchy
+* make_pcg in (R, N) layout (dim=1, the DIA route), preconditioned by
+  the DIA V-cycle, against the JAX `make_pcg_t` on the same hierarchy
   and right-hand sides.  Iteration counts match within one (f32
   reductions differ in order); the solutions agree to the CG tolerance.
+* make_projector: the (R, N) layout gives the transpose of the (N, R)
+  one in all three branches (mean, one-hot, segment sum).
 * make_pcg: the generic route's (N, R) PCG over the ELL operator with
   the ELL AMG cycle, against the JAX `make_pcg` in f64 at 1, 5 and 80
   deflation components (the last takes the segment-sum projector).
@@ -52,9 +54,10 @@ def test_pcg_t_matches_jax(tol):
 
     op = amg.make_dia_cg_operator(th, "cpu", slots=8)
     vc = amg.make_vcycle_dia_t(th, "cpu", w0=op["w"], w_levels=0)
-    solve = cg.make_pcg_t(
+    solve = cg.make_pcg(
+        None, None, None, torch.from_numpy(comp), 2,
         operator=(lambda p, xt: dia.dia_matvec_t(meta0, p, xt), op),
-        precond=vc, comp_id=torch.from_numpy(comp), num_components=2)
+        precond=vc, stall_window=30, dim=1)
     res = solve(torch.from_numpy(b), tol, 300)
 
     assert abs(res.iterations - int(jres.iterations)) <= 1
@@ -67,6 +70,19 @@ def test_pcg_t_matches_jax(tol):
     real = b[th.posmap0]
     bn = np.linalg.norm(real - real.mean(0), axis=0)
     assert (res.residual_norms.numpy() <= 2 * tol * bn).all()
+
+
+@pytest.mark.parametrize("p", [1, 5, 80])
+def test_projector_layouts(p):
+    rng = np.random.default_rng(p)
+    comp_id = torch.from_numpy(rng.integers(0, p, 500))
+    x = torch.from_numpy(rng.standard_normal((500, 3)))
+    y0 = cg.make_projector(comp_id, p)(x)
+    y1 = cg.make_projector(comp_id, p, dim=1)(x.T.contiguous())
+    np.testing.assert_allclose(y1.T.numpy(), y0.numpy(), rtol=0,
+                               atol=1e-14)
+    sums = torch.zeros(p, 3, dtype=x.dtype).index_add_(0, comp_id, y0)
+    assert float(sums.abs().max()) <= 1e-12
 
 
 def _grid_islands(p, side, seed):
@@ -140,3 +156,5 @@ def test_pcg_jacobi_and_custom_operator():
     np.testing.assert_array_equal(res_op.x.numpy(), res.x.numpy())
     with pytest.raises(ValueError):
         cg.make_pcg(None, None, None, cid, 2, operator=(op[0], {}))
+    with pytest.raises(ValueError):
+        cg.make_pcg(cols, vals, diag, cid, 2, dim=1)

@@ -71,6 +71,30 @@ def test_vcycle_matches_jax(dtype, rtol):
     assert np.abs(z - z_ref).max() <= rtol * np.abs(z_ref).max()
 
 
+def test_vcycle_shares_level0_and_checks_transfers():
+    """make_vcycle reuses level-0 tensors passed as a0 (same result as
+    its own upload) and refuses transfer columns past the level they
+    read, which K3 would gather unchecked on the card."""
+    import dataclasses
+
+    ell, _ = grid_laplacian(32, seed=5)
+    tell = _port_ell(ell)
+    h = amg.build_hierarchy(tell)
+    a0 = tell.to_device("cpu")
+    apply, own = amg.make_vcycle(h, "cpu")
+    _, shared = amg.make_vcycle(h, "cpu", a0=a0)
+    assert shared[0]["a_cols"] is a0[0] and shared[0]["a_vals"] is a0[1]
+    r = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (len(ell.diag), 2)))
+    np.testing.assert_array_equal(apply(shared, r).numpy(),
+                                  apply(own, r).numpy())
+    bad = h.levels[0].p_cols.copy()
+    bad[0, 0] = len(h.levels[1].a_diag)
+    h.levels[0] = dataclasses.replace(h.levels[0], p_cols=bad)
+    with pytest.raises(ValueError, match="out of range"):
+        amg.make_vcycle(h, "cpu")
+
+
 def _compare(jsystem, inner, stats_route="ell", **kw):
     """Port vs JAX solve_bordered on one system; returns the port's
     stats."""
