@@ -10,20 +10,22 @@ Phases (any failure exits non-zero; there is no CPU path):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from padne_tpu_torch/csrc, timed;
-3. kernel K1 (slab SpMV) against its plain PyTorch version on the card,
-   on the operators of the DIA route's own set-up of the bench board at
-   --dof: the level-0 f32 CG slab with its 8 slots at R = 1 and 4, and
-   the level-1 bf16 cycle slab at R = 4 (random x); max relative error
-   (bound 1e-5 of max|y|: f32 sums in another order) and ms per call of
-   each, by CUDA events;
-4. kernel K2 (compensated slab residual) on the same level-0 hi and lo
-   slabs against its f64 plain version, bound 2e-13 * max(|A| |x|), and
-   both times;
+3. kernel K1' (sliced-ELL SpMV) against its plain PyTorch version on
+   the card, on the operators of the DIA route's own set-up of the bench
+   board at --dof: the level-0 f32 CG operator at R = 4 and 1, the
+   level-0 bf16 cycle operator at R = 1 and the level-1 bf16 cycle
+   operator at R = 4 (random x); max relative error (bound 1e-5 of
+   max|y|: f32 sums in another order) and ms per call of each, by CUDA
+   events, and the peak device memory of the DIA set-up;
+4. kernel K2' (compensated residual) on the level-0 hi and lo values
+   against its f64 plain version, bound 2e-13 * max(|A| |x|), and both
+   times;
 5. the DIA route: padne_tpu_torch.solver.solve on the generated 4-layer
    bench board at --dof (sized as bench.py sizes it), with the kernels'
-   launch counters reset just before and read just after: K1 and K2
+   launch counters reset just before and read just after: K1' and K2'
    must be > 0, the route "dia", and the full-system residual must meet
-   the repo's 1e-9 gate;
+   the repo's 1e-9 gate; the peak device memory of the solve (set-up
+   included) is printed;
 6. a second DIA solve at --scipy-dof with the potentials held against
    scipy.sparse.linalg.spsolve on the same bordered system (max |dV|
    <= 1e-6 V);
@@ -34,19 +36,21 @@ Phases (any failure exits non-zero; there is no CPU path):
    max|y|, and both times;
 8. the ELL route: the bench board at --ell-dof (n between 120,000 and
    199,999, the largest the auto route sends to ELL on the card),
-   solved with counters reset: K3 > 0, K1 = K2 = 0, route "ell",
+   solved with counters reset: K3 > 0, K1' = K2' = 0, route "ell",
    residual < 1e-9, max |dV| vs spsolve <= 1e-6 V;
 9. four small generated boards through the auto route, each within
    1e-6 V of spsolve at residual < 1e-9.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes of the kernel's
-operands over 3.35 TB/s, or flops over 67 TFLOP/s f32 / 34 TFLOP/s f64,
-whichever is larger), the same bytes bound for a CSR of the operator's
-nonzeros (csr_bound_ms: a slab stores every entry of its 128 x 128
-blocks, mostly zeros), and the time of torch.sparse.mm (cuSPARSE) on
-that CSR and the same inputs: f32 for K1 and K3, f64 for K2.  The last
-line is {"ok": true, "device": {...}}.
+operands as stored, padding included, over 3.35 TB/s, or flops over
+67 TFLOP/s f32 / 34 TFLOP/s f64, whichever is larger), the same bytes
+bound for a CSR of the operator's nonzeros and diagonal (csr_bound_ms),
+and the time of torch.sparse.mm (cuSPARSE) on that CSR and the same
+inputs: f32 for K1' and K3 (a bf16 operator's values widened), f64 for
+K2'.  Each K1'/K2' case line also says whether the kernel met its
+targets: no slower than cuSPARSE, and at least half of its own bound.
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -98,45 +102,47 @@ def bound(nbytes: float, flops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def slab_csr(meta, w, slots=None, w_lo=None):
-    """The operator of a slab (plus slot entries) as a torch CSR tensor of
-    its nonzeros on the card: row rb*128 + c holds W[rb, o, k, c] at
-    column (rb+o)*128 + k, f64 (W + W_lo) when w_lo is given, else f32.
-    Columns sorted within each row."""
+def sell_csr(params, values=None):
+    """The operator of a sliced-ELL params dict (ops.dia.build_sell) as
+    a torch CSR tensor on the card: its stored nonzeros and diagonal,
+    f32 (bf16 values widened), or f64 hi + lo for the compensated
+    operator (values="f64")."""
     import torch
 
-    np_, b, g, ng, offs = meta
-    nb, d = np_ // b, len(offs)
-    dev = w.device
-    dtype = torch.float64 if w_lo is not None else torch.float32
-    wb = w.reshape(nb, d, b, b).to(dtype)
-    if w_lo is not None:
-        wb = wb + w_lo.reshape(nb, d, b, b).to(dtype)
-    rb = torch.arange(nb, device=dev)[:, None]
-    cb = rb + torch.tensor(offs, device=dev)[None, :]
-    valid = (cb >= 0) & (cb < nb)
-    cb = torch.where(valid, cb, rb)
-    vals = (wb * valid[:, :, None, None]).permute(0, 3, 1, 2)  # rb c o k
-    lane = torch.arange(b, device=dev, dtype=torch.int32)
-    cols = (cb.to(torch.int32)[:, None, :, None] * b + lane).expand(
-        nb, b, d, b)
-    vals, cols = vals.reshape(np_, d * b), cols.reshape(np_, d * b)
-    del wb
-    if slots is not None:
-        tgt, ci, we = slots
-        e = we.shape[1]
-        scol = tgt.reshape(nb, e, 1) * b + ci                  # rb e c
-        cols = torch.cat([cols, scol.permute(0, 2, 1).reshape(np_, e)], 1)
-        vals = torch.cat([vals, we.to(dtype).permute(0, 2, 1).reshape(
-            np_, e)], 1)
-    cols, order = cols.sort(dim=1)
-    vals = torch.gather(vals, 1, order)
-    del order
+    from padne_tpu_torch.ops import dia
+
+    (pos_a, col_a), (pos_b, col_b) = dia.sell_entries(params)
+    perm = params["perm"].long()
+    np_ = perm.numel()
+    diag_rows = torch.arange(np_, device=perm.device)
+    if values == "f64":
+        vals = [params["a_val"].double() + params["a_lo"].double(),
+                params["b_val"].double() + params["b_lo"].double(),
+                params["diag64"]]
+    else:
+        vals = [params["a_val"].float(), params["b_val"], params["diag"]]
+    rows = torch.cat([perm[pos_a], perm[pos_b], diag_rows])
+    cols = torch.cat([col_a, col_b, diag_rows])
+    vals = torch.cat(vals)
     keep = vals != 0
-    crow = torch.zeros(np_ + 1, dtype=torch.int64, device=dev)
-    crow[1:] = keep.sum(dim=1).cumsum(0)
-    return torch.sparse_csr_tensor(crow.to(torch.int32), cols[keep],
-                                   vals[keep], size=(np_, np_))
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  vals[keep], (np_, np_)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def sell_bytes(params, x, y, lo: bool = False) -> int:
+    """Bytes a K1'/K2' call must move: every array of the format as
+    stored (padding included), read once, x read once, y written once."""
+    keys = ["perm", "a_ptr", "a_idx", "a_val", "win_ptr", "win", "b_ptr",
+            "b_col", "b_val"]
+    keys += ["a_lo", "b_lo", "diag64"] if lo else ["diag"]
+    return (sum(params[k].numel() * params[k].element_size() for k in keys)
+            + x.numel() * x.element_size() + y.numel() * y.element_size())
+
+
+def nonzeros(params) -> int:
+    """Stored off-diagonal nonzeros of a sliced-ELL params dict."""
+    return int((params["a_val"] != 0).sum() + (params["b_val"] != 0).sum())
 
 
 def scipy_csr(a, dtype, dev):
@@ -161,118 +167,127 @@ def csr_bytes(csr, x, y_cols: int) -> int:
             + csr.shape[0] * y_cols * s)
 
 
-def k1_case(name, meta, w, slots, r, seed, library=False):
-    """K1 vs its plain version on one slab of the main path (random x)."""
+def target_note(ms, bound_ms, library_ms) -> str:
+    met = ms <= library_ms and bound_ms / ms >= 0.5
+    return (f"{bound_ms / ms:.1%} of bound, {library_ms / ms:.2f}x "
+            f"cuSPARSE's time: targets {'met' if met else 'missed'}")
+
+
+def k1_case(name, params, r, seed):
+    """K1' vs its plain version and cuSPARSE on one operator of the main
+    path (random x)."""
     import torch
 
     from padne_tpu_torch.ops import dia
 
-    np_, offs = meta[0], meta[4]
-    nb = np_ // 128
-    gen = torch.Generator(device=w.device).manual_seed(seed)
-    xt = torch.randn(r, np_, generator=gen, device=w.device)
-    y = dia.slab_matvec(meta, w, xt, slots)
-    ref = dia.slab_matvec_plain(meta, w, xt, slots)
+    np_ = params["perm"].numel()
+    dev = params["perm"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xt = torch.randn(r, np_, generator=gen, device=dev)
+    y = dia.sell_matvec(params, xt)
+    ref = dia.sell_matvec_plain(params, xt)
     torch.cuda.synchronize()
     abs_err = float((y - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
-    ms = time_ms(lambda: dia.slab_matvec(meta, w, xt, slots))
-    plain_ms = time_ms(lambda: dia.slab_matvec_plain(meta, w, xt, slots))
-    gbytes = w.numel() * w.element_size() / 1e9
-    e = slots[2].shape[1] if slots is not None else 0
-    nslot = nb * e * 128
-    bound_ms, bound_by = bound(
-        w.numel() * w.element_size() + 2 * xt.numel() * 4
-        + nslot * 8 + nb * e * 4, 2 * r * (w.numel() + nslot), "f32")
-    library_ms = csr_bound_ms = None
-    if library:
-        csr = slab_csr(meta, w, slots)
-        xn = xt.T.contiguous()
-        lib_err = float((torch.sparse.mm(csr, xn).T - ref).abs().max())
-        library_ms = time_ms(lambda: torch.sparse.mm(csr, xn))
-        csr_bound_ms = csr_bytes(csr, xn, r) / HBM_BPS * 1e3
-        nnz = csr.values().numel()
-        check(lib_err <= 1e-5 * float(ref.abs().max()),
-              f"the CSR yardstick of K1 {name} computes another function")
-        del csr, xn
-        torch.cuda.empty_cache()
-    print(f"[K1 {name}] np={np_} D={len(offs)} dmax={max(map(abs, offs))} "
-          f"R={r} E={e} {str(w.dtype).removeprefix('torch.')}: "
+    ms = time_ms(lambda: dia.sell_matvec(params, xt))
+    plain_ms = time_ms(lambda: dia.sell_matvec_plain(params, xt))
+    nbytes = sell_bytes(params, xt, y)
+    nnz = nonzeros(params)
+    bound_ms, bound_by = bound(nbytes, 2 * r * (nnz + np_), "f32")
+    csr = sell_csr(params)
+    xn = xt.T.contiguous()
+    lib_err = float((torch.sparse.mm(csr, xn).T - ref).abs().max())
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, xn))
+    csr_bound_ms = csr_bytes(csr, xn, r) / HBM_BPS * 1e3
+    check(lib_err <= 1e-5 * float(ref.abs().max()),
+          f"the CSR yardstick of K1' {name} computes another function")
+    del csr, xn
+    torch.cuda.empty_cache()
+    stored = params["a_val"].numel() + params["b_val"].numel()
+    print(f"[K1' {name}] np={np_} nnz={nnz} stored={stored} "
+          f"(padding {stored / nnz:.3f}) in_window={params['a_val'].numel()} "
+          f"int32_part={params['b_val'].numel()} R={r} "
+          f"{str(params['a_val'].dtype).removeprefix('torch.')}: "
           f"max_rel_err={rel:.3e} max_abs_err={abs_err:.3e} "
-          f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.0f} GB/s slab stream) "
-          f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-          f"library(csr) {library_ms} ms"
-          + (f" csr nnz {nnz} ({nnz / (np_ * (len(offs) * 128 + e)):.4f} "
-             f"of the slab's entries) csr_bound {csr_bound_ms:.4f} ms"
-             if library else ""), flush=True)
-    check(rel <= 1e-5, f"K1 {name} disagrees with its plain version "
+          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s) "
+          f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.1f} MB) csr_bound {csr_bound_ms:.4f} ms "
+          f"library(csr) {library_ms:.4f} ms; "
+          f"{target_note(ms, bound_ms, library_ms)}", flush=True)
+    check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
                        f"({rel:.3e})")
     return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
 
 
-def k2_case(meta, w, w_lo, seed):
-    """K2 vs its f64 plain version on the level-0 hi and lo slabs."""
+def k2_case(params, seed):
+    """K2' vs its f64 plain version and cuSPARSE (f64) on the level-0
+    compensated operator."""
     import torch
 
     from padne_tpu_torch.ops import comp
 
-    np_, offs = meta[0], meta[4]
-    gen = torch.Generator(device=w.device).manual_seed(seed)
-    x = torch.randn(np_, generator=gen, device=w.device) + 1.0
-    y = comp.comp_slab(meta, w, w_lo, x)
-    ref = comp.comp_slab_plain(meta, w, w_lo, x)
-    tol = 2e-13 * float(
-        comp.comp_slab_plain(meta, w.abs(), w_lo.abs(), x.abs()).max())
+    np_ = params["perm"].numel()
+    dev = params["perm"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(np_, generator=gen, device=dev) + 1.0
+    y = comp.comp_sell(params, x)
+    ref = comp.comp_sell_plain(params, x)
+    absp = {k: v.abs() if v.is_floating_point() else v
+            for k, v in params.items()}
+    tol = 2e-13 * float(comp.comp_sell_plain(absp, x.abs()).max())
+    del absp
     torch.cuda.synchronize()
     abs_err = float((y - ref).abs().max())
-    ms = time_ms(lambda: comp.comp_slab(meta, w, w_lo, x))
-    plain_ms = time_ms(lambda: comp.comp_slab_plain(meta, w, w_lo, x))
-    bound_ms, bound_by = bound(2 * w.numel() * 4 + np_ * (4 + 8),
-                               4 * w.numel(), "f64")
-    csr = slab_csr(meta, w, w_lo=w_lo)
+    ms = time_ms(lambda: comp.comp_sell(params, x))
+    plain_ms = time_ms(lambda: comp.comp_sell_plain(params, x))
+    nbytes = sell_bytes(params, x, y, lo=True)
+    bound_ms, bound_by = bound(nbytes, 4 * nonzeros(params) + 2 * np_,
+                               "f64")
+    csr = sell_csr(params, values="f64")
     x64 = x.double()[:, None]
     lib_err = float((torch.sparse.mm(csr, x64)[:, 0] - ref).abs().max())
     library_ms = time_ms(lambda: torch.sparse.mm(csr, x64))
     csr_bound_ms = csr_bytes(csr, x64, 1) / HBM_BPS * 1e3
-    check(lib_err <= tol, "the CSR yardstick of K2 computes another function")
+    check(lib_err <= tol, "the CSR yardstick of K2' computes another "
+                          "function")
     del csr
     torch.cuda.empty_cache()
-    print(f"[K2 l0] np={np_} D={len(offs)} f32 hi+lo -> f64: "
+    print(f"[K2' l0 CG operator] np={np_} f32 hi+lo -> f64: "
           f"max_abs_err={abs_err:.3e} (bound {tol:.3e}) "
-          f"kernel {ms:.4f} ms ({2 * w.numel() * 4 / ms / 1e6:.0f} GB/s "
-          f"slab streams) plain(f64 bmm) {plain_ms:.4f} ms "
-          f"bound {bound_ms:.4f} ms ({bound_by}) "
-          f"library(csr f64) {library_ms:.4f} ms "
-          f"csr_bound {csr_bound_ms:.4f} ms", flush=True)
-    check(abs_err <= tol, "K2 disagrees with its f64 plain version")
+          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s) "
+          f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.1f} MB) csr_bound {csr_bound_ms:.4f} ms "
+          f"library(csr f64) {library_ms:.4f} ms; "
+          f"{target_note(ms, bound_ms, library_ms)}", flush=True)
+    check(abs_err <= tol, "K2' disagrees with its f64 plain version")
     return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
 
 
 def dia_kernel_cases(system):
-    """K1 and K2 on the slabs the DIA route sets up for `system`, with
-    the route's own defaults.  Returns (K1 cases, K2 case)."""
+    """K1' and K2' on the operators the DIA route sets up for `system`,
+    with the route's own defaults.  Returns (K1' cases, K2' case)."""
     import torch
 
-    from padne_tpu_torch.ops import dia, schur
+    from padne_tpu_torch.ops import schur
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = schur.DiaBorderedSolver(system, device=DEV)
+    torch.cuda.synchronize()
     print(f"[kernels] DIA set-up of the main path's operators "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    levels = s.hierarchy.levels
-    meta0 = levels[0].pack.meta
-    slots = dia._slots(s.op_params)
-    w0 = s.op_params["w"]
-    k1 = [k1_case("l0 CG operator", meta0, w0, slots, 1, 1),
-          k1_case("l0 CG operator", meta0, w0, slots, 4, 2, library=True),
-          k1_case("l1 cycle slab", levels[1].pack.meta,
-                  s.cycle_params[1]["w"], None, 4, 3)]
-    k2 = k2_case(meta0, w0, s._comp.params["w_lo"], 4)
-    del s
+          f"{time.perf_counter() - t0:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    op, cyc = s.op_params, s.cycle_params
+    k1 = [k1_case("l0 CG operator", op, 4, 2),
+          k1_case("l0 CG operator", op, 1, 1),
+          k1_case("l0 cycle operator", cyc[0], 1, 3),
+          k1_case("l1 cycle operator", cyc[1], 4, 4)]
+    k2 = k2_case(op, 5)
+    del s, op, cyc
     torch.cuda.empty_cache()
     return k1, k2
 
@@ -416,8 +431,8 @@ def k3_cases(system):
 def launch_counts() -> dict:
     from padne_tpu_torch.ops import comp, dia, spmv
 
-    return {"dia_slab": dia.slab_matvec.launches,
-            "comp_slab": comp.comp_slab.launches,
+    return {"dia_sell": dia.sell_matvec.launches,
+            "comp_sell": comp.comp_sell.launches,
             "ell_spmv": spmv.ell_spmv.launches,
             "ell_rect_spmv": spmv.ell_rect_spmv.launches}
 
@@ -425,14 +440,14 @@ def launch_counts() -> dict:
 def reset_counts() -> None:
     from padne_tpu_torch.ops import comp, dia, spmv
 
-    dia.slab_matvec.launches = comp.comp_slab.launches = 0
+    dia.sell_matvec.launches = comp.comp_sell.launches = 0
     spmv.ell_spmv.launches = spmv.ell_rect_spmv.launches = 0
 
 
 def dia_phases(args, tmp: pathlib.Path):
-    """K1 and K2 on the DIA route's operators at --dof, the DIA route at
-    --dof, then the scipy check at --scipy-dof.  Returns (K1 cases, K2
-    case, the main solve's launch counts)."""
+    """K1' and K2' on the DIA route's operators at --dof, the DIA route
+    at --dof, then the scipy check at --scipy-dof.  Returns (K1' cases,
+    K2' case, the main solve's launch counts)."""
     import torch
 
     from padne_tpu_torch import solver
@@ -443,10 +458,12 @@ def dia_phases(args, tmp: pathlib.Path):
     k1, k2 = dia_kernel_cases(solver.build_system(prob, cfg)[0])
     torch.cuda.empty_cache()
 
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     stats = {}
     sol = solver.solve(prob, mesher_config=cfg, stats=stats)
     launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     info = sol.solver_info
     print(f"[slice] route={stats['route']} n={stats['n']} m={stats['m']} "
           f"levels={stats['levels']} load={t_load:.2f}s "
@@ -456,9 +473,10 @@ def dia_phases(args, tmp: pathlib.Path):
           f"cg_iterations={info.cg_iterations} "
           f"refinement_passes={info.refinement_steps + 1} "
           f"residual_norm={info.residual_norm:.3e} "
+          f"peak_device_memory={peak_gb:.3f} GB "
           f"launches={launches}", flush=True)
     check(stats["route"] == "dia", f"route {stats['route']} is not dia")
-    for k in ("dia_slab", "comp_slab"):
+    for k in ("dia_sell", "comp_sell"):
         check(launches[k] > 0, f"the slice never launched {k}")
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
@@ -522,7 +540,7 @@ def ell_phases(args, tmp: pathlib.Path):
     check(stats["route"] == "ell", f"route {stats['route']} is not ell")
     check(launches["ell_spmv"] > 0 and launches["ell_rect_spmv"] > 0,
           "the ELL route never launched K3")
-    check(launches["dia_slab"] == launches["comp_slab"] == 0,
+    check(launches["dia_sell"] == launches["comp_sell"] == 0,
           "the ELL route launched a DIA kernel")
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
@@ -599,11 +617,11 @@ def main() -> int:
                     "library_ms", "csr_bound_ms")}}
 
     kernels_line = {"kernels": [
-        entry("dia_slab", "padne_tpu_torch/csrc/dia_slab.cu",
-              "padne_tpu/ops/dia.py:802", dia_launches["dia_slab"], k1,
-              k1[1]),
-        entry("comp_slab", "padne_tpu_torch/csrc/comp_slab.cu",
-              "padne_tpu/ops/comp.py:274", dia_launches["comp_slab"], [k2],
+        entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",
+              "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"], k1,
+              k1[0]),
+        entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
+              "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"], [k2],
               k2),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "

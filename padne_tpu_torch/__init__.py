@@ -2,7 +2,7 @@
 
 The JAX package (padne_tpu) is the reference.  This package re-implements
 its solve routes on torch tensors — the block-offset DIA route
-(Hilbert-ordered slab operator, aligned AMG V/W-cycle, deflated
+(Hilbert-ordered sliced-ELL operator, aligned AMG V/W-cycle, deflated
 multi-RHS PCG, Schur border with a compensated refinement ladder) and
 the generic ELL route (smoothed-aggregation AMG, deflated PCG, mixed-
 precision refinement) — with the TPU kernels of those routes written by

@@ -4,10 +4,13 @@ padne_tpu.ops, so no jax).
 * `core_system_from_numpy(obj)` takes any object with the CoreSystem
   fields — a padne_tpu.ops.schur.CoreSystem included — and returns the
   port's CoreSystem.
-* `dia_params_from_numpy(d, device)` takes a padne_tpu DiaPack.to_device
-  parameter dict whose arrays were pulled through np.asarray and returns
-  the port's device parameter dict (ops.dia.DiaPack.to_device layout):
-  the degree-bucketed remainder and its spill flatten into one COO.
+* `dia_params_from_numpy(meta, d, device)` takes a padne_tpu
+  DiaPack.to_device parameter dict whose arrays were pulled through
+  np.asarray (dense weight slab, ExtraSlots tables, degree-bucketed
+  remainder) and the pack's meta, and returns the same operator in the
+  port's sliced-ELL format (ops.dia.build_sell): the slab's and the slot
+  tables' nonzeros and the remainder become one COO; slab values keep
+  the slab's dtype, slot and remainder values stay f32.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import assembly, schur
+from .ops import assembly, dia, schur
 
 _BUCKETS = (1, 2, 3)   # padne_tpu DiaPack.REM_BUCKETS
 
@@ -38,36 +41,41 @@ def core_system_from_numpy(obj) -> schur.CoreSystem:
         group=None if obj.group is None else np.asarray(obj.group))
 
 
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        # No numpy bfloat16 in torch.from_numpy: move the raw bits.
-        return torch.from_numpy(a.view(np.int16).copy()).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
-def dia_params_from_numpy(d: dict, device) -> dict:
+def dia_params_from_numpy(meta, d: dict, device) -> dict:
+    np_, b, _, _, offs = meta
     d = {k: np.asarray(v) for k, v in d.items()}
-    rows = [d["sp_rows"].astype(np.int64)]
-    cols = [d["sp_cols"].astype(np.int64)]
-    vals = [d["sp_vals"].astype(np.float32)]
-    for k in _BUCKETS:
-        r = d.get(f"r{k}_rows")
+    nb = np_ // b
+    w = d["w"].reshape(nb, len(offs), b, b)
+    # Offset entries: W[rb, o, k, c] couples row rb*b + c to column
+    # (rb + offs[o])*b + k (the JAX slab layout).
+    rb, o, k, c = np.nonzero(w != 0)
+    rows = [rb * b + c]
+    cols = [(rb + np.asarray(offs)[o]) * b + k]
+    vals = [w[rb, o, k, c].astype(np.float64)]
+    n_main = len(rows[0])
+    if "xs_tgt" in d:
+        # Slot e of row block rb targets column block tgt[rb, e]; lane c
+        # holds row rb*b + c's entry at column-local index ci.
+        xs_w = d["xs_w"]
+        rb, e, c = np.nonzero(xs_w != 0)
+        tgt = d["xs_tgt"].astype(np.int64).reshape(nb, -1)
+        rows.append(rb * b + c)
+        cols.append(tgt[rb, e] * b + d["xs_ci"][rb, e, c])
+        vals.append(xs_w[rb, e, c].astype(np.float64))
+    rows.append(d["sp_rows"])
+    cols.append(d["sp_cols"])
+    vals.append(d["sp_vals"].astype(np.float64))
+    for deg in _BUCKETS:
+        r = d.get(f"r{deg}_rows")
         if r is None or not len(r):
             continue
-        rows.append(np.repeat(r.astype(np.int64), k))
-        cols.append(d[f"r{k}_cols"].astype(np.int64).reshape(-1))
-        vals.append(d[f"r{k}_vals"].astype(np.float32).reshape(-1))
-    out = {
-        "w": _tensor(d["w"], device),
-        "diag": _tensor(d["diag"].astype(np.float32), device),
-        "rem_rows": _tensor(np.concatenate(rows), device),
-        "rem_cols": _tensor(np.concatenate(cols), device),
-        "rem_vals": _tensor(np.concatenate(vals), device),
-    }
-    if "xs_tgt" in d:
-        out["xs_tgt"] = _tensor(d["xs_tgt"].astype(np.int32), device)
-        out["xs_ci"] = _tensor(d["xs_ci"].astype(np.int32), device)
-        out["xs_w"] = _tensor(d["xs_w"].astype(np.float32), device)
-    return out
+        rows.append(np.repeat(r, deg))
+        cols.append(d[f"r{deg}_cols"].reshape(-1))
+        vals.append(d[f"r{deg}_vals"].astype(np.float64).reshape(-1))
+    rows = np.concatenate([a.astype(np.int64) for a in rows])
+    cols = np.concatenate([a.astype(np.int64) for a in cols])
+    dtype = (torch.bfloat16 if w.dtype.name == "bfloat16"
+             else torch.float32)
+    return dia.build_sell(np_, rows, cols, np.concatenate(vals),
+                          d["diag"].astype(np.float64), device, dtype=dtype,
+                          keep_f32=np.arange(len(rows)) >= n_main)

@@ -19,7 +19,7 @@ import subprocess
 
 _SRC_DIR = pathlib.Path(__file__).parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-_SOURCES = ("dia_slab.cu", "comp_slab.cu", "ell_spmv.cu")
+_SOURCES = ("dia_sell.cu", "ell_spmv.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -67,20 +67,14 @@ def load() -> ctypes.CDLL:
         _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.pg_dia_slab.restype = i32
-    lib.pg_dia_slab.argtypes = [vp, i64, vp, i32, i32, ip, i32, vp, vp, vp,
-                                i32, vp, vp]
-    lib.pg_comp_slab.restype = i32
-    lib.pg_comp_slab.argtypes = [vp, i64, vp, vp, i32, ip, vp, vp]
+    sell = [vp] * 7          # perm, a_ptr, a_idx, win_ptr, win, b_ptr, b_col
+    lib.pg_dia_sell.restype = i32
+    lib.pg_dia_sell.argtypes = sell + [vp, i32, vp, vp, vp, i64, i32, vp, vp]
+    lib.pg_comp_sell.restype = i32
+    lib.pg_comp_sell.argtypes = sell + [vp, vp, vp, vp, vp, vp, i64, vp, vp]
     lib.pg_ell_spmv.restype = i32
     lib.pg_ell_spmv.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, vp, vp]
     return lib
-
-
-def offsets_arg(offs) -> ctypes.Array:
-    """Block offsets as the int array the C entry points copy by value."""
-    return (ctypes.c_int * len(offs))(*offs)
 
 
 def check_launch(rc: int, name: str) -> None:

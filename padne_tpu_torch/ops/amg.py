@@ -4,7 +4,7 @@ Port of padne_tpu.ops.amg.  DIA half: the host build (Hilbert
 order, capped aggregation, smoothed prolongation, Galerkin operators,
 aligned padded row layouts, dense coarse inverse) is carried as numpy
 and calls the port's own copy of the native core (..native).  The device
-cycle is plain torch around ops.dia matvecs (kernel K1 on every level,
+cycle is plain torch around ops.dia matvecs (kernel K1' on every level,
 however small) in the transposed (R, n) layout; every transfer between
 levels is a reshape plus a child-permutation scatter/gather.
 
@@ -402,12 +402,11 @@ def build_hierarchy_dia(
 # Device side
 
 
-def make_dia_cg_operator(h: AlignedHierarchy, device,
-                         slots: int = 8) -> dict:
-    """Exact level-0 operator params for the CG matvec: f32 slab (its
-    "w" is shared with the level-0 cycle operator when the cycle runs
-    f32), f32 diagonal, remainder tail after `slots` ExtraSlots."""
-    return h.levels[0].pack.to_device(device, slots=slots)
+def make_dia_cg_operator(h: AlignedHierarchy, device) -> dict:
+    """Exact level-0 operator params for the CG matvec: the f32
+    sliced-ELL operator, with the lo-halves and f64 diagonal that the
+    compensated residual (ops.comp) shares."""
+    return h.levels[0].pack.to_device(device, compensated=True)
 
 
 def _lumped_level0(pack: dia.DiaPack, lump_strength: float):
@@ -436,8 +435,7 @@ def _coarse_inv_device(h: AlignedHierarchy, device) -> torch.Tensor:
     return ci.to(torch.bfloat16).to(torch.float32).to(device)
 
 
-def make_vcycle_dia_t(h: AlignedHierarchy, device,
-                      slab_dtype=torch.float32, w0=None, slots: int = 8,
+def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
                       w_levels: int = 3, lump_strength: float = 0.05):
     """(apply_t, params): z = apply_t(params, rt) on (R, np0), a
     symmetric V(1,1) cycle with damped-Jacobi smoothing and smoothed
@@ -446,9 +444,8 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device,
     Level 0 runs on the strength-lumped operator (_lumped_level0) for
     every application — the exact AMG preconditioner of the lumped
     operator, consistent smoother/operator pair, no full-remainder pass.
-    Its slab is `w0` (normally the CG operator's slab, cast to
-    slab_dtype by the caller); deeper levels scatter their own slabs in
-    slab_dtype.  Slots pack level 0 only.
+    Every level's operator is uploaded in the sliced-ELL format with its
+    offset entries in `dtype` (ops.dia.DiaPack.to_device).
 
     w_levels: coarse levels 2..w_levels are visited twice (a W-shape on
     the top of the coarse hierarchy; the second visit is a stationary
@@ -458,11 +455,9 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device,
     for i, lv in enumerate(h.levels):
         if i == 0:
             pack, dinv = _lumped_level0(lv.pack, lump_strength)
-            entry = pack.to_device(device, slab_dtype=slab_dtype, w=w0,
-                                   slots=slots)
         else:
             pack, dinv = lv.pack, lv.dinv
-            entry = pack.to_device(device, slab_dtype=slab_dtype)
+        entry = pack.to_device(device, dtype=dtype)
         entry["dinv"] = torch.from_numpy(dinv.astype(np.float32)).to(device)
         entry["child_perm"] = torch.from_numpy(
             lv.child_perm.astype(np.int64)).to(device)

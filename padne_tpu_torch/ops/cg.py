@@ -3,7 +3,7 @@
 Port of padne_tpu.ops.cg's `make_pcg` and `make_pcg_t` as one solver:
 the generic route runs it in (N, R) layout over the ELL operator
 (kernel K3) with the ELL AMG cycle or Jacobi, the DIA route in (R, N)
-layout over the slab operator with the aligned DIA cycle.  A is
+layout over the sliced-ELL operator with the aligned DIA cycle.  A is
 an SPSD graph Laplacian whose nullspace is the per-component constants;
 the solver works in the orthogonal complement by projecting the RHS,
 every preconditioned residual and (periodically) the residual itself,

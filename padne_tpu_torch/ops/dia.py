@@ -1,21 +1,33 @@
-"""Block-offset-diagonal (DIA) sparse operators: host packing + device SpMV.
+"""Block-offset-diagonal (DIA) operators: host packing + sliced-ELL SpMV.
 
-Port of padne_tpu.ops.dia.  Rows/columns are blocked at B=128 after a
-locality ordering (ops.bell.hilbert_order); the nonzeros on a few block
-offsets d = col_block - row_block are stored as dense weight slabs
-W (ng, G, D, B, B), built on the device by one scatter from nnz-sized
-host arrays.  The off-offset stragglers form a row-sorted COO remainder;
-optionally the remainder's most popular column blocks per row block are
-packed as E "slots" (ExtraSlots) that the slab kernel applies directly.
+Port of padne_tpu.ops.dia.  Host side: rows/columns are blocked at B=128
+after a locality ordering (ops.bell.hilbert_order) and the nonzeros on a
+few block offsets d = col_block - row_block are split from a row-sorted
+COO remainder (choose_offsets, DiaPack, pack_dia and the pack_*_as_dia
+helpers, carried as numpy; their arrays equal the JAX package's on the
+same input).
 
-Device side: `slab_matvec` is kernel K1 (csrc/dia_slab.cu) with its plain
-PyTorch version `slab_matvec_plain`; `dia_matvec_t` adds the diagonal and
-the remainder in torch.  Everything runs in the transposed (R, np)
-layout, the one the JAX path uses on its hot loop.
+Device side: the TPU streams the offset nonzeros as dense (B, B) weight
+slabs because its matrix unit wants dense tiles and Mosaic cannot
+gather; on the GPU nearly every slab entry would be a zero.  Here every
+operator is stored as its nonzeros only, in a sliced ELL (SELL-C-sigma)
+format built by `build_sell`:
 
-Host packing (choose_offsets, DiaPack, pack_extra_slots, pack_dia and
-the pack_*_as_dia helpers) is carried from padne_tpu.ops.dia as numpy;
-its arrays equal the JAX package's on the same input.
+* rows are sorted by length within each 128-row block and cut into
+  slices of 32 rows (one warp); a slice is as wide as its longest row,
+  entries stored K-major (slot k of the 32 rows is contiguous);
+* each 128-row block has a window table of up to 512 column blocks (the
+  ones its entries use, most used first); a windowed entry stores a
+  16-bit index, window slot * 128 + column within the block, and a
+  value of the operator's dtype (f32, or bf16 for the cycle);
+* entries beyond the window, and in a bf16 operator those the JAX
+  package keeps in f32 (slots and remainder), form a second part of the
+  same slices with int32 columns and f32 values;
+* the diagonal is a dense (np,) vector.
+
+`sell_matvec` is kernel K1' (csrc/dia_sell.cu) over that format, with
+its plain PyTorch version `sell_matvec_plain`; `dia_matvec_t` is one
+launch of it, in the transposed (R, np) layout the DIA route uses.
 """
 
 from __future__ import annotations
@@ -29,7 +41,10 @@ import torch
 from .. import kernels
 
 DEFAULT_B = 128   # row/column block size
-DEFAULT_G = 8     # row-blocks per slab group (the JAX grid step)
+DEFAULT_G = 8     # row-blocks per group (the JAX grid step)
+SLICE = 32        # rows per slice of the sliced-ELL format: one warp
+ROW_BLOCK = 128   # rows sorted by length within, and one window table for
+MAX_WIN = 512     # window slots per row block (16-bit index = slot*128+col)
 
 
 def choose_offsets(rows: np.ndarray, cols: np.ndarray, b: int = DEFAULT_B,
@@ -71,8 +86,8 @@ def _offsets_from_bd(bd: np.ndarray, coverage: float,
 class DiaPack:
     """Host-side packing of a square operator in block-offset form.
 
-    All arrays are nnz-sized or O(n); the dense weight slab is built on
-    the device by `build_slab` (one scatter)."""
+    All arrays are nnz-sized or O(n); `to_device` turns them into the
+    sliced-ELL device format (`build_sell`)."""
 
     n: int                 # logical rows (before padding)
     np_: int               # padded rows = ng * G * B
@@ -80,7 +95,8 @@ class DiaPack:
     g: int
     ng: int
     offs: tuple[int, ...]
-    # Flat index into W = widx_hi * b + widx_lo (kept split: the flat
+    # Split index of an offset entry: widx_hi * b + widx_lo would be its
+    # position in the JAX package's dense slab (kept split: the flat
     # index exceeds int32 at 1M-row packs).
     widx_hi: np.ndarray    # (nnz_main,) int32: (rb * d + slot) * b + col_local
     widx_lo: np.ndarray    # (nnz_main,) uint8/16: row_local
@@ -95,139 +111,38 @@ class DiaPack:
         """Static description consumed by the matvec."""
         return (self.np_, self.b, self.g, self.ng, self.offs)
 
-    def to_device(self, device, slab_dtype=torch.float32, w=None,
-                  slots: int = 0) -> dict:
-        """Device parameter dict: the W slab (scattered here unless an
-        existing slab is passed as `w`), the f32 diagonal, the remainder
-        as COO, and with `slots` > 0 the ExtraSlots tables (the
-        remainder then holds only the unplaced tail).
+    def coo(self, device):
+        """(rows, cols, vals, n_main) on `device`: the off-diagonal
+        entries as int64 rows/cols and f64 values, the n_main offset
+        entries (decoded from the split index, as the JAX package's
+        coo_from_widx does) first, then the remainder."""
+        b, d = self.b, len(self.offs)
+        hi = torch.from_numpy(self.widx_hi.astype(np.int64)).to(device)
+        lo = torch.from_numpy(self.widx_lo.astype(np.int64)).to(device)
+        blk, col_local = hi // b, hi % b
+        rb = blk // d
+        offs = torch.tensor(self.offs, dtype=torch.int64, device=device)
+        rows = torch.cat([rb * b + lo, torch.from_numpy(
+            self.rem_rows.astype(np.int64)).to(device)])
+        cols = torch.cat([(rb + offs[blk % d]) * b + col_local,
+                          torch.from_numpy(
+                              self.rem_cols.astype(np.int64)).to(device)])
+        vals = torch.from_numpy(np.concatenate([
+            np.asarray(self.wval, np.float64),
+            np.asarray(self.rem_vals, np.float64)])).to(device)
+        return rows, cols, vals, len(self.widx_hi)
 
-        Keys: w (ng, g, D, b, b); diag (np_,); rem_rows/rem_cols (int64)
-        and rem_vals (f32); with slots also xs_tgt (nb*E,) int32,
-        xs_ci (nb, E, b) int32 and xs_w (nb, E, b) f32."""
-        if w is None:
-            w = build_slab(self, slab_dtype, device)
-        rows, cols, vals = self.rem_rows, self.rem_cols, self.rem_vals
-        params = {"w": w, "diag": _f32(self.diag, device)}
-        if slots and len(rows):
-            ex = pack_extra_slots(self, e_max=slots)
-            rows, cols, vals = ex.tail_rows, ex.tail_cols, ex.tail_vals
-            wslot, cslot = _build_slot_tables(ex)
-            params["xs_tgt"] = torch.from_numpy(
-                ex.tgt.reshape(-1).astype(np.int32)).to(device)
-            params["xs_ci"] = torch.from_numpy(cslot).to(device)
-            params["xs_w"] = _f32(wslot, device)
-        params["rem_rows"] = torch.from_numpy(
-            np.asarray(rows, np.int64)).to(device)
-        params["rem_cols"] = torch.from_numpy(
-            np.asarray(cols, np.int64)).to(device)
-        params["rem_vals"] = _f32(vals, device)
-        return params
-
-
-def _f32(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a, np.float32)).to(device)
-
-
-@dataclass
-class ExtraSlots:
-    """Per-row-block extra-offset packing of a DiaPack remainder.
-
-    The remainder of a Hilbert-ordered FEM operator is long-tailed in
-    block offset but concentrated per row block, so its entries are
-    packed as E slots per row block: slot e of block rb targets one
-    column block tgt[rb, e] and holds at most one entry per local row.
-    Entries that don't fit stay in the COO tail."""
-
-    e: int                  # slots per row block
-    nb: int                 # row blocks
-    b: int
-    tgt: np.ndarray         # (nb, e) int32 absolute target block;
-    #                         unused slots self-target (weights are 0)
-    idx: np.ndarray         # (n_placed,) int32 flat (rb*e + slot)*b + rl
-    cls: np.ndarray         # (n_placed,) uint8/16 column-local index
-    vals: np.ndarray        # (n_placed,) float64 weights
-    tail_rows: np.ndarray   # row-sorted COO leftovers
-    tail_cols: np.ndarray
-    tail_vals: np.ndarray
-
-
-def _build_slot_tables(ex: ExtraSlots):
-    """Dense (nb, E, b) slot weight and column-index tables (host)."""
-    flat = ex.nb * ex.e * ex.b
-    wslot = np.zeros(flat)
-    cslot = np.zeros(flat, np.int32)
-    wslot[ex.idx] = ex.vals
-    cslot[ex.idx] = ex.cls
-    shape = (ex.nb, ex.e, ex.b)
-    return wslot.reshape(shape), cslot.reshape(shape)
-
-
-def pack_extra_slots(pack: DiaPack, e_max: int = 4) -> ExtraSlots:
-    """Assign remainder entries of `pack` to per-row-block extra slots.
-
-    Greedy by block popularity: each row block's candidate (column
-    block, duplicate-rank) groups are ranked by entry count and the top
-    e_max become slots.  The duplicate rank splits multiple entries of
-    the same (row, column block) and guarantees at most one entry per
-    (slot, local row), so the flat scatter indices are unique."""
-    b = pack.b
-    nb = pack.np_ // b
-    rr = pack.rem_rows.astype(np.int64)
-    rc = pack.rem_cols.astype(np.int64)
-    rv = pack.rem_vals
-    lo_t = np.uint8 if b <= 256 else np.uint16
-    tgt = np.broadcast_to(
-        np.arange(nb, dtype=np.int32)[:, None], (nb, e_max)).copy()
-    if len(rr) == 0 or e_max == 0:
-        z = np.zeros(0, np.int32)
-        return ExtraSlots(
-            e=e_max, nb=nb, b=b, tgt=tgt, idx=z,
-            cls=np.zeros(0, lo_t), vals=np.zeros(0),
-            tail_rows=pack.rem_rows, tail_cols=pack.rem_cols,
-            tail_vals=pack.rem_vals)
-    rb, rl = rr // b, rr % b
-    cb, cl = rc // b, rc % b
-    # Duplicate rank within (rb, cb, rl): the k-th entry of a row into
-    # the same column block must go to a k-th slot with that target.
-    key = (rb * nb + cb) * b + rl
-    order = np.argsort(key, kind="stable")
-    ks = key[order]
-    grp_start = np.r_[True, ks[1:] != ks[:-1]]
-    gid = np.cumsum(grp_start) - 1
-    pos = np.arange(len(ks))
-    rank = pos - pos[grp_start][gid]
-    rank = np.minimum(rank, 15)
-    # Candidate identity (rb, cb, rank) -> count; per-rb top-e_max win.
-    ckey = (rb[order] * nb + cb[order]) * 16 + rank
-    uc, inv_c, cnt = np.unique(ckey, return_inverse=True,
-                               return_counts=True)
-    crb = uc // (nb * 16)
-    co = np.lexsort((-cnt, crb))
-    crb_s = crb[co]
-    cstart = np.r_[True, crb_s[1:] != crb_s[:-1]]
-    cgid = np.cumsum(cstart) - 1
-    cpos = np.arange(len(co))
-    crank = cpos - cpos[cstart][cgid]
-    slot_of = np.full(len(uc), -1, np.int64)
-    slot_of[co] = np.where(crank < e_max, crank, -1)
-    entry_slot = slot_of[inv_c]          # in `order` space
-    placed = entry_slot >= 0
-
-    rb_o, rl_o = rb[order], rl[order]
-    cb_o, cl_o = cb[order], cl[order]
-    rv_o = rv[order]
-    tgt[rb_o[placed], entry_slot[placed]] = cb_o[placed]
-    idx = ((rb_o[placed] * e_max + entry_slot[placed]) * b
-           + rl_o[placed]).astype(np.int32)
-    t_r, t_c, t_v = rr[order][~placed], rc[order][~placed], rv_o[~placed]
-    t_order = np.argsort(t_r, kind="stable")
-    return ExtraSlots(
-        e=e_max, nb=nb, b=b, tgt=tgt, idx=idx,
-        cls=cl_o[placed].astype(lo_t), vals=rv_o[placed],
-        tail_rows=t_r[t_order].astype(np.int32),
-        tail_cols=t_c[t_order].astype(np.int32),
-        tail_vals=t_v[t_order])
+    def to_device(self, device, dtype=torch.float32,
+                  compensated: bool = False) -> dict:
+        """The operator in the sliced-ELL device format (`build_sell`):
+        offset entries in `dtype`, remainder entries and the diagonal in
+        f32 (as the JAX package keeps them next to a bf16 slab);
+        compensated adds the lo-halves and f64 diagonal of ops.comp."""
+        rows, cols, vals, n_main = self.coo(device)
+        keep_f32 = torch.arange(len(rows), device=device) >= n_main
+        return build_sell(self.np_, rows, cols, vals, self.diag, device,
+                          dtype=dtype, keep_f32=keep_f32,
+                          compensated=compensated)
 
 
 def pack_dia(
@@ -422,110 +337,226 @@ def pack_csr_pos_as_dia(a, pos, diag, np_override, b: int = DEFAULT_B,
     )
 
 
+
+
 # ---------------------------------------------------------------------------
-# Device side
+# Device side: the sliced-ELL format and kernel K1'
 
 
-def build_slab(pack: DiaPack, dtype, device, values=None) -> torch.Tensor:
-    """The dense (ng, g, D, b, b) weight slab, scattered on the device
-    from the nnz-sized split index (values: override pack.wval, e.g. the
-    f32 lo-halves of the compensated operator)."""
-    d, b = len(pack.offs), pack.b
-    vals = pack.wval if values is None else values
-    idx = torch.from_numpy(pack.widx_hi.astype(np.int64)).to(device)
-    idx.mul_(b).add_(torch.from_numpy(pack.widx_lo).to(device))
-    w = torch.zeros(pack.ng * pack.g * d * b * b, dtype=dtype, device=device)
-    w[idx] = _f32(vals, device).to(dtype)
-    return w.reshape(pack.ng, pack.g, d, b, b)
+def _slice_ptr(lengths, perm) -> torch.Tensor:
+    """(nslices + 1,) int64 entry offsets of the slices: a slice holds
+    SLICE * (its longest row) entries."""
+    width = lengths[perm].view(-1, SLICE).amax(1)
+    ptr = torch.zeros(width.numel() + 1, dtype=torch.int64,
+                      device=lengths.device)
+    ptr[1:] = torch.cumsum(width * SLICE, 0)
+    return ptr
 
 
-def slab_matvec_plain(meta, w, xt, slots=None) -> torch.Tensor:
-    """Plain PyTorch version of K1 (the counterpart of the JAX package's
-    `_xla_main`): the slab part plus the slot entries of y^T = A x^T for
-    xt of shape (R, np_), f32 accumulation, bf16 slabs widened to f32.
-    Column blocks outside [0, nb) contribute nothing."""
-    np_, b, g, ng, offs = meta
-    r = xt.shape[0]
-    nb = np_ // b
-    wb = w.reshape(nb, len(offs), b, b)
-    xb = xt.reshape(r, nb, b).transpose(0, 1)            # (nb, r, b)
-    acc = torch.zeros(nb, r, b, dtype=torch.float32, device=xt.device)
-    for di, o in enumerate(offs):
-        lo, hi = max(0, -o), min(nb, nb - o)
-        if lo < hi:
-            acc[lo:hi] += torch.bmm(xb[lo + o:hi + o],
-                                    wb[lo:hi, di].to(torch.float32))
-    y = acc.transpose(0, 1).reshape(r, np_)
-    if slots is not None:
-        tgt, ci, we = slots
-        e = we.shape[1]
-        xe = xt.reshape(r, nb, b)[:, tgt.long().reshape(nb, e)]
-        sel = torch.gather(xe, 3, ci.long().expand(r, nb, e, b))
-        y = y + (we.to(torch.float32) * sel).sum(2).reshape(r, np_)
-    return y
+def _slots_of(rows, lengths, pos, ptr) -> torch.Tensor:
+    """Storage index of each entry: entry k of the row at slice-lane
+    position p sits at ptr[p // SLICE] + k * SLICE + p % SLICE."""
+    order = torch.argsort(rows, stable=True)
+    rs = rows[order]
+    start = torch.cumsum(lengths, 0) - lengths
+    k = torch.arange(len(rs), device=rows.device) - start[rs]
+    p = pos[rs]
+    dest = torch.empty_like(order)
+    dest[order] = ptr[p // SLICE] + k * SLICE + p % SLICE
+    return dest
 
 
-def slab_matvec(meta, w, xt, slots=None) -> torch.Tensor:
-    """Kernel K1 on CUDA tensors (csrc/dia_slab.cu); the plain version
-    for CPU tensors.  slots: optional (xs_tgt, xs_ci, xs_w)."""
+def _lo_half(v64) -> torch.Tensor:
+    """Exact f32 lo-half of f64 values: v64 ~= f32(v64) + lo (~2^-48)."""
+    return (v64 - v64.float().double()).float()
+
+
+def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
+               keep_f32=None, compensated: bool = False) -> dict:
+    """An (np_, np_) operator, diagonal + off-diagonal COO (rows, cols,
+    vals), in the sliced-ELL device format (module doc), built on
+    `device` with torch ops.
+
+    keep_f32: bool mask of entries whose values stay f32 when `dtype` is
+    narrower (they take the int32-column part).  compensated (f32 only):
+    also the exact f32 lo-halves of every value in the same layout and
+    the f64 diagonal, for ops.comp.
+
+    Keys: perm (np_,) int32, the row at each slice-lane position;
+    a_ptr/b_ptr (np_/32 + 1,) int64 slice offsets of the windowed and
+    the int32-column part; a_idx int16 (the 16-bit window index's bits),
+    a_val (dtype); win_ptr (np_/128 + 1,) int64 and win int32, the
+    window tables; b_col int32, b_val f32; diag f32; with compensated
+    a_lo, b_lo f32 and diag64 f64.  Padding entries carry value 0 and
+    index 0 (a column the block reads anyway)."""
+    if np_ % ROW_BLOCK:
+        raise ValueError(f"np_ must be a multiple of {ROW_BLOCK}, got {np_}")
+    if compensated and dtype != torch.float32:
+        raise ValueError("the compensated operator shares f32 values")
+    dev = torch.device(device)
+    nb = np_ // ROW_BLOCK
+    rows = torch.as_tensor(rows, device=dev).long()
+    cols = torch.as_tensor(cols, device=dev).long()
+    v64 = torch.as_tensor(vals, dtype=torch.float64, device=dev)
+    n = len(rows)
+    windowed = torch.ones(n, dtype=torch.bool, device=dev)
+    if keep_f32 is not None and dtype != torch.float32:
+        windowed = ~torch.as_tensor(keep_f32, device=dev)
+
+    # Window tables: per row block, the column blocks its windowed
+    # entries use, most used first, at most MAX_WIN.
+    rb = rows // ROW_BLOCK
+    key = (rb * nb + cols // ROW_BLOCK)[windowed]
+    uk, inv, cnt = torch.unique(key, return_inverse=True, return_counts=True)
+    urb = uk // nb
+    top = int(cnt.max()) + 1 if len(cnt) else 1
+    order = torch.argsort(urb * top + (top - 1 - cnt), stable=True)
+    nwin = torch.bincount(urb, minlength=nb)
+    rank = (torch.arange(len(uk), device=dev)
+            - (torch.cumsum(nwin, 0) - nwin)[urb[order]])
+    slot = torch.empty_like(rank)
+    slot[order] = rank
+    win = (uk[order] % nb)[rank < MAX_WIN].int()
+    win_ptr = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    win_ptr[1:] = torch.cumsum(nwin.clamp(max=MAX_WIN), 0)
+    ws = torch.full((n,), MAX_WIN, dtype=torch.int64, device=dev)
+    ws[windowed] = slot[inv]
+    in_a = ws < MAX_WIN
+
+    # Rows sorted by length within each row block, longest first
+    # (SELL-C-sigma, C = 32, sigma = 128), then cut into slices.  The
+    # int32-column part's length sorts first: its 8-byte entries are
+    # sparse per row (a bf16 operator's remainder), and this order pads
+    # them least for a small cost in the windowed part.
+    rows_a, rows_b = rows[in_a], rows[~in_a]
+    len_a = torch.bincount(rows_a, minlength=np_)
+    len_b = torch.bincount(rows_b, minlength=np_)
+    ma, mb = int(len_a.max()) + 1, int(len_b.max()) + 1
+    blk = torch.arange(np_, device=dev) // ROW_BLOCK
+    perm = torch.argsort((blk * mb + (mb - 1 - len_b)) * ma
+                         + (ma - 1 - len_a), stable=True)
+    pos = torch.empty_like(perm)
+    pos[perm] = torch.arange(np_, device=dev)
+    a_ptr, b_ptr = _slice_ptr(len_a, perm), _slice_ptr(len_b, perm)
+    dest_a = _slots_of(rows_a, len_a, pos, a_ptr)
+    dest_b = _slots_of(rows_b, len_b, pos, b_ptr)
+
+    idx = ws[in_a] * ROW_BLOCK + cols[in_a] % ROW_BLOCK     # < 2^16
+    a_idx = torch.zeros(int(a_ptr[-1]), dtype=torch.int16, device=dev)
+    a_idx[dest_a] = (idx - ((idx >> 15) << 16)).to(torch.int16)
+    a_val = torch.zeros(len(a_idx), dtype=dtype, device=dev)
+    a_val[dest_a] = v64[in_a].float().to(dtype)
+    b_col = torch.zeros(int(b_ptr[-1]), dtype=torch.int32, device=dev)
+    b_col[dest_b] = cols[~in_a].int()
+    b_val = torch.zeros(len(b_col), dtype=torch.float32, device=dev)
+    b_val[dest_b] = v64[~in_a].float()
+    diag64 = torch.as_tensor(np.asarray(diag, np.float64), device=dev)
+    params = {"perm": perm.int(), "a_ptr": a_ptr, "a_idx": a_idx,
+              "a_val": a_val, "win_ptr": win_ptr, "win": win,
+              "b_ptr": b_ptr, "b_col": b_col, "b_val": b_val,
+              "diag": diag64.float()}
+    if compensated:
+        params["a_lo"] = torch.zeros_like(a_val)
+        params["a_lo"][dest_a] = _lo_half(v64[in_a])
+        params["b_lo"] = torch.zeros_like(b_val)
+        params["b_lo"][dest_b] = _lo_half(v64[~in_a])
+        params["diag64"] = diag64
+    return params
+
+
+def _entries(ptr) -> torch.Tensor:
+    """Slice-lane position of every stored entry of one part."""
+    width = ptr[1:] - ptr[:-1]
+    s = torch.repeat_interleave(
+        torch.arange(len(width), device=ptr.device), width)
+    e = torch.arange(len(s), device=ptr.device)
+    return s * SLICE + (e - ptr[s]) % SLICE
+
+
+def sell_entries(params) -> tuple:
+    """((pos_a, col_a), (pos_b, col_b)): slice-lane position and column
+    of every stored entry of the windowed and the int32-column part,
+    padding included (row = perm[pos])."""
+    pos_a = _entries(params["a_ptr"])
+    idx = params["a_idx"].long() & 0xFFFF
+    wbase = params["win_ptr"][pos_a // ROW_BLOCK]
+    col_a = (params["win"][wbase + (idx >> 7)].long() * ROW_BLOCK
+             + (idx & (ROW_BLOCK - 1)))
+    return ((pos_a, col_a),
+            (_entries(params["b_ptr"]), params["b_col"].long()))
+
+
+def sell_matvec_plain(params, xt) -> torch.Tensor:
+    """Plain PyTorch version of K1': y^T = A x^T for f32 xt (R, np_), a
+    gather and a sum over each slice's width in f32 (bf16 values widened),
+    then the diagonal."""
+    (pos_a, col_a), (pos_b, col_b) = sell_entries(params)
+    acc = torch.zeros_like(xt)
+    acc.index_add_(1, pos_a, params["a_val"].float() * xt[:, col_a])
+    acc.index_add_(1, pos_b, params["b_val"] * xt[:, col_b])
+    y = torch.empty_like(acc)
+    y[:, params["perm"].long()] = acc
+    return y.addcmul_(params["diag"], xt)
+
+
+_SELL_INDEX = {"perm": torch.int32, "a_ptr": torch.int64,
+               "a_idx": torch.int16, "win_ptr": torch.int64,
+               "win": torch.int32, "b_ptr": torch.int64,
+               "b_col": torch.int32}
+
+
+def sell_args(params, x, values: dict) -> list:
+    """The format's index pointers for a kernel entry point, after
+    checking device, type, contiguity and sizes of those arrays and of
+    the value arrays `values` names ({key: allowed dtypes}); shared by
+    K1' and K2'."""
+    np_ = params["perm"].numel()
+    if np_ % ROW_BLOCK or x.shape[-1] != np_:
+        raise ValueError(f"x has {x.shape[-1]} columns, the operator "
+                         f"{np_} rows (a multiple of {ROW_BLOCK})")
+    for key, dts in {**{k: (dt,) for k, dt in _SELL_INDEX.items()},
+                     **values}.items():
+        t = params[key]
+        if t.dtype not in dts or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous {dts} on {x.device}")
+    if (params["a_ptr"].numel() != np_ // SLICE + 1
+            or params["b_ptr"].numel() != np_ // SLICE + 1
+            or params["win_ptr"].numel() != np_ // ROW_BLOCK + 1):
+        raise ValueError("slice or window offsets do not match the rows")
+    return [params[k].data_ptr() for k in _SELL_INDEX]
+
+
+def sell_matvec(params, xt) -> torch.Tensor:
+    """Kernel K1' (csrc/dia_sell.cu) on CUDA tensors: y^T = A x^T for f32
+    xt of shape (R, np_); the plain version for CPU tensors."""
     if xt.device.type == "cpu":
-        return slab_matvec_plain(meta, w, xt, slots)
-    np_, b, g, ng, offs = meta
-    r = xt.shape[0]
-    if b != 128:
-        raise ValueError(f"dia_slab kernel needs b=128, got {b}")
-    if xt.dtype != torch.float32 or xt.shape != (r, np_) or r < 1:
-        raise ValueError(f"x^T must be f32 (R, {np_}), got "
-                         f"{xt.dtype} {tuple(xt.shape)}")
-    if w.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"slab dtype {w.dtype} not supported")
-    if w.numel() != np_ * len(offs) * b:
-        raise ValueError("slab size does not match meta")
-    tensors = [xt, w]
-    e = 0
-    tgt = ci = we = None
-    if slots is not None:
-        tgt, ci, we = slots
-        e = we.shape[1]
-        if (tgt.dtype != torch.int32 or ci.dtype != torch.int32
-                or we.dtype != torch.float32
-                or tgt.numel() != (np_ // b) * e
-                or ci.shape != (np_ // b, e, b) or we.shape != ci.shape):
-            raise ValueError("malformed slot tables")
-        tensors += [tgt, ci, we]
-    for t in tensors:
-        if t.device != xt.device or not t.is_contiguous():
-            raise ValueError("dia_slab operands must be contiguous and on "
-                             "the same device")
+        return sell_matvec_plain(params, xt)
+    if xt.dtype != torch.float32 or xt.dim() != 2 or xt.shape[0] < 1:
+        raise ValueError(f"x^T must be f32 (R, np), got {xt.dtype} "
+                         f"{tuple(xt.shape)}")
+    if not xt.is_contiguous():
+        raise ValueError("x^T must be contiguous")
+    f32 = (torch.float32,)
+    ptrs = sell_args(params, xt, {"a_val": (torch.float32, torch.bfloat16),
+                                  "b_val": f32, "diag": f32})
     y = torch.empty_like(xt)
-    rc = kernels.load().pg_dia_slab(
-        xt.data_ptr(), np_, w.data_ptr(), int(w.dtype == torch.bfloat16),
-        len(offs), kernels.offsets_arg(offs), r,
-        tgt.data_ptr() if e else None, ci.data_ptr() if e else None,
-        we.data_ptr() if e else None, e, y.data_ptr(),
+    rc = kernels.load().pg_dia_sell(
+        *ptrs, params["a_val"].data_ptr(),
+        int(params["a_val"].dtype == torch.bfloat16),
+        params["b_val"].data_ptr(), params["diag"].data_ptr(),
+        xt.data_ptr(), xt.shape[1], xt.shape[0], y.data_ptr(),
         torch.cuda.current_stream(xt.device).cuda_stream)
-    kernels.check_launch(rc, "dia_slab")
-    slab_matvec.launches += 1
+    kernels.check_launch(rc, "dia_sell")
+    sell_matvec.launches += 1
     return y
 
 
-slab_matvec.launches = 0
-
-
-def _slots(params):
-    """The (tgt, ci, we) slot triple of a params dict, or None."""
-    if "xs_tgt" not in params:
-        return None
-    return (params["xs_tgt"], params["xs_ci"], params["xs_w"])
+sell_matvec.launches = 0
 
 
 def dia_matvec_t(meta, params, xt) -> torch.Tensor:
     """yt = ((Diag + OffDiag) @ xt.T).T for f32 xt of shape (R, np_):
-    slab + slots through K1, then the diagonal and the COO remainder."""
-    xt = xt.contiguous()
-    yt = slab_matvec(meta, params["w"], xt, _slots(params))
-    yt.addcmul_(params["diag"][None, :], xt)
-    if params["rem_rows"].numel():
-        yt.index_add_(1, params["rem_rows"],
-                      xt[:, params["rem_cols"]] * params["rem_vals"])
-    return yt
+    one launch of K1' over the operator's sliced-ELL params."""
+    if xt.shape[-1] != meta[0]:
+        raise ValueError(f"x^T has {xt.shape[-1]} columns, meta {meta[0]}")
+    return sell_matvec(params, xt.contiguous())

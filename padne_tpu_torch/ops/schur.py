@@ -16,7 +16,8 @@ refinement drives the exact residual to the target.
 wide border that touches every component go to a host sparse direct
 solve; large mixed-precision solves with coordinates (or
 operator="dia") take the block-offset DIA route (`DiaBorderedSolver`:
-slab operator K1, aligned AMG, compensated refinement ladder K2); all
+sliced-ELL operator K1', aligned AMG, compensated refinement ladder
+K2'); all
 others, and systems too small for a DIA hierarchy, take the generic
 ELL route (ELL AMG + `cg.make_pcg`, every SpMV through K3, f32 inner
 solves with f64 residuals and an escalation to f64 on a stall).
@@ -168,14 +169,15 @@ class DiaBorderedSolver:
     """The block-offset-DIA solve path, set up once and solvable
     repeatedly.
 
-    Defaults are the JAX package's settings: 8 ExtraSlots per level-0
-    row block (`slots`), 4 level-0 offsets (`max_offsets`), a 3000-row
-    dense bottom (`coarse_size`), inner CG tolerances 1e-5 (first pass /
-    host passes) and 3e-4 (compensated ladder passes).  `cycle_dtype`
-    and `w_levels` follow the device as in the JAX package (accelerator
-    vs CPU): bf16 cycle slabs and a W-cycle on coarse levels 2..3 on
-    CUDA, where bf16 halves the dominant slab stream; f32 slabs and the
-    plain V-cycle on the CPU.
+    Defaults are the JAX package's settings: 4 level-0 offsets
+    (`max_offsets`), a 3000-row dense bottom (`coarse_size`), inner CG
+    tolerances 1e-5 (first pass / host passes) and 3e-4 (compensated
+    ladder passes).  `cycle_dtype` and `w_levels` follow the device as
+    in the JAX package (accelerator vs CPU): bf16 values for the cycle's
+    offset entries and a W-cycle on coarse levels 2..3 on CUDA; f32 and
+    the plain V-cycle on the CPU.  (The JAX package's ExtraSlots only
+    place remainder entries in its dense slabs; the sliced-ELL format
+    holds every entry, so there is no `slots` setting.)
 
     Data flow: the inner CG, the V-cycle, the border products and the
     compensated refinement residuals all stay on the device; the host
@@ -185,8 +187,7 @@ class DiaBorderedSolver:
 
     def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
                  maxiter: int = 40000, cycle_dtype=None,
-                 w_levels: "int | None" = None, slots: int = 8,
-                 max_offsets: int = 4,
+                 w_levels: "int | None" = None, max_offsets: int = 4,
                  coarse_size: int = 3000, inner_tol: float = 1e-5,
                  comp_inner_tol: float = 3e-4):
         import scipy.sparse
@@ -219,14 +220,11 @@ class DiaBorderedSolver:
                 "projects with a dense one-hot of at most 64 columns (the "
                 "normal-layout DIA branch is not ported)")
         self.hierarchy = hierarchy
-        level0 = hierarchy.levels[0]
-        meta0 = level0.pack.meta
+        meta0 = hierarchy.levels[0].pack.meta
 
-        op_params = amg.make_dia_cg_operator(hierarchy, dev, slots=slots)
-        w0 = op_params["w"].to(cycle_dtype)     # no copy when f32
+        op_params = amg.make_dia_cg_operator(hierarchy, dev)
         vcycle_apply, vparams = amg.make_vcycle_dia_t(
-            hierarchy, dev, slab_dtype=cycle_dtype, w0=w0, slots=slots,
-            w_levels=w_levels)
+            hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels)
 
         posmap = hierarchy.posmap0
         np0 = hierarchy.np0
@@ -238,8 +236,8 @@ class DiaBorderedSolver:
         def a_apply_t(prm, xt):
             return dia.dia_matvec_t(meta0, prm, xt)
 
-        # The device operands of K1: the CG operator's level-0 slab and
-        # slots, and the cycle's slabs level by level.
+        # The device operands of K1': the CG operator (shared with K2'),
+        # and the cycle's operators level by level.
         self.op_params, self.cycle_params = op_params, vparams
 
         self.cg_solver = cg.make_pcg(
@@ -265,7 +263,7 @@ class DiaBorderedSolver:
         self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
         self._b64[self.posmap_dev] = _f64(system.r_core, dev)
 
-        self._comp = comp.build_slab_mode(meta0, op_params, level0.pack)
+        self._comp = comp.build_slab_mode(op_params)
 
         # Host-side small dense pieces.
         self.BZ = np.zeros((m, p))

@@ -52,8 +52,8 @@ def test_pcg_t_matches_jax(tol):
         precond=jvc, comp_id=jnp.asarray(comp), num_components=2)
     jres = jsolve(jnp.asarray(b), tol, 300)
 
-    op = amg.make_dia_cg_operator(th, "cpu", slots=8)
-    vc = amg.make_vcycle_dia_t(th, "cpu", w0=op["w"], w_levels=0)
+    op = amg.make_dia_cg_operator(th, "cpu")
+    vc = amg.make_vcycle_dia_t(th, "cpu", w_levels=0)
     solve = cg.make_pcg(
         None, None, None, torch.from_numpy(comp), 2,
         operator=(lambda p, xt: dia.dia_matvec_t(meta0, p, xt), op),

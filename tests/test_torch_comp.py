@@ -1,5 +1,6 @@
-"""Port parity for ops.comp: the compensated slab residual (kernel K2's
-plain version plus the f64 remainder, diagonal and tail).
+"""Port parity for ops.comp: the compensated residual (the plain
+version of K2' over the sliced-ELL operator's hi and lo values and its
+f64 diagonal).
 
 Held against scipy in f64 and against the JAX slab mode run through the
 Pallas interpreter, at both conductance scales of the JAX package's own
@@ -37,7 +38,7 @@ def test_matvec_slab_matches_f64(scale):
     x_pad = np.zeros(tp.np_, np.float32)
     x_pad[:n] = x32
 
-    op = comp.build_slab_mode(tp.meta, tp.to_device("cpu", slots=8), tp)
+    op = comp.build_slab_mode(tp.to_device("cpu", compensated=True))
     y = comp.matvec_slab(op, torch.from_numpy(x_pad)).numpy()
 
     jparams = jp.to_device(keep_widx=True)
@@ -56,8 +57,8 @@ def test_beats_plain_f32():
     ell, _ = grid_system(48, 48, n_far=10)
     a = ell.to_scipy() * (2081.0 * np.pi / 3.0)
     tp = dia.pack_csr_as_dia(a, max_offsets=4)
-    params = tp.to_device("cpu")
-    op = comp.build_slab_mode(tp.meta, params, tp)
+    params = tp.to_device("cpu", compensated=True)
+    op = comp.build_slab_mode(params)
     n = a.shape[0]
     x_pad = np.zeros(tp.np_, np.float32)
     x_pad[:n] = np.linspace(0.0, 3.3, n).astype(np.float32)
@@ -71,11 +72,17 @@ def test_beats_plain_f32():
 def test_wrapper_uses_plain_version_on_cpu():
     ell, _ = grid_system(32, 32)
     tp = dia.pack_csr_as_dia(ell.to_scipy())
-    op = comp.build_slab_mode(tp.meta, tp.to_device("cpu"), tp)
+    prm = comp.build_slab_mode(tp.to_device("cpu", compensated=True)).params
     x = torch.linspace(0, 1, tp.np_, dtype=torch.float32)
-    before = comp.comp_slab.launches
-    prm = op.params
-    assert torch.equal(comp.comp_slab(tp.meta, prm["w"], prm["w_lo"], x),
-                       comp.comp_slab_plain(tp.meta, prm["w"], prm["w_lo"],
-                                            x))
-    assert comp.comp_slab.launches == before
+    before = comp.comp_sell.launches
+    assert torch.equal(comp.comp_sell(prm, x), comp.comp_sell_plain(prm, x))
+    assert comp.comp_sell.launches == before
+
+
+def test_needs_the_compensated_build():
+    ell, _ = grid_system(32, 32)
+    tp = dia.pack_csr_as_dia(ell.to_scipy())
+    with pytest.raises(ValueError):
+        comp.build_slab_mode(tp.to_device("cpu"))
+    with pytest.raises(ValueError):
+        tp.to_device("cpu", dtype=torch.bfloat16, compensated=True)

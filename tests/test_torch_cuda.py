@@ -6,12 +6,15 @@ it without the suite's conftest (that one imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Covers what chip_smoke.py's fixed main-path shapes do not: ragged RHS
-chunks (R not a multiple of the kernel's chunk), offsets that run off
-both ends of the block range, bf16 slabs with slots, odd ELL shapes
-(R in {1, 3, 9}, f32 and f64, rectangular, padding that points at row
-0) and the launch counters.  Tolerances: f32 sums in another order
-(1e-5 of max|y|), f64 likewise (1e-12); K2 against the f64 bound
+Covers what chip_smoke.py's fixed main-path shapes do not: K1' at
+R in {1, 3, 4, 9} in f32 and bf16, on an odd operator (rows of very
+different lengths, far columns, empty padding rows and row blocks, a
+bf16 operator's f32 part) with and without a window too small for its
+row blocks (the int32-column part), and at R in {2, 3, 4, 9} on a level
+wide enough for the 2- and 4-column chunks of K1'; K2' on the odd
+operator; odd ELL shapes (R in {1, 3, 9}, f32 and f64, rectangular,
+padding that points at row 0) and the launch counters.  Tolerances: f32 sums in another order
+(1e-5 of max|y|), f64 likewise (1e-12); K2' against the f64 bound
 2e-13 * max(|A| |x|).
 """
 
@@ -31,54 +34,80 @@ def cuda():
     return torch.device("cuda")
 
 
-def _slab(nb, offs, dtype, cuda, seed):
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    w = torch.randn(nb, len(offs), 128, 128, generator=g, device=cuda)
-    return w.to(dtype).reshape(nb // 2, 2, len(offs), 128, 128)
-
-
-def _slots(nb, e, cuda, seed):
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    tgt = torch.randint(0, nb, (nb * e,), generator=g, device=cuda,
-                        dtype=torch.int32)
-    ci = torch.randint(0, 128, (nb, e, 128), generator=g, device=cuda,
-                       dtype=torch.int32)
-    we = torch.randn(nb, e, 128, generator=g, device=cuda)
-    return tgt, ci, we
+def _operator(seed, np_=24 * 128, n=2900, max_len=40):
+    """A random (np_, np_) operator in COO: rows 0..n-1 hold 0-max_len
+    entries, mostly within +-300 columns, some anywhere; rows n.. are
+    padding (no entries, zero diagonal)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_len + 1, n)
+    rows = np.repeat(np.arange(n), counts)
+    near = rows + rng.integers(-300, 301, len(rows))
+    far = rng.integers(0, n, len(rows))
+    cols = np.where(rng.random(len(rows)) < 0.9, np.clip(near, 0, n - 1),
+                    far)
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(len(rows)) * 2081.0
+    diag = np.zeros(np_)
+    diag[:n] = 1e4 * (1.0 + rng.random(n))
+    return np_, rows, cols, vals, diag
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r", [1, 3, 4, 9])
-@pytest.mark.parametrize("e", [0, 8])
-def test_dia_slab_matches_plain(cuda, dtype, r, e):
-    nb = 24
-    offs = (-30, -2, -1, 0, 1, 5, 31)
-    meta = (nb * 128, 128, 2, nb // 2, offs)
-    w = _slab(nb, offs, dtype, cuda, seed=r)
-    slots = _slots(nb, e, cuda, seed=e) if e else None
-    xt = torch.randn(r, nb * 128, device=cuda)
-    before = dia.slab_matvec.launches
-    y = dia.slab_matvec(meta, w, xt, slots)
-    assert dia.slab_matvec.launches == before + 1
-    ref = dia.slab_matvec_plain(meta, w, xt, slots)
+@pytest.mark.parametrize("max_win", [512, 2])
+def test_dia_sell_matches_plain(cuda, dtype, r, max_win, monkeypatch):
+    monkeypatch.setattr(dia, "MAX_WIN", max_win)
+    np_, rows, cols, vals, diag = _operator(seed=r)
+    # In bf16, a fifth of the entries keep f32 values (the remainder).
+    keep_f32 = np.random.default_rng(r).random(len(rows)) < 0.2
+    params = dia.build_sell(np_, rows, cols, vals, diag, cuda, dtype=dtype,
+                            keep_f32=keep_f32)
+    assert params["a_val"].dtype == dtype
+    assert (params["b_val"].numel() > 0) == (dtype == torch.bfloat16
+                                             or max_win == 2)
+    xt = torch.randn(r, np_, device=cuda)
+    before = dia.sell_matvec.launches
+    y = dia.sell_matvec(params, xt)
+    assert dia.sell_matvec.launches == before + 1
+    ref = dia.sell_matvec_plain(params, xt)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.all(y[:, 2900:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [2, 3, 4, 9])
+def test_dia_sell_wide_level(cuda, dtype, r):
+    """A level of 18,432 slices: wide enough that K1' gives each lane a
+    chunk of 2 (R = 2) or 4 RHS columns (ragged at R = 3 and 9)."""
+    np_, rows, cols, vals, diag = _operator(seed=20 + r, np_=4608 * 128,
+                                            n=589_000, max_len=8)
+    keep_f32 = np.random.default_rng(r).random(len(rows)) < 0.1
+    params = dia.build_sell(np_, rows, cols, vals, diag, cuda, dtype=dtype,
+                            keep_f32=keep_f32)
+    xt = torch.randn(r, np_, device=cuda)
+    y = dia.sell_matvec(params, xt)
+    ref = dia.sell_matvec_plain(params, xt)
     torch.cuda.synchronize()
     assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-def test_comp_slab_matches_f64(cuda):
-    nb = 16
-    offs = (-3, -1, 0, 1, 2)
-    meta = (nb * 128, 128, 2, nb // 2, offs)
-    w64 = torch.randn(nb, len(offs), 128, 128, device=cuda,
-                      dtype=torch.float64) * 2081.0
-    w = w64.float()
-    w_lo = (w64 - w.double()).float()
-    x = torch.linspace(0.0, 3.3, nb * 128, device=cuda)
-    before = comp.comp_slab.launches
-    y = comp.comp_slab(meta, w, w_lo, x)
-    assert comp.comp_slab.launches == before + 1
-    ref = comp.comp_slab_plain(meta, w, w_lo, x)
-    bound = comp.comp_slab_plain(meta, w.abs(), w_lo.abs(), x.abs()).max()
+@pytest.mark.parametrize("max_win", [512, 2])
+def test_comp_sell_matches_f64(cuda, max_win, monkeypatch):
+    monkeypatch.setattr(dia, "MAX_WIN", max_win)
+    np_, rows, cols, vals, diag = _operator(seed=11)
+    params = dia.build_sell(np_, rows, cols, vals, diag, cuda,
+                            compensated=True)
+    x = torch.linspace(0.0, 3.3, np_, device=cuda)
+    before = comp.comp_sell.launches
+    y = comp.comp_sell(params, x)
+    assert comp.comp_sell.launches == before + 1
+    ref = comp.comp_sell_plain(params, x)
+    absp = dict(params, a_val=params["a_val"].abs(),
+                a_lo=params["a_lo"].abs(), b_val=params["b_val"].abs(),
+                b_lo=params["b_lo"].abs(), diag64=params["diag64"].abs())
+    bound = comp.comp_sell_plain(absp, x.abs()).max()
     assert (y - ref).abs().max() <= 2e-13 * bound
 
 
@@ -132,15 +161,19 @@ def test_ell_rect_spmv_matches_plain(cuda, dtype, tol, r):
 
 
 def test_wrappers_reject_bad_operands(cuda):
-    meta = (256, 128, 2, 1, (0,))
-    w = torch.zeros(1, 2, 1, 128, 128, device=cuda)
-    with pytest.raises(ValueError):
-        dia.slab_matvec(meta, w, torch.zeros(1, 256, device=cuda,
-                                             dtype=torch.float64))
-    with pytest.raises(ValueError):
-        dia.slab_matvec(meta, w, torch.zeros(256, 2, device=cuda).T)
-    with pytest.raises(ValueError):
-        comp.comp_slab(meta, w, w, torch.zeros(255, device=cuda))
+    np_, rows, cols, vals, diag = _operator(seed=2)
+    params = dia.build_sell(np_, rows, cols, vals, diag, cuda,
+                            compensated=True)
+    with pytest.raises(ValueError):    # f64 x
+        dia.sell_matvec(params, torch.zeros(1, np_, device=cuda,
+                                            dtype=torch.float64))
+    with pytest.raises(ValueError):    # not contiguous
+        dia.sell_matvec(params, torch.zeros(np_, 2, device=cuda).T)
+    with pytest.raises(ValueError):    # wrong length
+        comp.comp_sell(params, torch.zeros(np_ - 1, device=cuda))
+    with pytest.raises(ValueError):    # index arrays on the host
+        dia.sell_matvec(dict(params, a_idx=params["a_idx"].cpu()),
+                        torch.zeros(1, np_, device=cuda))
     cols = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
     vals = torch.zeros(2, 8, device=cuda)
     with pytest.raises(ValueError):    # int64 columns
@@ -157,14 +190,14 @@ def test_ell_route_runs_through_k3(cuda):
     from padne_tpu_torch.ops import schur
 
     system = _grid_system(80)      # n = 6400: AMG-preconditioned
-    before = (dia.slab_matvec.launches, comp.comp_slab.launches,
+    before = (dia.sell_matvec.launches, comp.comp_sell.launches,
               spmv.ell_spmv.launches, spmv.ell_rect_spmv.launches)
     stats = {}
     sol = schur.solve_bordered(system, inner_dtype=torch.float32,
                                device=cuda, stats=stats)
     assert stats["route"] == "ell" and len(stats["levels"]) >= 2
     assert sol.residual_norm < 1e-9
-    assert (dia.slab_matvec.launches, comp.comp_slab.launches) == before[:2]
+    assert (dia.sell_matvec.launches, comp.comp_sell.launches) == before[:2]
     assert spmv.ell_spmv.launches > before[2]
     assert spmv.ell_rect_spmv.launches > before[3]
 
@@ -198,8 +231,8 @@ def test_solver_needs_no_cpu_fallback(cuda):
     """A small DIA solve on the card runs through both kernels."""
     from padne_tpu_torch.ops import schur
 
-    k1, k2 = dia.slab_matvec.launches, comp.comp_slab.launches
+    k1, k2 = dia.sell_matvec.launches, comp.comp_sell.launches
     sol = schur.solve_bordered_dia(_grid_system(64), device=cuda,
                                    coarse_size=200)
     assert sol.residual_norm < 1e-10
-    assert dia.slab_matvec.launches > k1 and comp.comp_slab.launches > k2
+    assert dia.sell_matvec.launches > k1 and comp.comp_sell.launches > k2

@@ -1,19 +1,24 @@
-"""Port parity for ops.dia: host packing and kernel K1's plain version.
+"""Port parity for ops.dia: host packing and the plain version of K1'.
 
 The same seeded inputs go through padne_tpu.ops.dia (the reference) and
-padne_tpu_torch.ops.dia.  Host packing must be bit-identical; the slab
-SpMV is held against the JAX `xla` backend and the Pallas kernel in
-interpret mode.
+padne_tpu_torch.ops.dia.  Host packing must be bit-identical; the
+sliced-ELL operator's image must equal the JAX pack's operator entry for
+entry, and its matvec is held against the JAX `dia_matvec_t` with the
+`xla` backend and the Pallas kernel in interpret mode.
 
 Tolerances (relative to max|y|):
-* f32 slabs: 1e-5 against both — only the f32 summation order differs;
-* bf16 slabs: 1e-5 against `xla` fed f32 x (the same widen-W-to-f32
-  contraction), 1e-2 against `interpret`, because the Pallas kernel
-  also rounds x to bf16 (an MXU input format, not part of the math).
+* f32 operators: 1e-5 against both — only the f32 summation order
+  differs;
+* bf16 operators: 1e-5 against `xla` fed f32 x (the JAX slab widened
+  to f32: the same widen-W-to-f32 contraction; with a bf16 slab the
+  `xla` backend rounds x to bf16 too), 1e-2 against `interpret`,
+  because the Pallas kernel also rounds x to bf16 (an MXU input format,
+  not part of the math).
 """
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import jax.numpy as jnp
@@ -45,6 +50,45 @@ def _assert_pack_equal(jp, tp):
         np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+def _image(params):
+    """The operator a sliced-ELL params dict holds, as an f64 CSR."""
+    (pos_a, col_a), (pos_b, col_b) = dia.sell_entries(params)
+    perm = params["perm"].long()
+    np_ = len(perm)
+    rows = torch.cat([perm[pos_a], perm[pos_b], torch.arange(np_)])
+    cols = torch.cat([col_a, col_b, torch.arange(np_)])
+    vals = torch.cat([params["a_val"].double(), params["b_val"].double(),
+                      params["diag"].double()])
+    a = scipy.sparse.coo_matrix((vals.numpy(), (rows.numpy(), cols.numpy())),
+                                shape=(np_, np_)).tocsr()
+    a.eliminate_zeros()
+    return a
+
+
+def _jax_image(jp, slab_dtype=np.float32):
+    """The JAX pack's operator (offset entries decoded by the JAX
+    package's coo_from_widx, values rounded as its slab stores them,
+    remainder and diagonal in f32), as an f64 CSR."""
+    rows, cols = jdia.coo_from_widx(jp.meta, jnp.asarray(jp.widx_hi),
+                                    jnp.asarray(jp.widx_lo))
+    main = np.asarray(jnp.asarray(jp.wval.astype(np.float32),
+                                  dtype=slab_dtype).astype(jnp.float32))
+    n = jp.np_
+    a = scipy.sparse.coo_matrix(
+        (np.concatenate([main, jp.rem_vals.astype(np.float32),
+                         jp.diag.astype(np.float32)]).astype(np.float64),
+         (np.concatenate([np.asarray(rows), jp.rem_rows, np.arange(n)]),
+          np.concatenate([np.asarray(cols), jp.rem_cols, np.arange(n)]))),
+        shape=(n, n)).tocsr()
+    a.eliminate_zeros()
+    return a
+
+
+def _assert_same_operator(a, b):
+    assert a.shape == b.shape
+    assert abs(a - b).max() == 0.0
+
+
 CASES = {
     "grid_far": lambda: grid_system(96, 96, n_far=40),
     "laplacian": lambda: grid_laplacian(64, seed=2),
@@ -54,23 +98,11 @@ CASES = {
 class TestHostPacking:
     @pytest.mark.parametrize("case", sorted(CASES))
     @pytest.mark.parametrize("max_offsets", [2, 4])
-    def test_pack_and_slots_equal(self, case, max_offsets):
+    def test_pack_equal(self, case, max_offsets):
         ell, coords = CASES[case]()
         jp, tp = _packs(ell, coords, max_offsets=max_offsets, coverage=0.9)
         _assert_pack_equal(jp, tp)
         assert len(tp.rem_rows) > 0
-        je = jdia.pack_extra_slots(jp, e_max=4)
-        te = dia.pack_extra_slots(tp, e_max=4)
-        for name in ("tgt", "idx", "cls", "vals", "tail_rows", "tail_cols",
-                     "tail_vals"):
-            np.testing.assert_array_equal(getattr(je, name),
-                                          getattr(te, name), err_msg=name)
-        # The host slot tables equal the JAX device-built ones.
-        wslot, cslot = dia._build_slot_tables(te)
-        jw, jc = jdia._build_slot_tables(je.idx, je.vals, je.cls,
-                                         nb=je.nb, e=je.e, b=je.b)
-        np.testing.assert_array_equal(np.asarray(jw), wslot)
-        np.testing.assert_array_equal(np.asarray(jc), cslot)
 
     @pytest.mark.parametrize("coverage,max_offsets", [(0.95, 8), (0.5, 2)])
     def test_choose_offsets_equal(self, coverage, max_offsets):
@@ -82,12 +114,25 @@ class TestHostPacking:
             jdia.choose_offsets(rows, cols, coverage=coverage,
                                 max_offsets=max_offsets)
 
-    def test_slab_scatter_equals_jax(self):
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_sell_image_equals_jax_operator(self, dtype):
+        """Every nonzero of the JAX pack (offset entries in the slab's
+        dtype, remainder and diagonal in f32) sits in the sliced-ELL
+        operator once, built from the port's pack and from the JAX
+        package's device params alike."""
         ell, coords = grid_system(64, 64, n_far=20)
         jp, tp = _packs(ell, coords, max_offsets=4)
-        w_j = np.asarray(jp.to_device()["w"])
-        w_t = dia.build_slab(tp, torch.float32, "cpu").numpy()
-        np.testing.assert_array_equal(w_j, w_t)
+        tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                    else (torch.bfloat16, jnp.bfloat16))
+        ref = _jax_image(jp, jdt)
+        own = tp.to_device("cpu", dtype=tdt)
+        assert own["a_val"].dtype == tdt
+        assert (own["b_val"].numel() > 0) == (dtype == "bf16")
+        _assert_same_operator(_image(own), ref)
+        jparams = jp.to_device(slab_dtype=jdt, slots=8)
+        _assert_same_operator(
+            _image(convert.dia_params_from_numpy(jp.meta, jparams, "cpu")),
+            ref)
 
 
 def _inputs(r, np_, seed):
@@ -95,7 +140,7 @@ def _inputs(r, np_, seed):
     return rng.standard_normal((r, np_)).astype(np.float32)
 
 
-class TestSlabMatvec:
+class TestSellMatvec:
     @pytest.mark.parametrize("slots", [0, 8])
     @pytest.mark.parametrize("r", [1, 4])
     def test_f32_matches_jax(self, slots, r):
@@ -106,9 +151,8 @@ class TestSlabMatvec:
         refs = [np.asarray(jdia.dia_matvec_t(jp.meta, jparams,
                                              jnp.asarray(xt), backend=be))
                 for be in ("xla", "interpret")]
-        own = tp.to_device("cpu", slots=slots)
-        conv = convert.dia_params_from_numpy(jparams, "cpu")
-        assert ("xs_tgt" in own) == bool(slots) == ("xs_tgt" in conv)
+        own = tp.to_device("cpu")
+        conv = convert.dia_params_from_numpy(jp.meta, jparams, "cpu")
         for params in (own, conv):
             y = dia.dia_matvec_t(tp.meta, params, torch.from_numpy(xt))
             for ref in refs:
@@ -116,35 +160,75 @@ class TestSlabMatvec:
                 assert np.abs(y.numpy() - ref).max() <= 1e-5 * scale
 
     @pytest.mark.parametrize("r", [1, 4])
-    def test_bf16_slab_matches_jax(self, r):
+    def test_bf16_matches_jax(self, r):
         ell, coords = grid_laplacian(64, seed=2)
         jp, tp = _packs(ell, coords, max_offsets=4)
+        assert len(tp.rem_rows) > 0
         jparams = jp.to_device(slab_dtype=jnp.bfloat16)
-        jw = jparams["w"]
-        assert jw.dtype == jnp.bfloat16
+        assert jparams["w"].dtype == jnp.bfloat16
         xt = _inputs(r, jp.np_, seed=7)
-        dmax = jdia._dmax(jp.offs)
-        xt_pad = jnp.pad(jnp.asarray(xt), ((0, 0), (dmax * 128,) * 2))
-        ref_xla = np.asarray(jdia._run_main("xla", jp.meta, jw, xt_pad))
-        ref_int = np.asarray(jdia._run_main("interpret", jp.meta, jw, xt_pad))
-        w = convert.dia_params_from_numpy(jparams, "cpu")["w"]
-        assert w.dtype == torch.bfloat16
-        np.testing.assert_array_equal(
-            w.float().numpy(),
-            dia.build_slab(tp, torch.bfloat16, "cpu").float().numpy())
-        y = dia.slab_matvec(tp.meta, w, torch.from_numpy(xt)).numpy()
+        ref_xla = np.asarray(jdia.dia_matvec_t(
+            jp.meta, dict(jparams, w=jparams["w"].astype(jnp.float32)),
+            jnp.asarray(xt), backend="xla"))
+        ref_int = np.asarray(jdia.dia_matvec_t(
+            jp.meta, jparams, jnp.asarray(xt), backend="interpret"))
+        own = tp.to_device("cpu", dtype=torch.bfloat16)
+        conv = convert.dia_params_from_numpy(jp.meta, jparams, "cpu")
+        assert own["a_val"].dtype == conv["a_val"].dtype == torch.bfloat16
         scale = np.abs(ref_xla).max()
-        assert np.abs(y - ref_xla).max() <= 1e-5 * scale
-        assert np.abs(y - ref_int).max() <= 1e-2 * scale
+        for params in (own, conv):
+            y = dia.dia_matvec_t(tp.meta, params, torch.from_numpy(xt))
+            assert np.abs(y.numpy() - ref_xla).max() <= 1e-5 * scale
+            assert np.abs(y.numpy() - ref_int).max() <= 1e-2 * scale
+
+    @pytest.mark.parametrize("max_win", [1, 3])
+    def test_entries_outside_the_window(self, max_win, monkeypatch):
+        """Row blocks whose entries use more column blocks than the
+        window holds: the rest goes to the int32-column part, and the
+        operator and its product do not change."""
+        ell, coords = grid_system(64, 64, n_far=30)
+        _, tp = _packs(ell, coords, max_offsets=4)
+        full = tp.to_device("cpu")
+        monkeypatch.setattr(dia, "MAX_WIN", max_win)
+        cut = tp.to_device("cpu")
+        assert full["b_val"].numel() == 0 < cut["b_val"].numel()
+        assert int((cut["win_ptr"][1:] - cut["win_ptr"][:-1]).max()) \
+            == max_win
+        _assert_same_operator(_image(cut), _image(full))
+        xt = torch.from_numpy(_inputs(3, tp.np_, seed=max_win))
+        y, ref = (dia.dia_matvec_t(tp.meta, p, xt) for p in (cut, full))
+        assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+    def test_empty_padding_rows(self):
+        """Padding rows (no entries, zero diagonal) and whole empty row
+        blocks: y is zero there, and the rows with entries match a
+        scipy product in f64 (1e-5: f32 sums)."""
+        rng = np.random.default_rng(3)
+        n, np_ = 300, 640              # rows 300..639 are padding
+        rows = rng.integers(0, n, 2000)
+        cols = rng.integers(0, n, 2000)
+        keep = rows != cols
+        rows, cols = rows[keep], cols[keep]
+        vals = rng.standard_normal(len(rows))
+        diag = np.zeros(np_)
+        diag[:n] = 4.0 + rng.random(n)
+        params = dia.build_sell(np_, rows, cols, vals, diag, "cpu")
+        assert int(params["a_ptr"][-1]) % dia.SLICE == 0
+        xt = torch.from_numpy(_inputs(2, np_, seed=4))
+        y = dia.sell_matvec(params, xt).numpy()
+        a = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(np_, np_))
+        ref = (a + scipy.sparse.diags(diag)) @ xt.numpy().T.astype(
+            np.float64)
+        assert np.all(y[:, n:] == 0.0)
+        assert np.abs(y - ref.T).max() <= 1e-5 * np.abs(ref).max()
 
     def test_wrapper_uses_plain_version_on_cpu(self):
         ell, coords = grid_laplacian(48)
         _, tp = _packs(ell, coords)
-        params = tp.to_device("cpu", slots=4)
+        params = tp.to_device("cpu")
         xt = torch.from_numpy(_inputs(2, tp.np_, seed=1))
-        before = dia.slab_matvec.launches
-        y = dia.slab_matvec(tp.meta, params["w"], xt, dia._slots(params))
-        ref = dia.slab_matvec_plain(tp.meta, params["w"], xt,
-                                    dia._slots(params))
+        before = dia.sell_matvec.launches
+        y = dia.sell_matvec(params, xt)
+        ref = dia.sell_matvec_plain(params, xt)
         assert torch.equal(y, ref)
-        assert dia.slab_matvec.launches == before
+        assert dia.sell_matvec.launches == before

@@ -9,10 +9,13 @@ Run from the repository root:
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs untraced (kernel build,
 first-call costs), the second under the profiler.  Printed: the route,
-the solve's wall time without its host setup (setup_s of the solve's
+each solve's wall time, CG iterations and refinement passes, the traced
+solve's wall time without its host setup (setup_s of the solve's
 stats), the summed device time of kernels and of memory copies (the
 copies include the setup's uploads), the kernels' share of the solve's
-wall time, and the device events by total time (calls, ms, share).
+wall time, the count of device events (kernels and copies), the peak
+device memory of the traced solve (set-up included), and the device
+events by total time (calls, ms, share).
 """
 
 from __future__ import annotations
@@ -52,12 +55,18 @@ def main() -> int:
 
     def run(stats):
         t0 = time.perf_counter()
-        schur.solve_bordered(system, inner_dtype=torch.float32,
-                             device="cuda", stats=stats)
+        sol = schur.solve_bordered(system, inner_dtype=torch.float32,
+                                   device="cuda", stats=stats)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        print(f"[solve] wall={wall:.3f}s setup={stats['setup_s']:.3f}s "
+              f"cg_iterations={sol.cg_iterations} "
+              f"refinement_passes={sol.refinement_steps + 1} "
+              f"residual_norm={sol.residual_norm:.3e}", flush=True)
+        return wall
 
     run({})
+    torch.cuda.reset_peak_memory_stats()
     stats = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -76,7 +85,10 @@ def main() -> int:
           f"levels={stats['levels']} setup={stats['setup_s']:.3f}s "
           f"solve_wall={solve_wall * 1e3:.1f}ms "
           f"kernel_sum={kernel_sum:.1f}ms copy_sum={copies:.1f}ms "
-          f"busy_share={kernel_sum / (solve_wall * 1e3):.3f}")
+          f"busy_share={kernel_sum / (solve_wall * 1e3):.3f} "
+          f"device_events={sum(e.count for e in device)} "
+          f"peak_device_memory="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}GB")
     device.sort(key=lambda e: -e.self_device_time_total)
     for e in device[:args.top]:
         ms = e.self_device_time_total / 1e3
