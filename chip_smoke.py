@@ -13,10 +13,12 @@ Phases (any failure exits non-zero; there is no CPU path):
 3. kernel K1' (sliced-ELL SpMV) against its plain PyTorch version on
    the card, on the operators of the DIA route's own set-up of the bench
    board at --dof: the level-0 f32 CG operator at R = 4 and 1, the
-   level-0 bf16 cycle operator at R = 1 and the level-1 bf16 cycle
-   operator at R = 4 (random x); max relative error (bound 1e-5 of
-   max|y|: f32 sums in another order) and ms per call of each, by CUDA
-   events, and the peak device memory of the DIA set-up;
+   level-0 bf16 cycle operator at R = 1 and 4, the level-1 bf16 cycle
+   operator at R = 4 and the coarsest level's at R = 1 (random x: the
+   kernel instantiations and launch shapes the solve runs); max relative
+   error (bound 1e-5 of max|y|: f32 sums in another order) and ms per
+   call of each, by CUDA events, and the peak device memory of the DIA
+   set-up;
 4. kernel K2' (compensated residual) on the level-0 hi and lo values
    against its f64 plain version, bound 2e-13 * max(|A| |x|), and both
    times;
@@ -42,14 +44,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    1e-6 V of spsolve at residual < 1e-9.
 
 Beside each kernel, the line before the last reports the least time the
-card could take for the same call (bound_ms: the bytes of the kernel's
-operands as stored, padding included, over 3.35 TB/s, or flops over
-67 TFLOP/s f32 / 34 TFLOP/s f64, whichever is larger), the same bytes
-bound for a CSR of the operator's nonzeros and diagonal (csr_bound_ms),
-and the time of torch.sparse.mm (cuSPARSE) on that CSR and the same
-inputs: f32 for K1' and K3 (a bf16 operator's values widened), f64 for
-K2'.  Each K1'/K2' case line also says whether the kernel met its
-targets: no slower than cuSPARSE, and at least half of its own bound.
+card could take for the same call (bound_ms: the bytes the product
+needs over 3.35 TB/s, or flops over 67 TFLOP/s f32 / 34 TFLOP/s f64,
+whichever is larger; for K1'/K2' the bytes are each off-diagonal
+nonzero once with its index and value(s) as the format stores them, the
+diagonal, x read once and y written once, not the padding or the slice
+offsets; each case line also prints the format's bytes as stored), the
+same bytes bound for a CSR of the operator's nonzeros and diagonal
+(csr_bound_ms), and the time of torch.sparse.mm (cuSPARSE) on that CSR
+and the same inputs: f32 for K1' and K3 (a bf16 operator's values
+widened), f64 for K2'.  Each K1'/K2' case line also says whether the
+kernel met its targets: no slower than cuSPARSE, and at least half of
+its own bound.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -130,14 +136,28 @@ def sell_csr(params, values=None):
     return coo.to_sparse_csr()
 
 
-def sell_bytes(params, x, y, lo: bool = False) -> int:
-    """Bytes a K1'/K2' call must move: every array of the format as
-    stored (padding included), read once, x read once, y written once."""
-    keys = ["perm", "a_ptr", "a_idx", "a_val", "win_ptr", "win", "b_ptr",
-            "b_col", "b_val"]
-    keys += ["a_lo", "b_lo", "diag64"] if lo else ["diag"]
-    return (sum(params[k].numel() * params[k].element_size() for k in keys)
-            + x.numel() * x.element_size() + y.numel() * y.element_size())
+def _size(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def sell_bytes(params, x, y, lo: bool = False) -> tuple[int, int]:
+    """(needed, stored) bytes of a K1'/K2' call.  Needed: each
+    off-diagonal nonzero once with its index and value(s) as the format
+    stores them (part A: 2 B index; part B: 4 B column), the diagonal, x
+    read once, y written once.  Stored: every array of the format as it
+    lies on the card (padding, permutation and slice offsets included)
+    instead of the nonzeros."""
+    val_a = params["a_val"].element_size() + (4 if lo else 0)
+    val_b = 4 + (4 if lo else 0)
+    nz_a = int((params["a_val"] != 0).sum())
+    nz_b = int((params["b_val"] != 0).sum())
+    diag = params["diag64"] if lo else params["diag"]
+    common = _size(diag) + _size(x) + _size(y)
+    needed = (nz_a * (params["a_idx"].element_size() + val_a)
+              + nz_b * (params["b_col"].element_size() + val_b) + common)
+    keys = ["perm", "a_ptr", "a_idx", "a_val", "b_ptr", "b_col", "b_val"]
+    keys += ["a_lo", "b_lo"] if lo else []
+    return needed, sum(_size(params[k]) for k in keys) + common
 
 
 def nonzeros(params) -> int:
@@ -191,7 +211,7 @@ def k1_case(name, params, r, seed):
     rel = abs_err / float(ref.abs().max())
     ms = time_ms(lambda: dia.sell_matvec(params, xt))
     plain_ms = time_ms(lambda: dia.sell_matvec_plain(params, xt))
-    nbytes = sell_bytes(params, xt, y)
+    nbytes, stored_bytes = sell_bytes(params, xt, y)
     nnz = nonzeros(params)
     bound_ms, bound_by = bound(nbytes, 2 * r * (nnz + np_), "f32")
     csr = sell_csr(params)
@@ -205,13 +225,14 @@ def k1_case(name, params, r, seed):
     torch.cuda.empty_cache()
     stored = params["a_val"].numel() + params["b_val"].numel()
     print(f"[K1' {name}] np={np_} nnz={nnz} stored={stored} "
-          f"(padding {stored / nnz:.3f}) in_window={params['a_val'].numel()} "
+          f"(padding {stored / nnz:.3f}) part_a={params['a_val'].numel()} "
           f"int32_part={params['b_val'].numel()} R={r} "
           f"{str(params['a_val'].dtype).removeprefix('torch.')}: "
           f"max_rel_err={rel:.3e} max_abs_err={abs_err:.3e} "
-          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s) "
+          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s needed) "
           f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{nbytes / 1e6:.1f} MB) csr_bound {csr_bound_ms:.4f} ms "
+          f"{nbytes / 1e6:.1f} MB needed, {stored_bytes / 1e6:.1f} MB as "
+          f"stored) csr_bound {csr_bound_ms:.4f} ms "
           f"library(csr) {library_ms:.4f} ms; "
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
     check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
@@ -242,7 +263,7 @@ def k2_case(params, seed):
     abs_err = float((y - ref).abs().max())
     ms = time_ms(lambda: comp.comp_sell(params, x))
     plain_ms = time_ms(lambda: comp.comp_sell_plain(params, x))
-    nbytes = sell_bytes(params, x, y, lo=True)
+    nbytes, stored_bytes = sell_bytes(params, x, y, lo=True)
     bound_ms, bound_by = bound(nbytes, 4 * nonzeros(params) + 2 * np_,
                                "f64")
     csr = sell_csr(params, values="f64")
@@ -256,9 +277,10 @@ def k2_case(params, seed):
     torch.cuda.empty_cache()
     print(f"[K2' l0 CG operator] np={np_} f32 hi+lo -> f64: "
           f"max_abs_err={abs_err:.3e} (bound {tol:.3e}) "
-          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s) "
+          f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s needed) "
           f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{nbytes / 1e6:.1f} MB) csr_bound {csr_bound_ms:.4f} ms "
+          f"{nbytes / 1e6:.1f} MB needed, {stored_bytes / 1e6:.1f} MB as "
+          f"stored) csr_bound {csr_bound_ms:.4f} ms "
           f"library(csr f64) {library_ms:.4f} ms; "
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
     check(abs_err <= tol, "K2' disagrees with its f64 plain version")
@@ -281,11 +303,13 @@ def dia_kernel_cases(system):
     print(f"[kernels] DIA set-up of the main path's operators "
           f"{time.perf_counter() - t0:.2f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
-    op, cyc = s.op_params, s.cycle_params
+    op, cyc = s.op_params, s.cycle_params   # cyc[-1]: the coarse inverse
     k1 = [k1_case("l0 CG operator", op, 4, 2),
           k1_case("l0 CG operator", op, 1, 1),
           k1_case("l0 cycle operator", cyc[0], 1, 3),
-          k1_case("l1 cycle operator", cyc[1], 4, 4)]
+          k1_case("l0 cycle operator", cyc[0], 4, 6),
+          k1_case("l1 cycle operator", cyc[1], 4, 4),
+          k1_case(f"l{len(cyc) - 2} cycle operator", cyc[-2], 1, 7)]
     k2 = k2_case(op, 5)
     del s, op, cyc
     torch.cuda.empty_cache()

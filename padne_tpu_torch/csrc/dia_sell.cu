@@ -25,30 +25,29 @@
 //   * rows are sorted by length within each 128-row block and cut into
 //     slices of 32 rows; a slice's entries are stored K-major, slot k of
 //     its 32 rows contiguous, padded to its longest row;
-//   * part A: a 16-bit index per entry, window slot * 128 + column in the
-//     block, decoded through the row block's window table (its column
-//     blocks, at most 512), and a value in f32 or bf16;
-//   * part B, same slices: int32 columns and f32 values, for entries beyond
-//     the window and for entries a bf16 operator keeps in f32;
+//   * part A: an int16 per entry, its column less the first row of its row
+//     block (the Hilbert order keeps nearly every entry within that reach),
+//     and a value in f32 or bf16;
+//   * part B, same slices: int32 columns and f32 values, for the entries
+//     farther away and for those a bf16 operator keeps in f32;
 //   * a dense diagonal.
 //
-// What bounds it: bytes.  A call must read every stored entry once (2 B of
-// index + 2 or 4 B of value in part A, 8 B in part B, 4 more for K2's lo
-// halves), the slice and window tables, the permutation, the diagonal and x,
-// and write y; it does two flops per entry and RHS, a fraction of a flop per
-// byte.  Design: one warp per slice and chunk of up to 4 RHS columns; each
-// lane owns one row and accumulates the chunk's columns, so one index and
-// value load serves every column of the chunk (a warp per (slice, column)
-// reached 25% of the byte bound at R = 4 on level 0, the entry stream
-// re-read per column).  Levels too small to give two waves of warps that
-// way are latency-bound (L2-resident), and there narrower chunks, down to
-// one column per lane, buy the warps that hide the gathers' latency.  A
-// slot's index and value loads are coalesced across the warp and the loop
-// over the slice's width is uniform.  x is gathered directly (through
-// L1/L2; the Hilbert order keeps a row block's columns in a few 128-column
-// blocks).  Blocks hold 1-4 warps, fewer when the launch would otherwise
-// leave SMs idle (the coarsest level has 11k rows).  Index arithmetic is
-// 64-bit.
+// What bounds it: bytes.  A call must read every nonzero once (2 B of index
+// + 2 or 4 B of value in part A, 8 B in part B, 4 more for K2's lo halves),
+// the diagonal and x, and write y; it does two flops per entry and RHS, a
+// fraction of a flop per byte.  Design: one warp per slice and chunk of up
+// to 4 RHS columns; each lane owns one row and accumulates the chunk's
+// columns, so one index and value load serves every column of the chunk (a
+// warp per (slice, column) reached 25% of the stored-bytes bound at R = 4
+// on level 0, the entry stream re-read per column).  Levels too small to
+// give two waves of warps that way are latency-bound (L2-resident), and
+// there narrower chunks, down to one column per lane, buy the warps that
+// hide the gathers' latency.  A slot's index and value loads are coalesced
+// across the warp, the loop over the slice's width is uniform, and a part-A
+// column is one add away from its index (no table to load first).  x is
+// gathered directly (through L1/L2).  Blocks hold 1-4 warps, fewer when the
+// launch would otherwise leave SMs idle (the coarsest level has 11k rows).
+// Index arithmetic is 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,15 +57,12 @@ namespace {
 constexpr int SLICE = 32;
 constexpr int ROW_BLOCK = 128;
 constexpr int MAX_WARPS = 4;
-constexpr int64_t FILL_BLOCKS = 2 * 132;  // two blocks per SM of an H100
-constexpr int64_t FILL_WARPS = 2 * 132 * 64;  // two full waves of warps
+constexpr int WARPS_PER_SM = 64;  // resident warps per SM on sm_90
 
 struct Sell {
   const int32_t* perm;      // (np) row at each slice-lane position
   const int64_t* a_ptr;     // (np/32 + 1) entry offsets of part A's slices
-  const uint16_t* a_idx;    // window slot * 128 + column in the block
-  const int64_t* win_ptr;   // (np/128 + 1) window table offsets
-  const int32_t* win;       // column blocks of each row block's window
+  const int16_t* a_idx;     // column less the row block's first row
   const int64_t* b_ptr;     // (np/32 + 1) entry offsets of part B's slices
   const int32_t* b_col;
   int64_t np;
@@ -79,9 +75,9 @@ __device__ __forceinline__ float widen(uint16_t v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
-__device__ __forceinline__ int64_t a_col(const int32_t* win, uint32_t idx) {
-  return static_cast<int64_t>(__ldg(win + (idx >> 7))) * ROW_BLOCK +
-         (idx & (ROW_BLOCK - 1));
+// First row of the row block that holds `slice`: part A's column base.
+__device__ __forceinline__ int64_t a_base(int64_t slice) {
+  return slice * SLICE / ROW_BLOCK * ROW_BLOCK;
 }
 
 template <int RC, typename VT>
@@ -100,7 +96,7 @@ dia_sell_kernel(Sell s, const VT* __restrict__ a_val,
   const int r0 = static_cast<int>(warp - slice * chunks) * RC;
   const int nr = min(RC, r_total - r0);
   const float* xr = x + r0 * s.np;
-  const int32_t* win = s.win + __ldg(s.win_ptr + slice * SLICE / ROW_BLOCK);
+  const int64_t base = a_base(slice);
   float acc[RC];
 #pragma unroll
   for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
@@ -108,7 +104,7 @@ dia_sell_kernel(Sell s, const VT* __restrict__ a_val,
 #pragma unroll 4
   for (int64_t e = __ldg(s.a_ptr + slice) + lane; e < a_end; e += SLICE) {
     const float v = widen(__ldg(a_val + e));
-    const int64_t col = a_col(win, __ldg(s.a_idx + e));
+    const int64_t col = base + __ldg(s.a_idx + e);
 #pragma unroll
     for (int i = 0; i < RC; ++i)
       if (i < nr) acc[i] = fmaf(v, __ldg(xr + i * s.np + col), acc[i]);
@@ -141,12 +137,12 @@ comp_sell_kernel(Sell s, const float* __restrict__ a_hi,
       threadIdx.x / SLICE;
   const int lane = threadIdx.x % SLICE;
   if (slice >= s.np / SLICE) return;
-  const int32_t* win = s.win + __ldg(s.win_ptr + slice * SLICE / ROW_BLOCK);
+  const int64_t base = a_base(slice);
   double acc = 0.0;
   const int64_t a_end = __ldg(s.a_ptr + slice + 1);
 #pragma unroll 4
   for (int64_t e = __ldg(s.a_ptr + slice) + lane; e < a_end; e += SLICE) {
-    const double xv = __ldg(x + a_col(win, __ldg(s.a_idx + e)));
+    const double xv = __ldg(x + base + __ldg(s.a_idx + e));
     acc = fma(static_cast<double>(__ldg(a_hi + e)), xv, acc);
     acc = fma(static_cast<double>(__ldg(a_lo + e)), xv, acc);
   }
@@ -160,18 +156,32 @@ comp_sell_kernel(Sell s, const float* __restrict__ a_hi,
   y[row] = fma(__ldg(diag + row), static_cast<double>(__ldg(x + row)), acc);
 }
 
+// Streaming multiprocessors of the current device, read once (the port
+// drives one card).
+int64_t sm_count() {
+  static const int64_t count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return static_cast<int64_t>(n > 0 ? n : 1);
+  }();
+  return count;
+}
+
 // RHS columns per lane: up to 4, halved while the launch would give fewer
 // than two full waves of warps.
 int rhs_chunk(int64_t slices, int r) {
+  const int64_t two_waves = 2 * sm_count() * WARPS_PER_SM;
   int rc = r == 1 ? 1 : r == 2 ? 2 : 4;
-  while (rc > 1 && slices * ((r + rc - 1) / rc) < FILL_WARPS) rc /= 2;
+  while (rc > 1 && slices * ((r + rc - 1) / rc) < two_waves) rc /= 2;
   return rc;
 }
 
-// Warps per block: MAX_WARPS, halved while the grid would leave SMs idle.
+// Warps per block: MAX_WARPS, halved while the grid would give fewer than
+// two blocks per SM.
 int warps_per_block(int64_t warps) {
   int w = MAX_WARPS;
-  while (w > 1 && (warps + w - 1) / w < FILL_BLOCKS) w /= 2;
+  while (w > 1 && (warps + w - 1) / w < 2 * sm_count()) w /= 2;
   return w;
 }
 
@@ -192,13 +202,12 @@ void launch(dim3 grid, dim3 block, cudaStream_t stream, const Sell& s,
 // Plain C entry points (bound with ctypes).  Enqueue on `stream`, do not
 // synchronise, return cudaGetLastError() (0 on success).
 extern "C" int pg_dia_sell(const int32_t* perm, const int64_t* a_ptr,
-                           const uint16_t* a_idx, const int64_t* win_ptr,
-                           const int32_t* win, const int64_t* b_ptr,
+                           const int16_t* a_idx, const int64_t* b_ptr,
                            const int32_t* b_col, const void* a_val,
                            int a_bf16, const float* b_val, const float* diag,
                            const float* x, int64_t np_, int r, float* y,
                            void* stream) {
-  const Sell s{perm, a_ptr, a_idx, win_ptr, win, b_ptr, b_col, np_};
+  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_};
   if (!valid(s) || r < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = rhs_chunk(np_ / SLICE, r);
@@ -219,14 +228,13 @@ extern "C" int pg_dia_sell(const int32_t* perm, const int64_t* a_ptr,
 }
 
 extern "C" int pg_comp_sell(const int32_t* perm, const int64_t* a_ptr,
-                            const uint16_t* a_idx, const int64_t* win_ptr,
-                            const int32_t* win, const int64_t* b_ptr,
+                            const int16_t* a_idx, const int64_t* b_ptr,
                             const int32_t* b_col, const float* a_hi,
                             const float* a_lo, const float* b_hi,
                             const float* b_lo, const double* diag,
                             const float* x, int64_t np_, double* y,
                             void* stream) {
-  const Sell s{perm, a_ptr, a_idx, win_ptr, win, b_ptr, b_col, np_};
+  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_};
   if (!valid(s)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t warps = np_ / SLICE;
   const int w = warps_per_block(warps);

@@ -67,7 +67,7 @@ def load() -> ctypes.CDLL:
         _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    sell = [vp] * 7          # perm, a_ptr, a_idx, win_ptr, win, b_ptr, b_col
+    sell = [vp] * 5          # perm, a_ptr, a_idx, b_ptr, b_col
     lib.pg_dia_sell.restype = i32
     lib.pg_dia_sell.argtypes = sell + [vp, i32, vp, vp, vp, i64, i32, vp, vp]
     lib.pg_comp_sell.restype = i32

@@ -1,6 +1,6 @@
 """Compensated exact operator: f64-accurate residuals from f32 values.
 
-Port of padne_tpu.ops.comp's slab mode (the names follow it).  The
+Port of padne_tpu.ops.comp's slab mode (`matvec_slab` there).  The
 refinement ladder needs the true f64 full-system residual after every
 pass; the resident CG operator is f32.  The f64 level-0 operator is
 represented as the CG operator's sliced-ELL format (ops.dia.build_sell)
@@ -8,7 +8,7 @@ with its f32 hi values, a second f32 value array in the same layout
 holding the exact lo-halves (A64 = hi + lo entrywise, ~2^-48 relative
 representation error) and the f64 diagonal.
 
-`matvec_slab` evaluates y = A64 @ x for f32 x as float64 to ~1e-13
+`comp_sell` evaluates y = A64 @ x for f32 x as float64 to ~1e-13
 relative in one launch of kernel K2' (csrc/dia_sell.cu): f64
 accumulation of exact f32 x f32 products over every off-diagonal entry,
 then the f64 diagonal.  The TPU version builds the same from f32
@@ -17,32 +17,12 @@ error-free transforms because the TPU has no f64; Hopper does.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from .. import kernels
 from . import dia
 
-
-@dataclass
-class CompOperator:
-    """Device-resident compensated exact operator (see module doc)."""
-
-    params: dict   # a sliced-ELL params dict built with compensated=True
-
-
-def build_slab_mode(op_params) -> CompOperator:
-    """Compensated operator over the CG operator's params, built by
-    `DiaPack.to_device(..., compensated=True)`: its index arrays and f32
-    hi values are shared, its lo-halves and f64 diagonal are the rest."""
-    for key in ("a_lo", "b_lo", "diag64"):
-        if key not in op_params:
-            raise ValueError(f"the CG operator carries no {key}: build it "
-                             "with compensated=True")
-    if op_params["a_val"].dtype != torch.float32:
-        raise ValueError("the compensated operator needs f32 hi values")
-    return CompOperator(params=op_params)
+_COMP_KEYS = ("a_lo", "b_lo", "diag64")
 
 
 def comp_sell_plain(params, x32) -> torch.Tensor:
@@ -62,7 +42,13 @@ def comp_sell_plain(params, x32) -> torch.Tensor:
 
 def comp_sell(params, x32) -> torch.Tensor:
     """Kernel K2' (csrc/dia_sell.cu) on CUDA tensors; the plain version
-    for CPU tensors."""
+    for CPU tensors.  params: the CG operator's sliced-ELL dict built
+    with `DiaPack.to_device(..., compensated=True)` (its index arrays and
+    f32 hi values, plus the lo-halves and the f64 diagonal)."""
+    for key in _COMP_KEYS:
+        if key not in params:
+            raise ValueError(f"the operator carries no {key}: build it "
+                             "with compensated=True")
     if x32.device.type == "cpu":
         return comp_sell_plain(params, x32)
     if x32.dtype != torch.float32 or x32.dim() != 1:
@@ -86,9 +72,3 @@ def comp_sell(params, x32) -> torch.Tensor:
 
 
 comp_sell.launches = 0
-
-
-def matvec_slab(op: CompOperator, x32) -> torch.Tensor:
-    """y = A64 @ x (float64) for f32 x of shape (np0,), ~1e-13 relative:
-    one launch of K2'."""
-    return comp_sell(op.params, x32.contiguous())

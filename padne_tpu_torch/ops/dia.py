@@ -16,13 +16,13 @@ format built by `build_sell`:
 * rows are sorted by length within each 128-row block and cut into
   slices of 32 rows (one warp); a slice is as wide as its longest row,
   entries stored K-major (slot k of the 32 rows is contiguous);
-* each 128-row block has a window table of up to 512 column blocks (the
-  ones its entries use, most used first); a windowed entry stores a
-  16-bit index, window slot * 128 + column within the block, and a
-  value of the operator's dtype (f32, or bf16 for the cycle);
-* entries beyond the window, and in a bf16 operator those the JAX
-  package keeps in f32 (slots and remainder), form a second part of the
-  same slices with int32 columns and f32 values;
+* part A: an entry whose column lies within int16 reach of the first row
+  of its 128-row block stores that distance as an int16 and a value of
+  the operator's dtype (f32, or bf16 for the cycle); the Hilbert order
+  keeps nearly every entry there;
+* part B of the same slices: int32 columns and f32 values, for the
+  entries farther away and, in a bf16 operator, those the JAX package
+  keeps in f32 (slots and remainder);
 * the diagonal is a dense (np,) vector.
 
 `sell_matvec` is kernel K1' (csrc/dia_sell.cu) over that format, with
@@ -43,8 +43,7 @@ from .. import kernels
 DEFAULT_B = 128   # row/column block size
 DEFAULT_G = 8     # row-blocks per group (the JAX grid step)
 SLICE = 32        # rows per slice of the sliced-ELL format: one warp
-ROW_BLOCK = 128   # rows sorted by length within, and one window table for
-MAX_WIN = 512     # window slots per row block (16-bit index = slot*128+col)
+ROW_BLOCK = 128   # rows sorted by length within; part A's column base
 
 
 def choose_offsets(rows: np.ndarray, cols: np.ndarray, b: int = DEFAULT_B,
@@ -383,51 +382,29 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     the f64 diagonal, for ops.comp.
 
     Keys: perm (np_,) int32, the row at each slice-lane position;
-    a_ptr/b_ptr (np_/32 + 1,) int64 slice offsets of the windowed and
-    the int32-column part; a_idx int16 (the 16-bit window index's bits),
-    a_val (dtype); win_ptr (np_/128 + 1,) int64 and win int32, the
-    window tables; b_col int32, b_val f32; diag f32; with compensated
-    a_lo, b_lo f32 and diag64 f64.  Padding entries carry value 0 and
-    index 0 (a column the block reads anyway)."""
+    a_ptr/b_ptr (np_/32 + 1,) int64 slice offsets of part A and part B;
+    a_idx int16 (column less the row block's first row), a_val (dtype);
+    b_col int32, b_val f32; diag f32; with compensated a_lo, b_lo f32 and
+    diag64 f64.  Padding entries carry value 0 and index 0 (a column
+    the slice's rows read anyway)."""
     if np_ % ROW_BLOCK:
         raise ValueError(f"np_ must be a multiple of {ROW_BLOCK}, got {np_}")
     if compensated and dtype != torch.float32:
         raise ValueError("the compensated operator shares f32 values")
     dev = torch.device(device)
-    nb = np_ // ROW_BLOCK
     rows = torch.as_tensor(rows, device=dev).long()
     cols = torch.as_tensor(cols, device=dev).long()
     v64 = torch.as_tensor(vals, dtype=torch.float64, device=dev)
-    n = len(rows)
-    windowed = torch.ones(n, dtype=torch.bool, device=dev)
+    delta = cols - rows // ROW_BLOCK * ROW_BLOCK
+    in_a = (delta >= -2**15) & (delta < 2**15)
     if keep_f32 is not None and dtype != torch.float32:
-        windowed = ~torch.as_tensor(keep_f32, device=dev)
-
-    # Window tables: per row block, the column blocks its windowed
-    # entries use, most used first, at most MAX_WIN.
-    rb = rows // ROW_BLOCK
-    key = (rb * nb + cols // ROW_BLOCK)[windowed]
-    uk, inv, cnt = torch.unique(key, return_inverse=True, return_counts=True)
-    urb = uk // nb
-    top = int(cnt.max()) + 1 if len(cnt) else 1
-    order = torch.argsort(urb * top + (top - 1 - cnt), stable=True)
-    nwin = torch.bincount(urb, minlength=nb)
-    rank = (torch.arange(len(uk), device=dev)
-            - (torch.cumsum(nwin, 0) - nwin)[urb[order]])
-    slot = torch.empty_like(rank)
-    slot[order] = rank
-    win = (uk[order] % nb)[rank < MAX_WIN].int()
-    win_ptr = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
-    win_ptr[1:] = torch.cumsum(nwin.clamp(max=MAX_WIN), 0)
-    ws = torch.full((n,), MAX_WIN, dtype=torch.int64, device=dev)
-    ws[windowed] = slot[inv]
-    in_a = ws < MAX_WIN
+        in_a &= ~torch.as_tensor(keep_f32, device=dev)
 
     # Rows sorted by length within each row block, longest first
-    # (SELL-C-sigma, C = 32, sigma = 128), then cut into slices.  The
-    # int32-column part's length sorts first: its 8-byte entries are
-    # sparse per row (a bf16 operator's remainder), and this order pads
-    # them least for a small cost in the windowed part.
+    # (SELL-C-sigma, C = 32, sigma = 128), then cut into slices.  Part
+    # B's length sorts first: its 8-byte entries are sparse per row (far
+    # entries, a bf16 operator's remainder), and this order pads them
+    # least for a small cost in part A.
     rows_a, rows_b = rows[in_a], rows[~in_a]
     len_a = torch.bincount(rows_a, minlength=np_)
     len_b = torch.bincount(rows_b, minlength=np_)
@@ -441,9 +418,8 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     dest_a = _slots_of(rows_a, len_a, pos, a_ptr)
     dest_b = _slots_of(rows_b, len_b, pos, b_ptr)
 
-    idx = ws[in_a] * ROW_BLOCK + cols[in_a] % ROW_BLOCK     # < 2^16
     a_idx = torch.zeros(int(a_ptr[-1]), dtype=torch.int16, device=dev)
-    a_idx[dest_a] = (idx - ((idx >> 15) << 16)).to(torch.int16)
+    a_idx[dest_a] = delta[in_a].to(torch.int16)
     a_val = torch.zeros(len(a_idx), dtype=dtype, device=dev)
     a_val[dest_a] = v64[in_a].float().to(dtype)
     b_col = torch.zeros(int(b_ptr[-1]), dtype=torch.int32, device=dev)
@@ -452,8 +428,7 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     b_val[dest_b] = v64[~in_a].float()
     diag64 = torch.as_tensor(np.asarray(diag, np.float64), device=dev)
     params = {"perm": perm.int(), "a_ptr": a_ptr, "a_idx": a_idx,
-              "a_val": a_val, "win_ptr": win_ptr, "win": win,
-              "b_ptr": b_ptr, "b_col": b_col, "b_val": b_val,
+              "a_val": a_val, "b_ptr": b_ptr, "b_col": b_col, "b_val": b_val,
               "diag": diag64.float()}
     if compensated:
         params["a_lo"] = torch.zeros_like(a_val)
@@ -475,13 +450,10 @@ def _entries(ptr) -> torch.Tensor:
 
 def sell_entries(params) -> tuple:
     """((pos_a, col_a), (pos_b, col_b)): slice-lane position and column
-    of every stored entry of the windowed and the int32-column part,
+    of every stored entry of part A and part B,
     padding included (row = perm[pos])."""
     pos_a = _entries(params["a_ptr"])
-    idx = params["a_idx"].long() & 0xFFFF
-    wbase = params["win_ptr"][pos_a // ROW_BLOCK]
-    col_a = (params["win"][wbase + (idx >> 7)].long() * ROW_BLOCK
-             + (idx & (ROW_BLOCK - 1)))
+    col_a = pos_a // ROW_BLOCK * ROW_BLOCK + params["a_idx"].long()
     return ((pos_a, col_a),
             (_entries(params["b_ptr"]), params["b_col"].long()))
 
@@ -500,8 +472,7 @@ def sell_matvec_plain(params, xt) -> torch.Tensor:
 
 
 _SELL_INDEX = {"perm": torch.int32, "a_ptr": torch.int64,
-               "a_idx": torch.int16, "win_ptr": torch.int64,
-               "win": torch.int32, "b_ptr": torch.int64,
+               "a_idx": torch.int16, "b_ptr": torch.int64,
                "b_col": torch.int32}
 
 
@@ -520,9 +491,8 @@ def sell_args(params, x, values: dict) -> list:
         if t.dtype not in dts or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{key} must be contiguous {dts} on {x.device}")
     if (params["a_ptr"].numel() != np_ // SLICE + 1
-            or params["b_ptr"].numel() != np_ // SLICE + 1
-            or params["win_ptr"].numel() != np_ // ROW_BLOCK + 1):
-        raise ValueError("slice or window offsets do not match the rows")
+            or params["b_ptr"].numel() != np_ // SLICE + 1):
+        raise ValueError("slice offsets do not match the rows")
     return [params[k].data_ptr() for k in _SELL_INDEX]
 
 

@@ -263,8 +263,6 @@ class DiaBorderedSolver:
         self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
         self._b64[self.posmap_dev] = _f64(system.r_core, dev)
 
-        self._comp = comp.build_slab_mode(op_params)
-
         # Host-side small dense pieces.
         self.BZ = np.zeros((m, p))
         np.add.at(self.BZ, (b.row_idx, system.comp_id[b.row_node]),
@@ -379,7 +377,7 @@ class DiaBorderedSolver:
         c_full = torch.cat([c, c.new_zeros(1)]).float()
         dj32 = dj.float()
         dv = self._Xc @ dj32 - xr + c_full[self.comp_pad_dev]
-        av = comp.matvec_slab(self._comp, dv)
+        av = comp.comp_sell(self.op_params, dv)
         r_new = r64 + av - self._c_apply(dj32.double())
         rb_new = rb64 - (BXc64 @ dj - Bxr + BZ64 @ c)
         n2 = (r_new * r_new).sum() + (rb_new * rb_new).sum()
@@ -395,7 +393,7 @@ class DiaBorderedSolver:
         dev = self.device
         b = self.system.border
         j64 = _f64(j, dev)
-        r64 = (self._b64 + comp.matvec_slab(self._comp, v1_pad)
+        r64 = (self._b64 + comp.comp_sell(self.op_params, v1_pad)
                - self._c_apply(j64))
         rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
         res_norm = float(((r64 * r64).sum() + (rb64 * rb64).sum()).sqrt())

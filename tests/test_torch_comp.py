@@ -38,8 +38,8 @@ def test_matvec_slab_matches_f64(scale):
     x_pad = np.zeros(tp.np_, np.float32)
     x_pad[:n] = x32
 
-    op = comp.build_slab_mode(tp.to_device("cpu", compensated=True))
-    y = comp.matvec_slab(op, torch.from_numpy(x_pad)).numpy()
+    params = tp.to_device("cpu", compensated=True)
+    y = comp.comp_sell(params, torch.from_numpy(x_pad)).numpy()
 
     jparams = jp.to_device(keep_widx=True)
     jop = jcomp.build_slab_mode(jp.meta, jparams, jp, interpret=True)
@@ -58,12 +58,11 @@ def test_beats_plain_f32():
     a = ell.to_scipy() * (2081.0 * np.pi / 3.0)
     tp = dia.pack_csr_as_dia(a, max_offsets=4)
     params = tp.to_device("cpu", compensated=True)
-    op = comp.build_slab_mode(params)
     n = a.shape[0]
     x_pad = np.zeros(tp.np_, np.float32)
     x_pad[:n] = np.linspace(0.0, 3.3, n).astype(np.float32)
     xt = torch.from_numpy(x_pad)
-    y = comp.matvec_slab(op, xt).numpy()[:n]
+    y = comp.comp_sell(params, xt).numpy()[:n]
     y32 = dia.dia_matvec_t(tp.meta, params, xt[None])[0].numpy()[:n]
     ref = a @ x_pad[:n].astype(np.float64)
     assert np.abs(y - ref).max() < np.abs(y32 - ref).max() / 100.0
@@ -72,7 +71,7 @@ def test_beats_plain_f32():
 def test_wrapper_uses_plain_version_on_cpu():
     ell, _ = grid_system(32, 32)
     tp = dia.pack_csr_as_dia(ell.to_scipy())
-    prm = comp.build_slab_mode(tp.to_device("cpu", compensated=True)).params
+    prm = tp.to_device("cpu", compensated=True)
     x = torch.linspace(0, 1, tp.np_, dtype=torch.float32)
     before = comp.comp_sell.launches
     assert torch.equal(comp.comp_sell(prm, x), comp.comp_sell_plain(prm, x))
@@ -82,7 +81,8 @@ def test_wrapper_uses_plain_version_on_cpu():
 def test_needs_the_compensated_build():
     ell, _ = grid_system(32, 32)
     tp = dia.pack_csr_as_dia(ell.to_scipy())
+    x = torch.zeros(tp.np_, dtype=torch.float32)
     with pytest.raises(ValueError):
-        comp.build_slab_mode(tp.to_device("cpu"))
+        comp.comp_sell(tp.to_device("cpu"), x)
     with pytest.raises(ValueError):
         tp.to_device("cpu", dtype=torch.bfloat16, compensated=True)

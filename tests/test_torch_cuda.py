@@ -9,8 +9,8 @@ it without the suite's conftest (that one imports jax):
 Covers what chip_smoke.py's fixed main-path shapes do not: K1' at
 R in {1, 3, 4, 9} in f32 and bf16, on an odd operator (rows of very
 different lengths, far columns, empty padding rows and row blocks, a
-bf16 operator's f32 part) with and without a window too small for its
-row blocks (the int32-column part), and at R in {2, 3, 4, 9} on a level
+bf16 operator's f32 part), small and with entries beyond part A's int16
+window (the int32-column part), and at R in {2, 3, 4, 9} on a level
 wide enough for the 2- and 4-column chunks of K1'; K2' on the odd
 operator; odd ELL shapes (R in {1, 3, 9}, f32 and f64, rectangular,
 padding that points at row 0) and the launch counters.  Tolerances: f32 sums in another order
@@ -36,8 +36,9 @@ def cuda():
 
 def _operator(seed, np_=24 * 128, n=2900, max_len=40):
     """A random (np_, np_) operator in COO: rows 0..n-1 hold 0-max_len
-    entries, mostly within +-300 columns, some anywhere; rows n.. are
-    padding (no entries, zero diagonal)."""
+    entries, mostly within +-300 columns, some anywhere (beyond part A's
+    int16 window too when n > 2^15); rows n.. are padding (no entries,
+    zero diagonal)."""
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, max_len + 1, n)
     rows = np.repeat(np.arange(n), counts)
@@ -53,19 +54,23 @@ def _operator(seed, np_=24 * 128, n=2900, max_len=40):
     return np_, rows, cols, vals, diag
 
 
+# Small, and wide enough for entries beyond part A's int16 window.
+SIZES = {"small": (24 * 128, 2900), "far": (320 * 128, 39_900)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r", [1, 3, 4, 9])
-@pytest.mark.parametrize("max_win", [512, 2])
-def test_dia_sell_matches_plain(cuda, dtype, r, max_win, monkeypatch):
-    monkeypatch.setattr(dia, "MAX_WIN", max_win)
-    np_, rows, cols, vals, diag = _operator(seed=r)
+@pytest.mark.parametrize("size", sorted(SIZES))
+def test_dia_sell_matches_plain(cuda, dtype, r, size):
+    np_, n = SIZES[size]
+    np_, rows, cols, vals, diag = _operator(seed=r, np_=np_, n=n)
     # In bf16, a fifth of the entries keep f32 values (the remainder).
     keep_f32 = np.random.default_rng(r).random(len(rows)) < 0.2
     params = dia.build_sell(np_, rows, cols, vals, diag, cuda, dtype=dtype,
                             keep_f32=keep_f32)
     assert params["a_val"].dtype == dtype
     assert (params["b_val"].numel() > 0) == (dtype == torch.bfloat16
-                                             or max_win == 2)
+                                             or size == "far")
     xt = torch.randn(r, np_, device=cuda)
     before = dia.sell_matvec.launches
     y = dia.sell_matvec(params, xt)
@@ -73,7 +78,7 @@ def test_dia_sell_matches_plain(cuda, dtype, r, max_win, monkeypatch):
     ref = dia.sell_matvec_plain(params, xt)
     torch.cuda.synchronize()
     assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
-    assert torch.all(y[:, 2900:] == 0)
+    assert torch.all(y[:, n:] == 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -93,10 +98,10 @@ def test_dia_sell_wide_level(cuda, dtype, r):
     assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-@pytest.mark.parametrize("max_win", [512, 2])
-def test_comp_sell_matches_f64(cuda, max_win, monkeypatch):
-    monkeypatch.setattr(dia, "MAX_WIN", max_win)
-    np_, rows, cols, vals, diag = _operator(seed=11)
+@pytest.mark.parametrize("size", sorted(SIZES))
+def test_comp_sell_matches_f64(cuda, size):
+    np_, n = SIZES[size]
+    np_, rows, cols, vals, diag = _operator(seed=11, np_=np_, n=n)
     params = dia.build_sell(np_, rows, cols, vals, diag, cuda,
                             compensated=True)
     x = torch.linspace(0.0, 3.3, np_, device=cuda)

@@ -181,23 +181,41 @@ class TestSellMatvec:
             assert np.abs(y.numpy() - ref_xla).max() <= 1e-5 * scale
             assert np.abs(y.numpy() - ref_int).max() <= 1e-2 * scale
 
-    @pytest.mark.parametrize("max_win", [1, 3])
-    def test_entries_outside_the_window(self, max_win, monkeypatch):
-        """Row blocks whose entries use more column blocks than the
-        window holds: the rest goes to the int32-column part, and the
-        operator and its product do not change."""
-        ell, coords = grid_system(64, 64, n_far=30)
-        _, tp = _packs(ell, coords, max_offsets=4)
-        full = tp.to_device("cpu")
-        monkeypatch.setattr(dia, "MAX_WIN", max_win)
-        cut = tp.to_device("cpu")
-        assert full["b_val"].numel() == 0 < cut["b_val"].numel()
-        assert int((cut["win_ptr"][1:] - cut["win_ptr"][:-1]).max()) \
-            == max_win
-        _assert_same_operator(_image(cut), _image(full))
-        xt = torch.from_numpy(_inputs(3, tp.np_, seed=max_win))
-        y, ref = (dia.dia_matvec_t(tp.meta, p, xt) for p in (cut, full))
-        assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_entries_outside_the_window(self, dtype):
+        """Entries beyond part A's int16 window (farther than 2^15
+        columns from their row block's first row) go to the int32-column
+        part: every entry is stored once, with its value as the dtype
+        keeps it (f32 there), and the product matches the operator in
+        f64 (1e-5: f32 sums)."""
+        rng = np.random.default_rng(5)
+        np_ = 600 * dia.ROW_BLOCK
+        rows = rng.integers(0, np_, 20000)
+        near = np.clip(rows + rng.integers(-300, 301, len(rows)), 0, np_ - 1)
+        far = (rows + np_ // 2) % np_
+        cols = np.where(rng.random(len(rows)) < 0.1, far, near)
+        _, first = np.unique(rows * np_ + cols, return_index=True)
+        rows, cols = rows[first], cols[first]
+        rows, cols = rows[rows != cols], cols[rows != cols]
+        vals = rng.standard_normal(len(rows))
+        diag = 4.0 + rng.random(np_)
+        params = dia.build_sell(np_, rows, cols, vals, diag, "cpu",
+                                dtype=dtype)
+        delta = cols - rows // dia.ROW_BLOCK * dia.ROW_BLOCK
+        outside = (delta < -2**15) | (delta >= 2**15)
+        assert 0 < outside.sum() == int((params["b_val"] != 0).sum())
+        v32 = torch.from_numpy(vals).float()
+        stored = torch.where(torch.from_numpy(outside), v32,
+                             v32.to(dtype).float()).double().numpy()
+        a = (scipy.sparse.coo_matrix((stored, (rows, cols)),
+                                     shape=(np_, np_))
+             + scipy.sparse.diags(diag.astype(np.float32).astype(
+                 np.float64))).tocsr()
+        _assert_same_operator(_image(params), a)
+        xt = _inputs(3, np_, seed=6)
+        y = dia.sell_matvec(params, torch.from_numpy(xt)).numpy()
+        ref = (a @ xt.T.astype(np.float64)).T
+        assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
 
     def test_empty_padding_rows(self):
         """Padding rows (no entries, zero diagonal) and whole empty row
