@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_info.cuh"
+
 namespace {
 
 constexpr int SLICE = 32;
@@ -154,18 +156,6 @@ comp_sell_kernel(Sell s, const float* __restrict__ a_hi,
   }
   const int64_t row = __ldg(s.perm + slice * SLICE + lane);
   y[row] = fma(__ldg(diag + row), static_cast<double>(__ldg(x + row)), acc);
-}
-
-// Streaming multiprocessors of the current device, read once (the port
-// drives one card).
-int64_t sm_count() {
-  static const int64_t count = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return static_cast<int64_t>(n > 0 ? n : 1);
-  }();
-  return count;
 }
 
 // RHS columns per lane: up to 4, halved while the launch would give fewer

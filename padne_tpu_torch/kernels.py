@@ -20,8 +20,10 @@ import subprocess
 _SRC_DIR = pathlib.Path(__file__).parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 _SOURCES = ("dia_sell.cu", "ell_spmv.cu")
+_HEADERS = ("device_info.cuh",)
+# --threads: the sources compile side by side.
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-shared", "-Xcompiler", "-fPIC", "--threads", str(len(_SOURCES)))
 
 
 def _nvcc() -> str:
@@ -39,7 +41,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update((_SRC_DIR / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -73,7 +75,9 @@ def load() -> ctypes.CDLL:
     lib.pg_comp_sell.restype = i32
     lib.pg_comp_sell.argtypes = sell + [vp, vp, vp, vp, vp, vp, i64, vp, vp]
     lib.pg_ell_spmv.restype = i32
-    lib.pg_ell_spmv.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, vp, vp]
+    # f64, perm, ptr, col, val, diag, lanes, n, x, r, b, w, x0, y, stream
+    lib.pg_ell_spmv.argtypes = ([i32] + [vp] * 5 + [i32, i64, vp, i32]
+                                + [vp] * 5)
     return lib
 
 

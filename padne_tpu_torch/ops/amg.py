@@ -11,7 +11,7 @@ levels is a reshape plus a child-permutation scatter/gather.
 ELL half (the generic route): `build_hierarchy` (greedy aggregation,
 smoothed prolongation, Galerkin coarse operators, dense pinv bottom) is
 carried as numpy; `make_vcycle` runs every level product through kernel
-K3 (ops.spmv).
+K3' (ops.spmv).
 """
 
 from __future__ import annotations
@@ -510,7 +510,7 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
 
 # ---------------------------------------------------------------------------
 # Smoothed aggregation on ELL levels (the generic route): host setup carried
-# from padne_tpu.ops.amg as numpy, device cycle over kernel K3 (ops.spmv).
+# from padne_tpu.ops.amg as numpy, device cycle over kernel K3' (ops.spmv).
 
 
 @dataclass
@@ -682,69 +682,60 @@ def build_hierarchy(
     return AMGHierarchy(levels=levels, coarse_inv=coarse_inv)
 
 
-def make_vcycle(h: AMGHierarchy, device, dtype=None, a0=None):
+def make_vcycle(h: AMGHierarchy, device, a0=None):
     """(apply, params): z = apply(params, r) on (N, R) tensors, a
     symmetric V(1,1) cycle (damped-Jacobi pre/post smoothing from a zero
     guess), so an SPD preconditioner for CG.  Single device.
 
-    dtype: the cycle's working precision (None: float64).  Every level
-    operator, restriction and prolongation is an ELL product through
-    ops.spmv (kernel K3 on the card, arrays uploaded once here in its
-    layout); the dense coarsest solve is one matmul.  a0: level 0's
-    (cols, vals, diag) already on the device in that layout and dtype
-    (the CG operator's), shared instead of uploaded again."""
+    The cycle is laid out in float64; `vcycle_as` gives the same cycle
+    in another precision over the same index arrays.  Every level
+    operator, restriction and prolongation is an ops.spmv.EllOperator
+    uploaded once here (which checks the transfers' columns against the
+    levels they read); each line of the cycle is one fused product
+    (kernel K3' on the card), the dense coarsest solve one matmul.  a0:
+    level 0's float64 operator already on the device (the CG operator's),
+    shared instead of uploaded again."""
     from . import spmv
 
-    dtype = dtype or torch.float64
+    f64 = torch.float64
     sizes = [len(lv.a_diag) for lv in h.levels] + [h.coarse_inv.shape[0]]
     params = []
-    for i, lv in enumerate(h.levels):
-        if i == 0 and a0 is not None:
-            a_cols, a_vals, d = a0
-        else:
-            a_cols, a_vals = spmv.to_kmajor(lv.a_cols, lv.a_vals, device,
-                                            dtype)
-            d = torch.from_numpy(lv.a_diag).to(device=device, dtype=dtype)
-        entry = {
-            "a_cols": a_cols, "a_vals": a_vals, "a_diag": d,
-            "dinv": torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
-                                0.0),
-        }
-        if lv.p_cols is not None:
-            # K3 gathers x[cols] unchecked: hold the transfers' columns
-            # to the row counts of the levels they read, once, here.
-            if (lv.p_cols.max() >= sizes[i + 1]
-                    or lv.r_cols.max() >= sizes[i]):
-                raise ValueError(f"level {i}: transfer columns out of range")
-            entry["p_cols"], entry["p_vals"] = spmv.to_kmajor(
-                lv.p_cols, lv.p_vals, device, dtype)
-            entry["r_cols"], entry["r_vals"] = spmv.to_kmajor(
-                lv.r_cols, lv.r_vals, device, dtype)
-        params.append(entry)
+    for i, lv in enumerate(h.levels[:-1]):
+        a = a0 if i == 0 and a0 is not None else spmv.build_operator(
+            lv.a_cols, lv.a_vals, lv.a_diag, sizes[i], device, f64)
+        d = a.diag
+        params.append({
+            "a": a,
+            # The damped-Jacobi weight omega D^-1, one vector per level.
+            "w": lv.omega * torch.where(
+                d > 0, 1.0 / torch.where(d > 0, d, 1.0), 0.0),
+            "p": spmv.build_operator(lv.p_cols, lv.p_vals, None,
+                                     sizes[i + 1], device, f64),
+            "r": spmv.build_operator(lv.r_cols, lv.r_vals, None, sizes[i],
+                                     device, f64),
+        })
     params.append({"coarse_inv": torch.from_numpy(h.coarse_inv).to(
-        device=device, dtype=dtype)})
-    omegas = [lv.omega for lv in h.levels]
-    num_levels = len(h.levels)
-
-    def a_matvec(entry, x):
-        return spmv.ell_spmv(entry["a_cols"], entry["a_vals"],
-                             entry["a_diag"], x)
+        device=device, dtype=f64)})
 
     def cycle(level: int, p, b):
-        entry = p[level]
-        if level == num_levels - 1:
+        if level == len(p) - 1:
             return p[-1]["coarse_inv"] @ b
-        omega = omegas[level]
-        dinv = entry["dinv"][:, None]
+        a, w = p[level]["a"], p[level]["w"]
         # Pre-smooth from a zero guess needs no SpMV: x = omega D^-1 b.
-        x = omega * dinv * b
-        r = b - a_matvec(entry, x)
-        rc = spmv.ell_rect_spmv(entry["r_cols"], entry["r_vals"], r)
-        xc = cycle(level + 1, p, rc)
-        x = x + spmv.ell_rect_spmv(entry["p_cols"], entry["p_vals"], xc)
-        return x + omega * dinv * (b - a_matvec(entry, x))
+        x = w[:, None] * b
+        rc = spmv.ell_spmv(p[level]["r"], spmv.ell_spmv(a, x, b=b))
+        x = spmv.ell_spmv(p[level]["p"], cycle(level + 1, p, rc), x0=x)
+        return spmv.ell_spmv(a, x, b=b, w=w, x0=x)
 
     def apply(p, r):
         return cycle(0, p, r)
 
     return apply, params
+
+
+def vcycle_as(vcycle, dtype):
+    """make_vcycle's (apply, params) with every value cast to `dtype`;
+    the operators' index arrays are shared, not copied."""
+    apply, params = vcycle
+    return apply, [{key: v.to(dtype) for key, v in entry.items()}
+                   for entry in params]

@@ -30,14 +30,12 @@ class EllMatrix:
         return (n, n)
 
     def to_device(self, device, dtype=torch.float64):
-        """(cols, vals, diag) as torch tensors on `device`: cols int32 and
-        vals in `dtype`, both K-major (K, N) — the layout of the ELL
-        kernel K3 (ops.spmv) — and diag (N,) in `dtype`."""
-        from .spmv import to_kmajor
+        """The operator on `device` with values in `dtype`, in the
+        sliced-ELL format of kernel K3' (ops.spmv.EllOperator)."""
+        from .spmv import build_operator
 
-        cols, vals = to_kmajor(self.cols, self.vals, device, dtype)
-        return cols, vals, torch.from_numpy(np.asarray(self.diag)).to(
-            device=device, dtype=dtype)
+        return build_operator(self.cols, self.vals, self.diag,
+                              len(self.diag), device, dtype)
 
     def to_scipy(self):
         """CSR of the full operator (off-diagonals + diagonal), diagonal

@@ -2,7 +2,7 @@
 
 Port of padne_tpu.ops.cg's `make_pcg` and `make_pcg_t` as one solver:
 the generic route runs it in (N, R) layout over the ELL operator
-(kernel K3) with the ELL AMG cycle or Jacobi, the DIA route in (R, N)
+(kernel K3') with the ELL AMG cycle or Jacobi, the DIA route in (R, N)
 layout over the sliced-ELL operator with the aligned DIA cycle.  A is
 an SPSD graph Laplacian whose nullspace is the per-component constants;
 the solver works in the orthogonal complement by projecting the RHS,
@@ -89,14 +89,14 @@ def make_projector(comp_id: torch.Tensor, num_components: int,
     return project
 
 
-def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
-             precond: Optional[tuple] = None,
+def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
+             num_components: int, precond: Optional[tuple] = None,
              operator: Optional[tuple] = None,
              stall_window: Optional[int] = None, dim: int = 0):
     """Deflated PCG bound to one operator.
 
-    cols/vals/diag: the ELL operator in the device layout of
-    assembly.EllMatrix.to_device (K-major); its matvec is kernel K3.
+    a: the ELL operator on the device (assembly.EllMatrix.to_device);
+    its matvec is kernel K3'.  None with operator=.
     operator: optional (apply, params) replacing it, y = apply(params, x);
     the Jacobi fallback then reads params["diag"].
     precond: (apply, params) with z = apply(params, r), e.g.
@@ -124,7 +124,7 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
             raise ValueError(
                 "Jacobi fallback needs the operator's diagonal: pass "
                 "precond=, or an operator params dict with a 'diag' key")
-        dg = operator[1]["diag"] if operator is not None else diag
+        dg = operator[1]["diag"] if operator is not None else a.diag
         minv = torch.where(dg > 0, 1.0 / torch.where(dg > 0, dg, 1.0),
                            1.0).unsqueeze(1 - dim)
 
@@ -143,7 +143,7 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
             return a_apply(a_params, x)
     else:
         def matvec(x):
-            return spmv.ell_spmv(cols, vals, diag, x)
+            return spmv.ell_spmv(a, x)
 
     project = make_projector(comp_id, num_components, dim)
     window = _NO_STALL if stall_window is None else stall_window
@@ -191,7 +191,9 @@ def make_pcg(cols, vals, diag, comp_id: torch.Tensor, num_components: int,
             best = torch.minimum(best, rn)
             stall = torch.where(improved, 0, stall + 1)
             k += 1
-        rtrue = b - matvec(x)
+        # The true residual: one fused launch over the ELL operator.
+        rtrue = (spmv.ell_spmv(a, x, b=b) if operator is None
+                 else b - matvec(x))
         x = project(x)
         return CGResult(x=x if dim == 0 else x.T, iterations=k,
                         residual_norms=dot(rtrue, rtrue).sqrt())

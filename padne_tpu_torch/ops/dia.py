@@ -342,7 +342,7 @@ def pack_csr_pos_as_dia(a, pos, diag, np_override, b: int = DEFAULT_B,
 # Device side: the sliced-ELL format and kernel K1'
 
 
-def _slice_ptr(lengths, perm) -> torch.Tensor:
+def slice_ptr(lengths, perm) -> torch.Tensor:
     """(nslices + 1,) int64 entry offsets of the slices: a slice holds
     SLICE * (its longest row) entries."""
     width = lengths[perm].view(-1, SLICE).amax(1)
@@ -352,7 +352,7 @@ def _slice_ptr(lengths, perm) -> torch.Tensor:
     return ptr
 
 
-def _slots_of(rows, lengths, pos, ptr) -> torch.Tensor:
+def slots_of(rows, lengths, pos, ptr) -> torch.Tensor:
     """Storage index of each entry: entry k of the row at slice-lane
     position p sits at ptr[p // SLICE] + k * SLICE + p % SLICE."""
     order = torch.argsort(rows, stable=True)
@@ -414,9 +414,9 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
                          + (ma - 1 - len_a), stable=True)
     pos = torch.empty_like(perm)
     pos[perm] = torch.arange(np_, device=dev)
-    a_ptr, b_ptr = _slice_ptr(len_a, perm), _slice_ptr(len_b, perm)
-    dest_a = _slots_of(rows_a, len_a, pos, a_ptr)
-    dest_b = _slots_of(rows_b, len_b, pos, b_ptr)
+    a_ptr, b_ptr = slice_ptr(len_a, perm), slice_ptr(len_b, perm)
+    dest_a = slots_of(rows_a, len_a, pos, a_ptr)
+    dest_b = slots_of(rows_b, len_b, pos, b_ptr)
 
     a_idx = torch.zeros(int(a_ptr[-1]), dtype=torch.int16, device=dev)
     a_idx[dest_a] = delta[in_a].to(torch.int16)
@@ -439,7 +439,7 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     return params
 
 
-def _entries(ptr) -> torch.Tensor:
+def entries(ptr) -> torch.Tensor:
     """Slice-lane position of every stored entry of one part."""
     width = ptr[1:] - ptr[:-1]
     s = torch.repeat_interleave(
@@ -452,10 +452,10 @@ def sell_entries(params) -> tuple:
     """((pos_a, col_a), (pos_b, col_b)): slice-lane position and column
     of every stored entry of part A and part B,
     padding included (row = perm[pos])."""
-    pos_a = _entries(params["a_ptr"])
+    pos_a = entries(params["a_ptr"])
     col_a = pos_a // ROW_BLOCK * ROW_BLOCK + params["a_idx"].long()
     return ((pos_a, col_a),
-            (_entries(params["b_ptr"]), params["b_col"].long()))
+            (entries(params["b_ptr"]), params["b_col"].long()))
 
 
 def sell_matvec_plain(params, xt) -> torch.Tensor:

@@ -19,7 +19,7 @@ operator="dia") take the block-offset DIA route (`DiaBorderedSolver`:
 sliced-ELL operator K1', aligned AMG, compensated refinement ladder
 K2'); all
 others, and systems too small for a DIA hierarchy, take the generic
-ELL route (ELL AMG + `cg.make_pcg`, every SpMV through K3, f32 inner
+ELL route (ELL AMG + `cg.make_pcg`, every SpMV through K3', f32 inner
 solves with f64 residuals and an escalation to f64 on a stall).
 
 Out of scope here (raises NotImplementedError, never falls back):
@@ -241,7 +241,7 @@ class DiaBorderedSolver:
         self.op_params, self.cycle_params = op_params, vparams
 
         self.cg_solver = cg.make_pcg(
-            None, None, None, self.comp_pad_dev, p + 1,
+            None, self.comp_pad_dev, p + 1,
             operator=(a_apply_t, op_params),
             precond=(vcycle_apply, vparams), stall_window=30, dim=1)
         self.inner_tol = max(tol, inner_tol)
@@ -550,20 +550,20 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                         max_refinements, target_residual, inner_dtype,
                         stats) -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
-    PCG per Schur pass over the ELL operator (kernel K3), the small
+    PCG per Schur pass over the ELL operator (kernel K3'), the small
     dense block by host lstsq, f64 full-system refinement."""
     t0 = time.perf_counter()
     n, m = system.n, system.border.m
     p = system.num_components
     f64 = torch.float64
     # One upload of the operator: the f64 residual, the inner solve and
-    # the cycle's level 0 share its int32 cols.
-    cols, vals, diag = system.ell.to_device(dev, f64)
+    # the cycle's level 0 share its index arrays.
+    a64 = system.ell.to_device(dev, f64)
     comp_id = _index(system.comp_id, dev)
     B, C = _dense_border(system, dev)
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
-    vals_i, diag_i = vals.to(inner), diag.to(inner)   # no copy in f64
+    a_inner = a64.to(inner)                           # a64 itself in f64
     inner_tol = max(tol, 1e-5) if mixed else tol
     use_amg = n >= _AMG_THRESHOLD
     if use_amg and not mixed:
@@ -579,14 +579,16 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
 
     r_core = _f64(system.r_core, dev)
     r_border = _f64(system.border.rhs, dev)
-    hierarchy = vcycle = None
+    hierarchy = vcycle = vcycle64 = None
     if use_amg:
+        # One layout of the cycle's operators, in f64 (what an escalation
+        # needs); the mixed inner solve casts the values and shares the
+        # index arrays.
         hierarchy = amg.build_hierarchy(system.ell)
-        vcycle = amg.make_vcycle(hierarchy, dev, dtype=inner,
-                                 a0=(cols, vals_i, diag_i))
+        vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64)
+        vcycle = amg.vcycle_as(vcycle64, inner) if mixed else vcycle64
     # Stall exit only with a mixed-precision inner solve (see make_pcg).
-    cg_solver = cg.make_pcg(cols, vals_i, diag_i, comp_id, p,
-                            precond=vcycle,
+    cg_solver = cg.make_pcg(a_inner, comp_id, p, precond=vcycle,
                             stall_window=30 if mixed else None)
     BZ = zt(B.T).T.cpu().numpy()          # (m, p)
     ZtC = zt(C).cpu().numpy()             # (p, m)
@@ -629,9 +631,10 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         return Xc @ jt - xr + ct[comp_id], jt
 
     def full_residual(v, j):
-        # core: r_core - (-A v + C j);  border: r_border - B v
-        av = spmv.ell_spmv(cols, vals, diag, v[:, None])[:, 0]
-        return r_core + av - C @ j, r_border - B @ v
+        # core: r_core - (-A v + C j);  border: r_border - B v.  One
+        # fused launch gives (C j - r_core) - A v, the core part negated.
+        neg = spmv.ell_spmv(a64, v[:, None], b=(C @ j - r_core)[:, None])
+        return -neg[:, 0], r_border - B @ v
 
     def norm(rc, rb):
         return float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
@@ -642,10 +645,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         boards mixing milliohm couplings with thin-sliver cotan weights
         push kappa past 1e7, above the target."""
         nonlocal cg_solver, inner_tol, inner
-        vc64 = (amg.make_vcycle(hierarchy, dev, a0=(cols, vals, diag))
-                if use_amg else None)
-        cg_solver = cg.make_pcg(cols, vals, diag, comp_id, p,
-                                precond=vc64, stall_window=None)
+        cg_solver = cg.make_pcg(a64, comp_id, p, precond=vcycle64,
+                                stall_window=None)
         inner = f64
         inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)
 

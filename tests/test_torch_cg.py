@@ -55,7 +55,7 @@ def test_pcg_t_matches_jax(tol):
     op = amg.make_dia_cg_operator(th, "cpu")
     vc = amg.make_vcycle_dia_t(th, "cpu", w_levels=0)
     solve = cg.make_pcg(
-        None, None, None, torch.from_numpy(comp), 2,
+        None, torch.from_numpy(comp), 2,
         operator=(lambda p, xt: dia.dia_matvec_t(meta0, p, xt), op),
         precond=vc, stall_window=30, dim=1)
     res = solve(torch.from_numpy(b), tol, 300)
@@ -114,7 +114,7 @@ def test_pcg_matches_jax(p, side):
 
     tell = assembly.EllMatrix(cols=ell.cols, vals=ell.vals, diag=ell.diag)
     th = amg.build_hierarchy(tell)
-    solve = cg.make_pcg(*tell.to_device("cpu"),
+    solve = cg.make_pcg(tell.to_device("cpu"),
                         torch.from_numpy(comp_id), p,
                         precond=amg.make_vcycle(th, "cpu"))
     res = solve(torch.from_numpy(b), tol, 500)
@@ -141,20 +141,18 @@ def test_pcg_jacobi_and_custom_operator():
     jres = jcg.make_pcg(*ell.to_device(), jnp.asarray(comp_id), 2)(
         jnp.asarray(b), 1e-10, 2000)
     tell = assembly.EllMatrix(cols=ell.cols, vals=ell.vals, diag=ell.diag)
-    cols, vals, diag = tell.to_device("cpu")
+    a = tell.to_device("cpu")
     cid = torch.from_numpy(comp_id)
-    res = cg.make_pcg(cols, vals, diag, cid, 2)(torch.from_numpy(b), 1e-10,
-                                                2000)
-    op = (lambda prm, x: spmv.ell_spmv(prm["cols"], prm["vals"],
-                                       prm["diag"], x),
-          {"cols": cols, "vals": vals, "diag": diag})
-    res_op = cg.make_pcg(None, None, None, cid, 2, operator=op)(
+    res = cg.make_pcg(a, cid, 2)(torch.from_numpy(b), 1e-10, 2000)
+    op = (lambda prm, x: spmv.ell_spmv(prm["a"], x),
+          {"a": a, "diag": a.diag})
+    res_op = cg.make_pcg(None, cid, 2, operator=op)(
         torch.from_numpy(b), 1e-10, 2000)
     assert abs(res.iterations - int(jres.iterations)) <= 1
     x_ref = np.asarray(jres.x)
     assert np.abs(res.x.numpy() - x_ref).max() <= 1e-9 * np.abs(x_ref).max()
     np.testing.assert_array_equal(res_op.x.numpy(), res.x.numpy())
     with pytest.raises(ValueError):
-        cg.make_pcg(None, None, None, cid, 2, operator=(op[0], {}))
+        cg.make_pcg(None, cid, 2, operator=(op[0], {}))
     with pytest.raises(ValueError):
-        cg.make_pcg(cols, vals, diag, cid, 2, dim=1)
+        cg.make_pcg(a, cid, 2, dim=1)

@@ -12,11 +12,14 @@ different lengths, far columns, empty padding rows and row blocks, a
 bf16 operator's f32 part), small and with entries beyond part A's int16
 window (the int32-column part), and at R in {2, 3, 4, 9} on a level
 wide enough for the 2- and 4-column chunks of K1'; K2' on the odd
-operator; odd ELL shapes (R in {1, 3, 9}, f32 and f64, rectangular,
-padding that points at row 0) and the launch counters.  Tolerances: f32 sums in another order
+operator; K3' at every lanes-per-row setting, f32 and f64, R in {1, 2,
+4, 5}, each epilogue, square and rectangular with empty rows, rows off
+the 16-byte grid; and the launch counters.  Tolerances: f32 sums in another order
 (1e-5 of max|y|), f64 likewise (1e-12); K2' against the f64 bound
 2e-13 * max(|A| |x|).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -116,53 +119,61 @@ def test_comp_sell_matches_f64(cuda, size):
     assert (y - ref).abs().max() <= 2e-13 * bound
 
 
-def _ell(n, nx, k, dtype, cuda, seed, pad_to=None):
-    """K-major (K, n) ELL arrays: random columns in [0, nx), and the last
-    slot of every third row padding (value 0) pointing at `pad_to` (the
-    row itself when None)."""
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    cols = torch.randint(0, nx, (k, n), generator=g, device=cuda,
-                         dtype=torch.int32)
-    vals = torch.randn(k, n, generator=g, device=cuda, dtype=dtype)
-    pad = torch.arange(0, n, 3, device=cuda)
-    cols[-1, pad] = (pad.to(torch.int32) if pad_to is None
-                     else torch.full_like(pad, pad_to, dtype=torch.int32))
-    vals[-1, pad] = 0.0
-    return cols, vals
+def _ell_operator(shape, dtype, cuda, seed, lanes):
+    """A square (1037 rows, up to 24 entries a row) or rectangular
+    (2001 x 263, up to 70) operator on the card with rows of 0..k
+    entries, some empty, built at `lanes` lanes per row."""
+    n, nx, k = (1037, 1037, 24) if shape == "square" else (2001, 263, 70)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, k + 1, n)
+    lens[::7] = 0
+    live = np.arange(k)[None, :] < lens[:, None]
+    cols = np.where(live, rng.integers(0, nx, (n, k)), 0).astype(np.int32)
+    vals = np.where(live, rng.standard_normal((n, k)), 0.0)
+    diag = rng.random(n) + 1.0 if shape == "square" else None
+    return spmv.build_operator(cols, vals, diag, nx, cuda, dtype,
+                               lanes=lanes)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("r", [1, 3, 9])
-def test_ell_spmv_matches_plain(cuda, dtype, tol, r):
-    n, k = 1037, 7
-    cols, vals = _ell(n, n, k, dtype, cuda, seed=r)
-    diag = torch.rand(n, device=cuda, dtype=dtype) + 1.0
-    x = torch.randn(n, r, device=cuda, dtype=dtype)
+@pytest.mark.parametrize("r", [1, 2, 4, 5])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("form", ["plain", "residual", "smooth", "add"])
+@pytest.mark.parametrize("shape", ["square", "rect"])
+def test_ell_spmv_matches_plain(cuda, shape, form, lanes, r, dtype, tol):
+    """K3' at every lanes-per-row setting, both dtypes, the vector (R 2,
+    4) and scalar (R 1, 5: a ragged second chunk) row accesses, each
+    epilogue, square and rectangular."""
+    op = _ell_operator(shape, dtype, cuda, seed=r, lanes=lanes)
+    g = torch.Generator(device=cuda).manual_seed(lanes)
+    x = torch.randn(op.nx, r, generator=g, device=cuda, dtype=dtype)
+    b, x0 = (torch.randn(op.n, r, generator=g, device=cuda, dtype=dtype)
+             for _ in range(2))
+    w = torch.rand(op.n, generator=g, device=cuda, dtype=dtype)
+    kw = {"plain": {}, "residual": {"b": b}, "add": {"x0": x0},
+          "smooth": {"b": b, "w": w, "x0": x0}}[form]
     before = spmv.ell_spmv.launches
-    y = spmv.ell_spmv(cols, vals, diag, x)
+    y = spmv.ell_spmv(op, x, **kw)
     assert spmv.ell_spmv.launches == before + 1
-    ref = spmv.ell_spmv_plain(cols, vals, diag, x)
+    ref = spmv.ell_spmv_plain(op, x, **kw)
     torch.cuda.synchronize()
-    assert y.shape == (n, r) and y.dtype == dtype
-    assert (y - ref).abs().max() <= tol * ref.abs().max()
+    assert y.shape == (op.n, r) and y.dtype == dtype
+    scale = max(ref.abs().max(), b.abs().max())
+    assert (y - ref).abs().max() <= tol * scale
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.float64, 1e-12)])
-@pytest.mark.parametrize("r", [1, 3, 9])
-def test_ell_rect_spmv_matches_plain(cuda, dtype, tol, r):
-    """The prolongation shape: more rows than x, padding at column 0."""
-    n, nx, k = 2001, 263, 5
-    cols, vals = _ell(n, nx, k, dtype, cuda, seed=10 + r, pad_to=0)
-    x = torch.randn(nx, r, device=cuda, dtype=dtype)
-    before = spmv.ell_rect_spmv.launches
-    y = spmv.ell_rect_spmv(cols, vals, x)
-    assert spmv.ell_rect_spmv.launches == before + 1
-    ref = spmv.ell_rect_spmv_plain(cols, vals, x)
+def test_ell_spmv_unaligned_rows(cuda):
+    """A view whose rows start off the 16-byte grid (R = 4 from an odd
+    float offset) takes the scalar row accesses and still agrees."""
+    op = _ell_operator("square", torch.float32, cuda, seed=3, lanes=4)
+    flat = torch.randn(op.n * 4 + 1, device=cuda)
+    x = flat[1:].view(op.n, 4)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    y = spmv.ell_spmv(op, x, x0=x)
+    ref = spmv.ell_spmv_plain(op, x, x0=x)
     torch.cuda.synchronize()
-    assert y.shape == (n, r)
-    assert (y - ref).abs().max() <= tol * ref.abs().max()
+    assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -179,24 +190,26 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):    # index arrays on the host
         dia.sell_matvec(dict(params, a_idx=params["a_idx"].cpu()),
                         torch.zeros(1, np_, device=cuda))
-    cols = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
-    vals = torch.zeros(2, 8, device=cuda)
+    op = _ell_operator("square", torch.float32, cuda, seed=1, lanes=2)
+    x = torch.zeros(op.n, 2, device=cuda)
+    with pytest.raises(ValueError):    # f64 x against f32 values
+        spmv.ell_spmv(op, x.double())
+    with pytest.raises(ValueError):    # b on the host
+        spmv.ell_spmv(op, x, b=x.cpu())
+    with pytest.raises(ValueError):    # b not contiguous
+        spmv.ell_spmv(op, x, b=torch.zeros(2, op.n, device=cuda).T)
     with pytest.raises(ValueError):    # int64 columns
-        spmv.ell_spmv(cols.long(), vals, vals[0], torch.zeros(8, 1,
-                                                              device=cuda))
-    with pytest.raises(ValueError):    # f64 x against f32 vals
-        spmv.ell_spmv(cols, vals, vals[0], torch.zeros(
-            8, 1, device=cuda, dtype=torch.float64))
+        spmv.ell_spmv(dataclasses.replace(op, col=op.col.long()), x)
 
 
 def test_ell_route_runs_through_k3(cuda):
     """A small ELL-route solve on the card (f32 inner, f64 residuals)
-    reaches the gate through K3 and launches neither DIA kernel."""
+    reaches the gate through K3' and launches neither DIA kernel."""
     from padne_tpu_torch.ops import schur
 
     system = _grid_system(80)      # n = 6400: AMG-preconditioned
     before = (dia.sell_matvec.launches, comp.comp_sell.launches,
-              spmv.ell_spmv.launches, spmv.ell_rect_spmv.launches)
+              spmv.ell_spmv.launches)
     stats = {}
     sol = schur.solve_bordered(system, inner_dtype=torch.float32,
                                device=cuda, stats=stats)
@@ -204,7 +217,6 @@ def test_ell_route_runs_through_k3(cuda):
     assert sol.residual_norm < 1e-9
     assert (dia.sell_matvec.launches, comp.comp_sell.launches) == before[:2]
     assert spmv.ell_spmv.launches > before[2]
-    assert spmv.ell_rect_spmv.launches > before[3]
 
 
 def _grid_system(g):

@@ -60,9 +60,8 @@ def test_vcycle_matches_jax(dtype, rtol):
     japply, jparams = jamg.make_vcycle(
         jamg.build_hierarchy(ell),
         dtype=None if dtype == np.float64 else jnp.float32)
-    apply, params = amg.make_vcycle(h, "cpu",
-                                    dtype=torch.from_numpy(
-                                        np.zeros(1, dtype)).dtype)
+    apply, params = amg.vcycle_as(
+        amg.make_vcycle(h, "cpu"), torch.from_numpy(np.zeros(1, dtype)).dtype)
     r = np.random.default_rng(4).standard_normal((len(ell.diag), 3)).astype(
         dtype)
     z_ref = np.asarray(japply(jparams, jnp.asarray(r)))
@@ -72,9 +71,9 @@ def test_vcycle_matches_jax(dtype, rtol):
 
 
 def test_vcycle_shares_level0_and_checks_transfers():
-    """make_vcycle reuses level-0 tensors passed as a0 (same result as
-    its own upload) and refuses transfer columns past the level they
-    read, which K3 would gather unchecked on the card."""
+    """make_vcycle reuses the level-0 operator passed as a0 (same result
+    as its own upload) and refuses transfer columns past the level they
+    read, which K3' would gather unchecked on the card."""
     import dataclasses
 
     ell, _ = grid_laplacian(32, seed=5)
@@ -83,11 +82,18 @@ def test_vcycle_shares_level0_and_checks_transfers():
     a0 = tell.to_device("cpu")
     apply, own = amg.make_vcycle(h, "cpu")
     _, shared = amg.make_vcycle(h, "cpu", a0=a0)
-    assert shared[0]["a_cols"] is a0[0] and shared[0]["a_vals"] is a0[1]
+    assert shared[0]["a"] is a0 and own[0]["a"] is not a0
     r = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (len(ell.diag), 2)))
     np.testing.assert_array_equal(apply(shared, r).numpy(),
                                   apply(own, r).numpy())
+    # vcycle_as: the f32 cycle reads the f64 cycle's index arrays, and
+    # the f64 "cast" is the cycle itself.
+    _, cast = amg.vcycle_as((apply, own), torch.float32)
+    assert cast[0]["p"].col is own[0]["p"].col
+    assert cast[0]["a"].val.dtype == cast[0]["w"].dtype \
+        == cast[-1]["coarse_inv"].dtype == torch.float32
+    assert amg.vcycle_as((apply, own), torch.float64)[1][0]["a"] is own[0]["a"]
     bad = h.levels[0].p_cols.copy()
     bad[0, 0] = len(h.levels[1].a_diag)
     h.levels[0] = dataclasses.replace(h.levels[0], p_cols=bad)
