@@ -32,23 +32,27 @@ Phases (any failure exits non-zero; there is no CPU path):
    scipy.sparse.linalg.spsolve on the same bordered system (max |dV|
    <= 1e-6 V);
 7. kernel K3' (sliced-ELL SpMV with fused epilogues) against its plain
-   version at the ELL phase's shapes, on its board's operator and the
-   transfers and level operators of its AMG hierarchy: A level 0 f32 at
-   R = 1 and R = m+1 and f64 at R = 1, P level 0, R level 0, A level 1
-   and the deepest restriction f32 at R = m+1, and the fused forms the
-   solve runs (residual, damped-Jacobi step and x0 + A x on A level 0,
-   the f64 residual at R = 1, x0 + P xc on P level 0, the step on A
-   level 1, and the step and x0 + P xc in f64 at R = m+1 as an escalated
-   solve runs them); bounds 1e-5 (f32) and 1e-12 (f64) of the largest operand;
-   times by CUDA events and by replaying a captured CUDA graph of 20
-   calls (device time without the host's launch cost), for the kernel
-   and for cuSPARSE; for the plain f32 R = m+1 shapes also the kernel's
-   graph time at every lanes-per-row setting beside the chosen one;
+   version on the ELL phase's board: every level of its AMG hierarchy in
+   every form, type and width the solve launches (the four sparse lines
+   of the cycle per level: residual, restriction, x0 + P xc and the
+   damped-Jacobi step, at R = m+1 in f32 and, as an escalated solve runs
+   them, in f64; the CG's product at R = m+1 in both types; the f64
+   refinement residual at R = 1), and as yardsticks A level 0 f32 and
+   f64 at R = 1, x0 + A x on A level 0, and P level 0 and A level 1
+   plain; bounds 1e-5 (f32) and 1e-12 (f64) of the largest of the result
+   and the operands passed; times by CUDA events and by replaying a
+   captured CUDA graph of 20 calls (device time without the host's
+   launch cost; a kernel of this package that cannot be captured fails
+   the run, cuSPARSE keeps its event time), for the kernel and for
+   cuSPARSE; the cycle's sparse lines summed; for the plain f32 R = m+1
+   shapes also the kernel's graph time at every lanes-per-row setting
+   beside the chosen one;
 8. the ELL route: the bench board at --ell-dof (n between 120,000 and
    199,999, the largest the auto route sends to ELL on the card),
    solved with counters reset: K3' > 0, K1' = K2' = 0, route "ell",
    residual < 1e-9, max |dV| vs spsolve <= 1e-6 V; the launches of K3'
-   in that solve are printed per shape and form;
+   in that solve are printed per shape and form, and a shape that phase
+   7 did not hold against the plain version fails the run;
 9. four small generated boards through the auto route, each within
    1e-6 V of spsolve at residual < 1e-9.
 
@@ -112,10 +116,12 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 10):
+def graph_ms(fn, calls: int = 20, replays: int = 10, library: bool = False):
     """Mean device time of fn() from replays of one captured CUDA graph
     of `calls` calls: the calls run back to back on the card with no
-    host launch cost between them.  None where fn cannot be captured."""
+    host launch cost between them.  A function that cannot be captured
+    raises, unless it is a library call (library=True: cuSPARSE may
+    allocate or synchronise inside), which gives None."""
     import torch
 
     fn()
@@ -123,22 +129,25 @@ def graph_ms(fn, calls: int = 20, replays: int = 10):
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    captured = True
+    error = None
     with torch.cuda.stream(side):
         graph.capture_begin()
         try:
             for _ in range(calls):
                 fn()
-        except RuntimeError:
-            captured = False
+        except RuntimeError as exc:
+            error = exc
         try:
             graph.capture_end()
-        except RuntimeError:
-            captured = False
+        except RuntimeError as exc:
+            error = error or exc
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    if not captured:
-        return None
+    if error is not None:
+        if library:
+            return None
+        raise RuntimeError("chip_smoke check failed: a hand-written kernel "
+                           "could not be captured in a CUDA graph") from error
     return time_ms(graph.replay, reps=replays) / calls
 
 
@@ -246,8 +255,6 @@ def target_note(ms, bound_ms, library_ms) -> str:
 def graph_note(g_ms, bound_ms, g_lib, library_ms) -> str:
     """target_note for graph-replay times; a library call that cannot be
     captured keeps its event time."""
-    if g_ms is None:
-        return "kernel not capturable"
     if g_lib is None and library_ms is not None:
         return (target_note(g_ms, bound_ms, library_ms)
                 + " (cuSPARSE not capturable: its time by events)")
@@ -284,7 +291,7 @@ def k1_case(name, params, r, seed, graph=False):
           f"the CSR yardstick of K1' {name} computes another function")
     if graph:
         g_ms = graph_ms(lambda: dia.sell_matvec(params, xt))
-        g_lib = graph_ms(lambda: torch.sparse.mm(csr, xn))
+        g_lib = graph_ms(lambda: torch.sparse.mm(csr, xn), library=True)
         print(f"[K1' {name}] R={r} by CUDA-graph replay: kernel "
               f"{fmt_ms(g_ms)}, library(csr) {fmt_ms(g_lib)}; "
               f"{graph_note(g_ms, bound_ms, g_lib, library_ms)}", flush=True)
@@ -503,7 +510,8 @@ def k3_case(name, ell, dtype, r, form, gen, sweep=False):
 
     y, ref = kernel(), plain()
     torch.cuda.synchronize()
-    scale = max(float(ref.abs().max()), float(b.abs().max()))
+    # The scale of the result and of the operands this form was given.
+    scale = max(float(t.abs().max()) for t in (ref, *kw.values()))
     abs_err = float((y - ref).abs().max())
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     g_ms = graph_ms(kernel)
@@ -511,7 +519,8 @@ def k3_case(name, ell, dtype, r, form, gen, sweep=False):
     if library is not None:
         check(float((library() - ref).abs().max()) <= tol * scale,
               f"the CSR yardstick of K3' {name} computes another function")
-        library_ms, g_lib = time_ms(library), graph_ms(library)
+        library_ms = time_ms(library)
+        g_lib = graph_ms(library, library=True)
     nnz = int((op.val != 0).sum())
     # Epilogue operands: b and x0 (n, R) unless x0 is x itself, w (n,).
     extra = sum(_size(t) for t in kw.values() if t is not x)
@@ -554,9 +563,14 @@ def k3_case(name, ell, dtype, r, form, gen, sweep=False):
 
 
 def k3_cases(system):
-    """K3' at the ELL phase's shapes, on its own operator and the AMG
-    hierarchy its solve builds: every product of the cycle's three
-    largest cost centres and the forms the solve launches them in."""
+    """K3' on the ELL phase's own operator and on every level of the AMG
+    hierarchy its solve builds, in every form, type and width the solve
+    launches: the CG's product and true residual, the four sparse lines
+    of the cycle per level (residual, restriction, prolongation with its
+    add, damped-Jacobi step) in f32 and, as after an f64 escalation, in
+    f64, and the f64 refinement residual; beside them the plain products
+    that only serve as yardsticks.  Prints the cycle's sparse lines
+    summed by graph replay."""
     import torch
 
     from padne_tpu_torch.ops import amg
@@ -579,24 +593,34 @@ def k3_cases(system):
         return levels[i].r_cols, levels[i].r_vals, None, sizes[i]
 
     deep = len(levels) - 2
-    return [
+    cases = [
         k3_case("A l0", a(0), f32, 1, "plain", gen),
         k3_case("A l0", a(0), f32, r, "plain", gen, sweep=True),
         k3_case("A l0", a(0), f64, 1, "plain", gen),
-        k3_case("P l0", p(0), f32, r, "plain", gen, sweep=True),
-        k3_case("R l0", rt(0), f32, r, "plain", gen, sweep=True),
-        k3_case("A l1", a(1), f32, r, "plain", gen, sweep=True),
-        k3_case(f"R l{deep}", rt(deep), f32, r, "plain", gen, sweep=True),
-        k3_case("A l0", a(0), f32, r, "residual", gen),
-        k3_case("A l0", a(0), f32, r, "smooth", gen),
-        k3_case("A l0", a(0), f32, r, "add", gen),
         k3_case("A l0", a(0), f64, 1, "residual", gen),
-        k3_case("P l0", p(0), f32, r, "add", gen),
-        k3_case("A l1", a(1), f32, r, "smooth", gen),
-        # After an f64 escalation the cycle runs in f64 at R = m+1.
-        k3_case("A l0", a(0), f64, r, "smooth", gen),
-        k3_case("P l0", p(0), f64, r, "add", gen),
+        k3_case("A l0", a(0), f64, r, "plain", gen),
+        k3_case("A l0", a(0), f32, r, "add", gen),
+        k3_case("P l0", p(0), f32, r, "plain", gen, sweep=True),
+        k3_case("A l1", a(1), f32, r, "plain", gen, sweep=True),
     ]
+    for dtype in (f32, f64):
+        lines = []
+        for i in range(deep + 1):
+            sweep = dtype == f32 and i in (0, deep)
+            lines += [
+                k3_case(f"A l{i}", a(i), dtype, r, "residual", gen),
+                k3_case(f"R l{i}", rt(i), dtype, r, "plain", gen,
+                        sweep=sweep),
+                k3_case(f"P l{i}", p(i), dtype, r, "add", gen),
+                k3_case(f"A l{i}", a(i), dtype, r, "smooth", gen)]
+        cases += lines
+        print(f"[K3' cycle] the {len(lines)} sparse lines of one cycle over "
+              f"{deep + 1} levels at R={r} "
+              f"{'f64' if dtype == f64 else 'f32'}, by graph replay: "
+              f"{sum(c['graph_ms'] for c in lines) * 1e3:.1f} us, by events "
+              f"{sum(c['ms'] for c in lines) * 1e3:.1f} us, bound "
+              f"{sum(c['bound_ms'] for c in lines) * 1e3:.1f} us", flush=True)
+    return cases
 
 
 class K3Shapes:
@@ -749,6 +773,9 @@ def ell_phases(args, tmp: pathlib.Path):
               flush=True)
     for c in k3:
         c["launches"] = shapes.get(c["key"], 0)
+    missing = sorted(set(shapes) - set(timed))
+    check(not missing, f"the ELL solve launched K3' at shapes that were not "
+                       f"held against the plain version: {missing}")
     check(launches["dia_sell"] == launches["comp_sell"] == 0,
           "the ELL route launched a DIA kernel")
     check(info.residual_norm < 1e-9,

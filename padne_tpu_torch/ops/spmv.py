@@ -113,19 +113,14 @@ class EllOperator:
     def n(self) -> int:
         return self.perm.numel()
 
-    @functools.cached_property
-    def _casts(self) -> dict:
-        return {self.val.dtype: self}
-
     def to(self, dtype) -> "EllOperator":
         """The same operator with values in `dtype`, over the same index
-        arrays: self when the dtype already matches, and one conversion
-        however often it is asked for."""
-        if dtype not in self._casts:
-            self._casts[dtype] = dataclasses.replace(
-                self, val=self.val.to(dtype),
-                diag=None if self.diag is None else self.diag.to(dtype))
-        return self._casts[dtype]
+        arrays: self when the dtype already matches, as Tensor.to."""
+        if dtype == self.val.dtype:
+            return self
+        return dataclasses.replace(
+            self, val=self.val.to(dtype),
+            diag=None if self.diag is None else self.diag.to(dtype))
 
     @functools.cached_property
     def entry_pos(self) -> torch.Tensor:

@@ -137,14 +137,14 @@ def _ell_operator(shape, dtype, cuda, seed, lanes):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("r", [1, 2, 4, 5])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 9])
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("form", ["plain", "residual", "smooth", "add"])
 @pytest.mark.parametrize("shape", ["square", "rect"])
 def test_ell_spmv_matches_plain(cuda, shape, form, lanes, r, dtype, tol):
     """K3' at every lanes-per-row setting, both dtypes, the vector (R 2,
-    4) and scalar (R 1, 5: a ragged second chunk) row accesses, each
-    epilogue, square and rectangular."""
+    4) and scalar (R 1; 3: one ragged chunk; 5: a ragged second chunk; 9:
+    three chunks) row accesses, each epilogue, square and rectangular."""
     op = _ell_operator(shape, dtype, cuda, seed=r, lanes=lanes)
     g = torch.Generator(device=cuda).manual_seed(lanes)
     x = torch.randn(op.nx, r, generator=g, device=cuda, dtype=dtype)
@@ -159,8 +159,9 @@ def test_ell_spmv_matches_plain(cuda, shape, form, lanes, r, dtype, tol):
     ref = spmv.ell_spmv_plain(op, x, **kw)
     torch.cuda.synchronize()
     assert y.shape == (op.n, r) and y.dtype == dtype
-    scale = max(ref.abs().max(), b.abs().max())
-    assert (y - ref).abs().max() <= tol * scale
+    # The scale of the result and of the operands this form was given.
+    scale = max(float(t.abs().max()) for t in (ref, *kw.values()))
+    assert float((y - ref).abs().max()) <= tol * scale
 
 
 def test_ell_spmv_unaligned_rows(cuda):

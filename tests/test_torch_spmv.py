@@ -114,7 +114,7 @@ def test_stored_image_equals_ell(shape, lanes):
     op32 = op.to(torch.float32)
     assert op32.col is op.col and op32.ptr is op.ptr and op32.perm is op.perm
     assert op32.val.dtype == torch.float32 and op.to(torch.float64) is op
-    assert op.to(torch.float32) is op32
+    assert op32.to(torch.float32) is op32
     np.testing.assert_array_equal(op32.val.numpy(),
                                   op.val.numpy().astype(np.float32))
 

@@ -38,8 +38,7 @@ import tempfile
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
-OWN_KERNELS = ("dia_sell_kernel", "comp_sell_kernel", "ell_sell_kernel",
-               "ell_spmv_kernel")
+OWN_KERNELS = ("dia_sell_kernel", "comp_sell_kernel", "ell_sell_kernel")
 
 
 def main() -> int:
