@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py [--dof 1000000] [--scipy-dof 200000]
-                          [--ell-dof 140000]
+                          [--ell-dof 140000] [--frag-dof 200000]
 
 Phases (any failure exits non-zero; there is no CPU path):
 
@@ -22,12 +22,16 @@ Phases (any failure exits non-zero; there is no CPU path):
 4. kernel K2' (compensated residual) on the level-0 hi and lo values
    against its f64 plain version, bound 2e-13 * max(|A| |x|), and both
    times;
-5. the DIA route: padne_tpu_torch.solver.solve on the generated 4-layer
-   bench board at --dof (sized as bench.py sizes it), with the kernels'
-   launch counters reset just before and read just after: K1' and K2'
-   must be > 0, the route "dia", and the full-system residual must meet
-   the repo's 1e-9 gate; the peak device memory of the solve (set-up
-   included) is printed;
+5. the user path on the DIA route ("cli"): padne_tpu_torch.cli.main
+   (["solve", project, artifact, mesher flags]) in this process, with no
+   --device (so: the card), on the generated 4-layer bench board at
+   --dof (sized as bench.py sizes it), with the kernels' launch counters
+   reset just before and read just after: K1' and K2' must be > 0, the
+   route "dia", and the full-system residual must meet the repo's 1e-9
+   gate; the peak device memory of the solve (set-up included) is
+   printed; then `info`, `paraview` and `html` on the artifact: the
+   reloaded potentials equal the solved ones bit for bit, every layer's
+   VTU file and the HTML page exist and parse;
 6. a second DIA solve at --scipy-dof with the potentials held against
    scipy.sparse.linalg.spsolve on the same bordered system (max |dV|
    <= 1e-6 V);
@@ -54,7 +58,29 @@ Phases (any failure exits non-zero; there is no CPU path):
    in that solve are printed per shape and form, and a shape that phase
    7 did not hold against the plain version fails the run;
 9. four small generated boards through the auto route, each within
-   1e-6 V of spsolve at residual < 1e-9.
+   1e-6 V of spsolve at residual < 1e-9;
+10. a heavily fragmented board ("fragmented"): one copper layer cut into
+   12 x 12 separate tiles and a rail, every tile held against the rail
+   by its own voltage source and loaded by its own current source, at
+   --frag-dof: more than 63 copper components on the DIA route (the
+   segment-sum projector in the (R, N) layout).  K1' on its operators
+   at R = m + 1 (level-0 CG operator, level-0 and level-1 cycle
+   operators) and K2' against their plain versions; then the solve with
+   counters reset: route "dia", residual < 1e-9, max |dV| vs spsolve
+   <= 1e-6 V, K1' and K2' > 0;
+11. a design sweep ("sweep"): padne_tpu_torch.sweep.solve_sweep on the
+   ELL phase's board with 12 specs (conductance scale 0.5, 1, 2, 4 x
+   source scale 1, 2, 3.3): one float64 multi-RHS CG for all of them,
+   every product through K3' (launches printed by shape; a shape that
+   phase 7 did not hold against the plain version fails the run); every
+   spec's residual below 1e-8 of its right-hand side's norm, the spec
+   (1, 1) within 1e-6 V of phase 8's single solve, the potentials
+   proportional to the source scale and of the form v_V + v_I / s in the
+   conductance scale; CG iterations, wall times of the one multi-RHS
+   solve and of the 12 recoveries, and peak device memory are printed.
+
+Each of the phases cli, fragmented and sweep also prints one JSON line
+{"phase": ...} with its numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -91,6 +117,7 @@ PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}         # non-tensor-core FMA
 SMALL_BOARDS = ("gen_regulator", "gen_resistor_divider",
                 "gen_via_stack_4layer", "gen_floating_island")
 ELL_N = (120_000, 199_999)   # the sizes the auto route sends to ELL
+MIN_FRAG_N = 200_000         # the fragmented board: the DIA route's sizes
 DEV = "cuda"
 
 
@@ -440,6 +467,73 @@ def bench_problem(tmp: pathlib.Path, dof: int):
                                     variable_size_maximum_factor=1.0)
 
 
+def fragmented_problem(dof: int, tiles=(12, 12), tile_mm: float = 10.0,
+                       gap_mm: float = 0.5):
+    """A heavily fragmented board and a mesher config for `dof`: one
+    copper layer of tiles[0] x tiles[1] separate square tiles above a
+    rail strip.  Every tile is live: its own voltage source holds it
+    against the rail (0.5 V and up, 2 mV apart) and its own current
+    source loads it, returning through the rail.  Each tile and the rail
+    are one copper component each, and every component is touched by a
+    border row, so the bordered system is nonsingular."""
+    from padne_tpu_torch import geom, mesh, problem
+
+    tx, ty = tiles
+    pitch = tile_mm + gap_mm
+    width = tx * pitch - gap_mm
+    rail = geom.box(0.0, -gap_mm - 4.0, width, -gap_mm)
+    origins = [(i * pitch, j * pitch) for i in range(tx) for j in range(ty)]
+    boxes = [rail] + [geom.box(x0, y0, x0 + tile_mm, y0 + tile_mm)
+                      for x0, y0 in origins]
+    layer = problem.Layer(shape=geom.MultiPolygon(boxes), name="F.Cu",
+                          conductance=5.95e4 * 0.035)
+    networks = []
+    for t, (x0, y0) in enumerate(origins):
+        # Two rail taps per tile, spread along the rail.
+        rx = (t + 0.5) / (tx * ty) * width
+        feed, load, rail_a, rail_b = (
+            problem.Connection(layer=layer, point=geom.Point(x, y))
+            for x, y in ((x0 + 1.0, y0 + 1.0),
+                         (x0 + tile_mm - 1.0, y0 + tile_mm - 1.0),
+                         (rx, -gap_mm - 1.0), (rx, -gap_mm - 3.0)))
+        networks.append(problem.Network(
+            connections=[feed, load, rail_a, rail_b],
+            elements=[
+                problem.VoltageSource(p=feed.node_id, n=rail_a.node_id,
+                                      voltage=0.5 + 0.002 * t),
+                problem.CurrentSource(f=load.node_id, t=rail_b.node_id,
+                                      current=0.2 + 0.002 * t)]))
+    prob = problem.Problem(layers=[layer], networks=networks,
+                           project_name="fragmented")
+    size = max(0.05, (layer.shape.area / (0.43 * dof)) ** 0.5)
+    return prob, mesh.Mesher.Config(maximum_size=size,
+                                    variable_size_maximum_factor=1.0)
+
+
+class SolveSpy:
+    """Keeps what padne_tpu_torch.solver.solve returned and its stats
+    while it is entered, by standing in for it: the command-line
+    interface gives back neither."""
+
+    def __enter__(self):
+        from padne_tpu_torch import solver
+
+        self.real = solver.solve
+        self.stats, self.solution = {}, None
+
+        def recording(prob, **kw):
+            self.solution = self.real(prob, stats=self.stats, **kw)
+            return self.solution
+
+        solver.solve = recording
+        return self
+
+    def __exit__(self, *exc):
+        from padne_tpu_torch import solver
+
+        solver.solve = self.real
+
+
 LANES = (1, 2, 4, 8, 16, 32)
 
 
@@ -666,28 +760,121 @@ def reset_counts() -> None:
     spmv.ell_spmv.launches = 0
 
 
+def same_fields(a, b) -> bool:
+    """Two Solutions hold bit-equal meshes, potentials and power
+    densities."""
+    import numpy as np
+
+    def arrays(sol):
+        for ls in sol.layer_solutions:
+            for m in ls.meshes + ls.disconnected_meshes:
+                yield m.vertices
+                yield m.triangles
+            for f in ls.potentials + ls.power_densities:
+                yield f.values
+
+    xs, ys = list(arrays(a)), list(arrays(b))
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(xs, ys))
+
+
+def cli_exports(sol, npz: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """`info`, `paraview` and `html` of the command-line interface on the
+    artifact `npz` that `solve` wrote for `sol`; the checks of phase 5.
+    Returns the wall times."""
+    import contextlib
+    import io
+    import re
+    import xml.etree.ElementTree as ET
+
+    from padne_tpu_torch import cli
+    from padne_tpu_torch.io import paraview
+    from padne_tpu_torch.io import solution as solution_io
+
+    times = {}
+    t0 = time.perf_counter()
+    loaded = solution_io.load_solution(npz)
+    times["load_s"] = time.perf_counter() - t0
+    check(same_fields(loaded, sol), "the reloaded artifact differs from "
+                                    "the solved fields")
+    check(loaded.solver_info == sol.solver_info,
+          "the reloaded solver info differs")
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["info", str(npz)])
+    times["info_s"] = time.perf_counter() - t0
+    text = out.getvalue()
+    check(f"system size: {sol.solver_info.system_size}" in text
+          and all(f"  {l.name}: " in text for l in sol.problem.layers),
+          "`info` does not describe the solved system")
+
+    t0 = time.perf_counter()
+    cli.main(["paraview", str(npz), str(tmp / "pv")])
+    times["paraview_s"] = time.perf_counter() - t0
+    used = set()
+    for layer, ls in zip(sol.problem.layers, sol.layer_solutions):
+        f = tmp / "pv" / (paraview.sanitize_filename(layer.name, used)
+                          + ".vtu")
+        check(f.exists(), f"{f.name} was not written")
+        pieces = ET.parse(f).getroot().findall(".//Piece")
+        check([int(p.get("NumberOfPoints")) for p in pieces]
+              == [m.num_vertices for m in ls.meshes],
+              f"{f.name} does not hold its layer's meshes")
+        check(all(len(p.find("PointData/DataArray").text.split())
+                  == int(p.get("NumberOfPoints")) for p in pieces),
+              f"{f.name}: voltages do not match the points")
+
+    t0 = time.perf_counter()
+    cli.main(["html", str(npz), str(tmp / "view.html")])
+    times["html_s"] = time.perf_counter() - t0
+    html = (tmp / "view.html").read_text()
+    data = re.search(r"const DATA = (\{.*?\});\n", html, re.S)
+    check(data is not None, "the HTML page holds no payload")
+    payload = json.loads(data.group(1))
+    check([l["name"] for l in payload["layers"]]
+          == [l.name for l in sol.problem.layers]
+          and sum(e["nv"] for l in payload["layers"] for e in l["meshes"])
+          >= sum(m.num_vertices for ls in sol.layer_solutions
+                 for m in ls.meshes),
+          "the HTML payload does not hold the solved meshes")
+    return times
+
+
 def dia_phases(args, tmp: pathlib.Path):
-    """K1' and K2' on the DIA route's operators at --dof, the DIA route
-    at --dof, then the scipy check at --scipy-dof.  Returns (K1' cases,
-    K2' case, the main solve's launch counts)."""
+    """K1' and K2' on the DIA route's operators at --dof, the user path
+    through the command-line interface at --dof, then the scipy check at
+    --scipy-dof.  Returns (K1' cases, K2' case, the main solve's launch
+    counts)."""
     import torch
 
-    from padne_tpu_torch import solver
+    from padne_tpu_torch import cli, solver
 
     t0 = time.perf_counter()
     prob, cfg = bench_problem(tmp, args.dof)
     t_load = time.perf_counter() - t0
     k1, k2 = dia_kernel_cases(solver.build_system(prob, cfg)[0])
+    del prob
     torch.cuda.empty_cache()
 
+    pro = tmp / "gen_bench_4layer" / "gen_bench_4layer.kicad_pro"
+    npz = tmp / "bench.npz"
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    stats = {}
-    sol = solver.solve(prob, mesher_config=cfg, stats=stats)
+    t0 = time.perf_counter()
+    with SolveSpy() as spy:
+        cli.main(["solve", str(pro), str(npz),
+                  "--mesh-size", repr(cfg.maximum_size),
+                  "--variable-size-maximum-factor",
+                  repr(cfg.variable_size_maximum_factor)])
     launches = launch_counts()
+    t_cli = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats, sol = spy.stats, spy.solution
+    check(sol is not None and npz.exists(), "`solve` wrote no artifact")
     info = sol.solver_info
-    print(f"[slice] route={stats['route']} n={stats['n']} m={stats['m']} "
+    print(f"[cli solve] route={stats['route']} n={stats['n']} m={stats['m']} "
           f"levels={stats['levels']} load={t_load:.2f}s "
           f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
           f"setup={stats['setup_s']:.2f}s solve={stats['solve_s']:.2f}s "
@@ -703,7 +890,20 @@ def dia_phases(args, tmp: pathlib.Path):
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check_fields(sol, stats["n"])
-    del sol
+    times = cli_exports(sol, npz, tmp)
+    print(f"[cli] solve {t_cli:.2f} s in all (artifact "
+          f"{npz.stat().st_size / 1e6:.1f} MB); "
+          + ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in times.items()),
+          flush=True)
+    print(json.dumps({"phase": "cli", "route": stats["route"],
+                      "n": stats["n"], "m": stats["m"],
+                      "residual_norm": info.residual_norm,
+                      "cg_iterations": info.cg_iterations,
+                      "refinement_passes": info.refinement_steps + 1,
+                      "launches": launches, "peak_device_memory_gb": peak_gb,
+                      "cli_solve_s": t_cli, "setup_s": stats["setup_s"],
+                      "solve_s": stats["solve_s"], **times}), flush=True)
+    del sol, spy
 
     prob, cfg = bench_problem(tmp / "scipy", args.scipy_dof)
     stats2 = {}
@@ -782,6 +982,7 @@ def ell_phases(args, tmp: pathlib.Path):
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check(dv <= 1e-6, f"ELL max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
     check_fields(sol, stats["n"])
+    sweep = sweep_phase(prob, cfg, sol, timed)
     del sol
 
     gen = boardgen()
@@ -803,7 +1004,186 @@ def ell_phases(args, tmp: pathlib.Path):
         if name == "gen_floating_island":
             check(disconnected == 1, "the floating island did not reach "
                                      "the display meshes")
-    return k3, launches
+    return k3, launches, sweep
+
+
+SWEEP_SPECS = [(s, src) for s in (0.5, 1.0, 2.0, 4.0)
+               for src in (1.0, 2.0, 3.3)]
+
+
+def sweep_phase(prob, cfg, single, timed: dict) -> dict:
+    """Phase 11: the design sweep on the ELL phase's board.  single: the
+    Solution of phase 8's single solve; timed: the K3' shapes that phase
+    7 held against the plain version.  Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from padne_tpu_torch import sweep
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with K3Shapes() as shapes:
+        results = sweep.solve_sweep(
+            prob, [sweep.SweepSpec(*x) for x in SWEEP_SPECS],
+            mesher_config=cfg, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n, m = stats["n"], stats["m"]
+    print(f"[sweep] n={n} m={m} p={stats['p']} specs={len(results)} "
+          f"cg_iterations={stats['cg_iterations']} "
+          f"cg_residual_norms={[f'{x:.2e}' for x in stats['cg_residual_norms']]} "
+          f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
+          f"setup={stats['setup_s']:.2f}s multi_rhs_cg={stats['cg_s']:.3f}s "
+          f"recoveries={stats['recover_s']:.3f}s wall={wall:.2f}s "
+          f"peak_device_memory={peak_gb:.3f} GB launches={launches}",
+          flush=True)
+    check(launches["ell_spmv"] > 0 and launches["dia_sell"]
+          == launches["comp_sell"] == 0,
+          "the sweep did not run on K3' alone")
+    check(sum(shapes.values()) == launches["ell_spmv"],
+          "the per-shape launches of K3' do not add up to its count")
+    by_shape = {}
+    for key, count in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        n_, nx_, r_, kind, form = key
+        by_shape[f"n={n_} nx={nx_} R={r_} {kind} {form}"] = count
+        print(f"[K3' launches] n={n_} nx={nx_} R={r_} {kind} {form}: "
+              f"{count} in the sweep"
+              + (f" (timed above as {timed[key]})" if key in timed else ""),
+              flush=True)
+    check(all(key[3] == "float64" for key in shapes),
+          "the sweep launched K3' in another type than f64")
+    missing = sorted(set(shapes) - set(timed))
+    check(not missing, f"the sweep launched K3' at shapes that were not "
+                       f"held against the plain version: {missing}")
+    check(shapes[(n, n, 1, "float64", "residual")] == len(results),
+          "the sweep did not take one fused residual launch per spec")
+
+    # Each spec against its own right-hand side's norm: the sources
+    # scale with the spec's source scale.
+    rhs_norm = float(np.sqrt(stats["rhs_core_norm"] ** 2
+                             + stats["rhs_border_norm"] ** 2))
+    worst = 0.0
+    for r in results:
+        rel = r.residual_norm / (r.spec.source_scale * rhs_norm)
+        worst = max(worst, rel)
+        print(f"[sweep spec] conductance x{r.spec.conductance_scale} source "
+              f"x{r.spec.source_scale}: residual {r.residual_norm:.3e} "
+              f"({rel:.3e} of its right-hand side) span "
+              f"{r.v.max() - r.v.min():.6f} V", flush=True)
+        check(np.isfinite(r.v).all() and r.v.shape == (n,)
+              and r.j.shape == (m,), "a spec's result is malformed")
+        check(rel < 1e-8, f"spec {r.spec}: residual {rel:.3e} of its "
+                          "right-hand side misses 1e-8")
+
+    by_spec = {(r.spec.conductance_scale, r.spec.source_scale): r.v
+               for r in results}
+    v_single = np.concatenate([p.values for ls in single.layer_solutions
+                               for p in ls.potentials])
+    dv = float(np.abs(by_spec[(1.0, 1.0)][:len(v_single)] - v_single).max())
+    check(dv <= 1e-6, f"spec (1, 1) is {dv:.3e} V from the single solve")
+    # Linear in the sources: v(s, k src) = k v(s, src).
+    lin = max(float(np.abs(by_spec[(s, k)] - k * by_spec[(s, 1.0)]).max())
+              for s in (0.5, 1.0, 2.0, 4.0) for k in (2.0, 3.3))
+    # v(s) = v_V + v_I / s: the voltage-driven part does not depend on
+    # the conductance scale, the current-driven drop goes with 1 / s.
+    d1 = by_spec[(0.5, 1.0)] - by_spec[(1.0, 1.0)]     # v_I
+    d2 = by_spec[(1.0, 1.0)] - by_spec[(2.0, 1.0)]     # v_I / 2
+    d3 = by_spec[(2.0, 1.0)] - by_spec[(4.0, 1.0)]     # v_I / 4
+    law = max(float(np.abs(d1 - 2 * d2).max()),
+              float(np.abs(d1 - 4 * d3).max()))
+    print(f"[sweep] spec (1, 1) vs the single solve: max|dV|={dv:.3e} V; "
+          f"source linearity {lin:.3e} V; v_V + v_I/s law {law:.3e} V "
+          f"(current-driven drop {float(np.abs(d1).max()):.3e} V at s=1)",
+          flush=True)
+    check(lin <= 1e-8 and law <= 1e-8, "the sweep breaks its scaling laws")
+    check(float(np.abs(d1).max()) > 1e-4, "the board has no current-driven "
+                                          "drop to test the law on")
+    out = {"phase": "sweep", "launches": launches, "n": n, "m": m,
+           "specs": len(results),
+           "cg_iterations": stats["cg_iterations"],
+           "cg_residual_norms": stats["cg_residual_norms"],
+           "k3_f64_launches": launches["ell_spmv"],
+           "k3_launches_by_shape": by_shape,
+           "worst_relative_residual": worst, "max_dv_vs_single_solve": dv,
+           "mesh_assemble_s": stats["mesh_assemble_s"],
+           "setup_s": stats["setup_s"], "multi_rhs_cg_s": stats["cg_s"],
+           "recoveries_s": stats["recover_s"], "wall_s": wall,
+           "peak_device_memory_gb": peak_gb}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def fragmented_phase(args) -> dict:
+    """Phase 10: more than 63 copper components on the DIA route."""
+    import torch
+
+    from padne_tpu_torch import solver
+    from padne_tpu_torch.ops import schur
+
+    t0 = time.perf_counter()
+    prob, cfg = fragmented_problem(args.frag_dof)
+    system = solver.build_system(prob, cfg)[0]
+    n, m, p = system.n, system.border.m, system.num_components
+    print(f"[fragmented] n={n} m={m} components={p} built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(p >= 100 and p + 1 > 64, f"only {p} copper components")
+    s = schur.DiaBorderedSolver(system, device=DEV)
+    op, cyc = s.op_params, s.cycle_params
+    r = m + 1
+    k1 = [k1_case("fragmented l0 CG operator", op, r, 11),
+          k1_case("fragmented l0 CG operator", op, 1, 12),
+          k1_case("fragmented l0 cycle operator", cyc[0], r, 13),
+          k1_case("fragmented l1 cycle operator", cyc[1], r, 14)]
+    k2 = k2_case(op, 15)
+    del s, op, cyc, system
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = {}
+    sol = solver.solve(prob, mesher_config=cfg, check_against_scipy=True,
+                       stats=stats)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    info = sol.solver_info
+    dv = stats["scipy_max_dv"]
+    print(f"[fragmented] route={stats['route']} n={stats['n']} "
+          f"m={stats['m']} components={p} levels={stats['levels']} "
+          f"mesh+assemble={stats['mesh_assemble_s']:.2f}s "
+          f"setup={stats['setup_s']:.2f}s solve={stats['solve_s']:.2f}s "
+          f"cg_iterations={info.cg_iterations} "
+          f"refinement_passes={info.refinement_steps + 1} "
+          f"residual_norm={info.residual_norm:.3e} "
+          f"max|dV| vs spsolve={dv:.3e} V "
+          f"peak_device_memory={peak_gb:.3f} GB launches={launches}",
+          flush=True)
+    check(stats["route"] == "dia", f"route {stats['route']} is not dia")
+    check(stats["n"] >= MIN_FRAG_N, f"n={stats['n']} is under {MIN_FRAG_N}")
+    for k in ("dia_sell", "comp_sell"):
+        check(launches[k] > 0, f"the fragmented solve never launched {k}")
+    check(launches["ell_spmv"] == 0, "the DIA route launched K3'")
+    check(info.residual_norm < 1e-9,
+          f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
+    check(dv <= 1e-6, f"max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
+    pots = [pot.values for ls in sol.layer_solutions for pot in ls.potentials]
+    check(len(pots) == p and all(len(v) and (v == v).all() for v in pots),
+          "a tile has no finite potentials")
+    out = {"phase": "fragmented", "route": stats["route"], "n": stats["n"],
+           "m": stats["m"], "components": p, "levels": stats["levels"],
+           "residual_norm": info.residual_norm, "max_dv_vs_spsolve": dv,
+           "cg_iterations": info.cg_iterations,
+           "refinement_passes": info.refinement_steps + 1,
+           "launches": launches, "setup_s": stats["setup_s"],
+           "solve_s": stats["solve_s"], "peak_device_memory_gb": peak_gb,
+           "k1_ms_at_r": {"r": r, "l0_cg": k1[0]["ms"],
+                          "l0_cycle": k1[2]["ms"], "l1_cycle": k1[3]["ms"]},
+           "k2_ms": k2["ms"]}
+    print(json.dumps(out), flush=True)
+    return {"k1": k1, "k2": k2, "launches": launches}
 
 
 def main() -> int:
@@ -811,6 +1191,7 @@ def main() -> int:
     ap.add_argument("--dof", type=int, default=1_000_000)
     ap.add_argument("--scipy-dof", type=int, default=200_000)
     ap.add_argument("--ell-dof", type=int, default=140_000)
+    ap.add_argument("--frag-dof", type=int, default=200_000)
     args = ap.parse_args()
 
     import torch
@@ -842,11 +1223,20 @@ def main() -> int:
                                      dir=REPO) as tmp:
         k1, k2, dia_launches = dia_phases(args, pathlib.Path(tmp))
         torch.cuda.empty_cache()
-        k3, ell_launches = ell_phases(args, pathlib.Path(tmp))
+        k3, ell_launches, sweep = ell_phases(args, pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+        frag = fragmented_phase(args)
 
     def entry(name, source, replaces, launches, cases, main_case):
+        # launches: on the first main path that runs the kernel (the cli
+        # solve for K1' and K2', the ELL solve for K3'); launches_by_path:
+        # on every path, each counted from 0.
+        by_path = {"cli": dia_launches[name], "ell": ell_launches[name],
+                   "fragmented": frag["launches"][name],
+                   "sweep": sweep["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path,
                 "max_abs_err": max(c["abs_err"] for c in cases),
                 **{key: main_case[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
@@ -854,11 +1244,11 @@ def main() -> int:
 
     kernels_line = {"kernels": [
         entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",
-              "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"], k1,
-              k1[0]),
+              "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"],
+              k1 + frag["k1"], k1[0]),
         entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
-              "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"], [k2],
-              k2),
+              "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"],
+              [k2, frag["k2"]], k2),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "
               "padne_tpu/ops/spmv_pallas.py:172",

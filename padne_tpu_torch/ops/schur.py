@@ -22,9 +22,13 @@ others, and systems too small for a DIA hierarchy, take the generic
 ELL route (ELL AMG + `cg.make_pcg`, every SpMV through K3', f32 inner
 solves with f64 residuals and an escalation to f64 on a stall).
 
+The DIA route keeps its one (R, n) layout at any number of copper
+components: up to 63 the CG projects with a dense one-hot, beyond that
+with the segment-sum projector of ops.cg (index_add_ and a gather), so
+heavily fragmented boards run the same kernels and the same ladder.
+
 Out of scope here (raises NotImplementedError, never falls back):
-DIA solves with more than 63 deflation components, and multi-device
-row sharding.
+multi-device row sharding.
 """
 
 from __future__ import annotations
@@ -214,11 +218,6 @@ class DiaBorderedSolver:
             raise _NoDiaHierarchy(
                 f"n={n} is too small for a DIA hierarchy at "
                 f"coarse_size={coarse_size}")
-        if p + 1 > 64:
-            raise NotImplementedError(
-                f"{p} deflation components: the DIA route's (R, n) PCG "
-                "projects with a dense one-hot of at most 64 columns (the "
-                "normal-layout DIA branch is not ported)")
         self.hierarchy = hierarchy
         meta0 = hierarchy.levels[0].pack.meta
 

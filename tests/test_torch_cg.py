@@ -85,6 +85,32 @@ def test_projector_layouts(p):
     assert float(sums.abs().max()) <= 1e-12
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [65, 300])
+def test_segment_sum_projector_t(p, dtype):
+    """Beyond 64 components the projector is a segment sum in either
+    layout: (R, N) against (N, R) transposed, and both against the
+    per-component means by numpy.  The last component is empty, as the
+    DIA route's dummy padding component is when the padded size equals
+    n.  Tolerance: 1e-13 in f64, 1e-5 in f32 (sums in another order)."""
+    rng = np.random.default_rng(p)
+    ids = rng.integers(0, p - 1, 2000)
+    comp_id = torch.from_numpy(ids)
+    x = rng.standard_normal((2000, 5))
+    xt = torch.from_numpy(x).to(dtype)
+    y0 = cg.make_projector(comp_id, p)(xt)
+    y1 = cg.make_projector(comp_id, p, dim=1)(xt.T.contiguous())
+    assert y1.shape == (5, 2000) and y1.dtype == dtype
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(y1.T.numpy(), y0.numpy(), rtol=0, atol=tol)
+    sums = np.zeros((p, 5))
+    np.add.at(sums, ids, x)
+    counts = np.maximum(np.bincount(ids, minlength=p), 1)
+    want = x - (sums / counts[:, None])[ids]
+    np.testing.assert_allclose(y1.T.double().numpy(), want, rtol=0, atol=tol)
+    assert torch.isfinite(y1).all()
+
+
 def _grid_islands(p, side, seed):
     """p disjoint side x side triangulated grids (p components)."""
     idx = np.arange(side * side).reshape(side, side)

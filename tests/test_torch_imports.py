@@ -1,6 +1,7 @@
-"""The port never imports jax (the CUDA machine has none), lxml, or any
-module of the JAX package padne_tpu (it keeps its own copies of the
-jax-free host modules)."""
+"""The port never imports jax (the CUDA machine has none), lxml or
+matplotlib (neither is installed there), or any module of the JAX
+package padne_tpu (it keeps its own copies of the jax-free host
+modules)."""
 
 import pathlib
 import subprocess
@@ -11,8 +12,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # Exact names: padne_tpu_torch shares the prefix of padne_tpu.
 _FORBIDDEN = (
-    "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'lxml')\n"
-    "             or m == 'padne_tpu' or m.startswith('padne_tpu.'))\n"
+    "bad = sorted(m for m in sys.modules\n"
+    "             if m.split('.')[0] in ('jax', 'jaxlib', 'lxml',\n"
+    "                                    'matplotlib', 'padne_tpu'))\n"
     "assert not bad, bad\n"
 )
 
@@ -27,12 +29,59 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "padne_tpu_torch.ops.dia" in mods and len(mods) >= 24
+    assert "padne_tpu_torch.ops.dia" in mods and len(mods) >= 33
+    for name in ("cli", "__main__", "io", "io.solution", "io.paraview",
+                 "io.htmlview", "spatial", "validate", "sweep"):
+        assert f"padne_tpu_torch.{name}" in mods
     assert "padne_tpu_torch.kicad" in mods and "padne_tpu_torch.native" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"{_FORBIDDEN}"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_user_path_runs_without_jax(tmp_path):
+    """solve, info, paraview, html and a sweep in one process: nothing
+    on the user path pulls in a forbidden module at run time either."""
+    code = (
+        "import pathlib, sys, warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from tests import boardgen\n"
+        "from padne_tpu_torch import cli, kicad, sweep\n"
+        f"tmp = pathlib.Path({str(tmp_path)!r})\n"
+        "boardgen.gen_strip(tmp)\n"
+        "pro = tmp / 'gen_strip' / 'gen_strip.kicad_pro'\n"
+        "out = str(tmp / 'o.npz')\n"
+        "cli.main(['solve', str(pro), out, '--device', 'cpu'])\n"
+        "cli.main(['info', out])\n"
+        "cli.main(['paraview', out, str(tmp / 'pv')])\n"
+        "cli.main(['html', out, str(tmp / 'v.html')])\n"
+        "r = sweep.solve_sweep(kicad.load_kicad_project(pro),\n"
+        "                      [sweep.SweepSpec(2.0, 3.3)], device='cpu')\n"
+        "assert r[0].residual_norm < 1e-8\n"
+        f"{_FORBIDDEN}"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_and_io_import_lightly():
+    """The parser and the io package come up without torch, scipy or the
+    exporters: `--help` and `info` stay quick."""
+    code = (
+        "import sys\n"
+        "import padne_tpu_torch.io, padne_tpu_torch.cli\n"
+        "padne_tpu_torch.cli.parse_args(['info', 'x.npz'])\n"
+        "heavy = sorted(m for m in sys.modules\n"
+        "               if m.split('.')[0] in ('torch', 'scipy')\n"
+        "               or m.startswith('padne_tpu_torch.io.'))\n"
+        "assert not heavy, heavy\n"
         f"{_FORBIDDEN}"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -6,7 +6,7 @@ NVIDIA GPU.
 Run from the repository root:
 
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
-                          [--trace out.json] [--tree DIR]
+                          [--trace out.json] [--tree DIR] [--sweep]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -22,6 +22,16 @@ events (kernels and copies) of the solve proper in all and per CG
 iteration, the peak device memory (set-up included), the time and calls
 of each hand-written kernel (by its name in csrc/), and the solve's
 device events by total time (calls, ms, share).
+
+--sweep traces the design sweep instead (padne_tpu_torch.sweep.
+solve_sweep with chip_smoke.py's 12 specs on the same board, whatever
+its size: the sweep always runs the ELL operator in float64): one sweep
+first, --warm untraced, one under the profiler.  Printed per sweep: the
+wall times of meshing and assembly, of the set-up (hierarchy and
+uploads), of the one multi-RHS CG and of the 12 recoveries, and the CG's
+iterations; for the traced one the summed device time of kernels and
+copies over the whole call, the kernels' share of the wall time after
+assembly, K3''s time and calls, and the peak device memory.
 
 --tree names a directory holding another version of padne_tpu_torch (an
 unpacked earlier commit) to trace instead of this repository's, so that
@@ -41,6 +51,82 @@ REPO = pathlib.Path(__file__).resolve().parent
 OWN_KERNELS = ("dia_sell_kernel", "comp_sell_kernel", "ell_sell_kernel")
 
 
+def device_ms(prof):
+    """(ms of kernels, ms of copies, ms and calls by kernel name) of a
+    profile's device-side events."""
+    import torch
+
+    kernels = copies = 0.0
+    ms_by_name, calls = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += ms
+        else:
+            kernels += ms
+            ms_by_name[e.name] += ms
+            calls[e.name] += 1
+    return kernels, copies, ms_by_name, calls
+
+
+def trace_sweep(args, prob, cfg, specs) -> int:
+    """The --sweep mode: see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from padne_tpu_torch import sweep
+
+    def run():
+        stats = {}
+        t0 = time.perf_counter()
+        results = sweep.solve_sweep(
+            prob, [sweep.SweepSpec(*x) for x in specs], mesher_config=cfg,
+            stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst = max(r.residual_norm for r in results)
+        print(f"[sweep] n={stats['n']} specs={len(results)} wall={wall:.3f}s "
+              f"mesh+assemble={stats['mesh_assemble_s']:.3f}s "
+              f"setup={stats['setup_s']:.3f}s "
+              f"multi_rhs_cg={stats['cg_s'] * 1e3:.1f}ms "
+              f"recoveries={stats['recover_s'] * 1e3:.1f}ms "
+              f"cg_iterations={stats['cg_iterations']} "
+              f"worst_residual_norm={worst:.3e}", flush=True)
+        return wall, stats
+
+    run()
+    for _ in range(args.warm):
+        run()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, stats = run()
+    kernels, copies, ms_by_name, calls = device_ms(prof)
+    device_wall = wall - stats["mesh_assemble_s"]
+    print(f"[trace] sweep n={stats['n']} wall after assembly "
+          f"{device_wall * 1e3:.1f}ms kernel_sum={kernels:.1f}ms "
+          f"copy_sum={copies:.1f}ms busy_share="
+          f"{kernels / (device_wall * 1e3):.3f} device_events="
+          f"{sum(calls.values())} peak_device_memory="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}GB")
+    for own in OWN_KERNELS:
+        names = [k for k in ms_by_name if own in k]
+        if names:
+            ms = sum(ms_by_name[k] for k in names)
+            count = sum(calls[k] for k in names)
+            print(f"[trace] {own}: {ms:.3f} ms over {count} calls "
+                  f"({ms / count * 1e3:.2f} us a call)")
+    total = sum(ms_by_name.values())
+    for name, ms in ms_by_name.most_common(args.top):
+        print(f"  {ms:9.3f} ms {ms / total:6.1%} {calls[name]:6d} calls  "
+              f"{name[:90]}")
+    if args.trace:
+        prof.export_chrome_trace(str(args.trace))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dof", type=int, default=140_000)
@@ -50,6 +136,8 @@ def main() -> int:
     ap.add_argument("--trace", type=pathlib.Path, default=None,
                     help="also write a Chrome trace here")
     ap.add_argument("--tree", type=pathlib.Path, default=REPO)
+    ap.add_argument("--sweep", action="store_true",
+                    help="trace the 12-spec design sweep, not one solve")
     args = ap.parse_args()
 
     import torch
@@ -70,6 +158,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         prob, cfg = chip_smoke.bench_problem(pathlib.Path(tmp), args.dof)
+        if args.sweep:
+            return trace_sweep(args, prob, cfg, chip_smoke.SWEEP_SPECS)
         system = solver.build_system(prob, cfg)[0]
 
     class Stats(dict):
