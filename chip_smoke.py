@@ -12,29 +12,32 @@ Phases (any failure exits non-zero; there is no CPU path):
 2. build of the CUDA kernels from padne_tpu_torch/csrc, timed;
 3. kernel K1' (sliced-ELL SpMV) against its plain PyTorch version on
    the card, on the operators of the DIA route's own set-up of the bench
-   board at --dof: the level-0 f32 CG operator at R = 4 and 1, the
-   level-0 bf16 cycle operator at R = 1 and 4, the level-1 bf16 cycle
-   operator at R = 4 and the coarsest level's at R = 1 (random x: the
-   kernel instantiations and launch shapes the solve runs); max relative
+   board at --dof: the level-0 f32 CG operator and every sparse level's
+   bf16 cycle operator, each at R = m + 1 (the first solve) and at R = 1
+   (the refinement passes): random x at every launch shape, and so
+   every kernel instantiation, of the solve; max relative
    error (bound 1e-5 of max|y|: f32 sums in another order) and ms per
    call of each, by CUDA events, and the peak device memory of the DIA
    set-up;
 4. kernel K2' (compensated residual) on the level-0 hi and lo values
    against its f64 plain version, bound 2e-13 * max(|A| |x|), and both
-   times;
+   times, by CUDA events and by graph replay;
 5. the user path on the DIA route ("cli"): padne_tpu_torch.cli.main
    (["solve", project, artifact, mesher flags]) in this process, with no
    --device (so: the card), on the generated 4-layer bench board at
    --dof (sized as bench.py sizes it), with the kernels' launch counters
    reset just before and read just after: K1' and K2' must be > 0, the
    route "dia", and the full-system residual must meet the repo's 1e-9
-   gate; the peak device memory of the solve (set-up included) is
+   gate; the launches of K1' and K2' in that solve are printed per
+   shape (rows, value type, R), and a shape that phases 3 and 4 did not
+   hold against the plain version fails the run; the peak device memory of the solve (set-up included) is
    printed; then `info`, `paraview` and `html` on the artifact: the
    reloaded potentials equal the solved ones bit for bit, every layer's
    VTU file and the HTML page exist and parse;
 6. a second DIA solve at --scipy-dof with the potentials held against
    scipy.sparse.linalg.spsolve on the same bordered system (max |dV|
-   <= 1e-6 V);
+   <= 1e-6 V), its operators' K1' and K2' shapes held and checked as in
+   phases 3 to 5;
 7. kernel K3' (sliced-ELL SpMV with fused epilogues) against its plain
    version on the ELL phase's board: every level of its AMG hierarchy in
    every form, type and width the solve launches (the four sparse lines
@@ -63,11 +66,11 @@ Phases (any failure exits non-zero; there is no CPU path):
    12 x 12 separate tiles and a rail, every tile held against the rail
    by its own voltage source and loaded by its own current source, at
    --frag-dof: more than 63 copper components on the DIA route (the
-   segment-sum projector in the (R, N) layout).  K1' on its operators
-   at R = m + 1 (level-0 CG operator, level-0 and level-1 cycle
-   operators) and K2' against their plain versions; then the solve with
-   counters reset: route "dia", residual < 1e-9, max |dV| vs spsolve
-   <= 1e-6 V, K1' and K2' > 0;
+   segment-sum projector in the (R, N) layout).  K1' on its CG operator
+   and on every sparse level of its cycle, at R = m + 1 and at R = 1,
+   and K2' against their plain versions; then the solve with counters
+   reset: route "dia", residual < 1e-9, max |dV| vs spsolve <= 1e-6 V,
+   K1' and K2' > 0, and no launched shape that was not held;
 11. a design sweep ("sweep"): padne_tpu_torch.sweep.solve_sweep on the
    ELL phase's board with 12 specs (conductance scale 0.5, 1, 2, 4 x
    source scale 1, 2, 3.3): one float64 multi-RHS CG for all of them,
@@ -288,6 +291,18 @@ def graph_note(g_ms, bound_ms, g_lib, library_ms) -> str:
     return target_note(g_ms, bound_ms, g_lib)
 
 
+def k1_key(params, xt) -> tuple:
+    """What tells one K1' launch shape from another: the rows, the type
+    of the stored offset values and the width, which together pick the
+    kernel's instantiation and its grid."""
+    return ("K1'", params["perm"].numel(),
+            str(params["a_val"].dtype).removeprefix("torch."), xt.shape[0])
+
+
+def k2_key(params, x) -> tuple:
+    return ("K2'", params["perm"].numel())
+
+
 def k1_case(name, params, r, seed, graph=False):
     """K1' vs its plain version and cuSPARSE on one operator of the main
     path (random x).  graph: also time both by CUDA-graph replay."""
@@ -338,7 +353,8 @@ def k1_case(name, params, r, seed, graph=False):
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
     check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
                        f"({rel:.3e})")
-    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+    return {"key": k1_key(params, xt), "name": f"{name} R={r}",
+            "abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
 
@@ -374,6 +390,13 @@ def k2_case(params, seed):
     csr_bound_ms = csr_bytes(csr, x64, 1) / HBM_BPS * 1e3
     check(lib_err <= tol, "the CSR yardstick of K2' computes another "
                           "function")
+    # A call this short is timed by events at the host's launch rate:
+    # graph replay reads the card's own time.
+    g_ms = graph_ms(lambda: comp.comp_sell(params, x))
+    g_lib = graph_ms(lambda: torch.sparse.mm(csr, x64), library=True)
+    print(f"[K2' l0 CG operator] np={np_} by CUDA-graph replay: kernel "
+          f"{fmt_ms(g_ms)}, library(csr f64) {fmt_ms(g_lib)}; "
+          f"{graph_note(g_ms, bound_ms, g_lib, library_ms)}", flush=True)
     del csr
     torch.cuda.empty_cache()
     print(f"[K2' l0 CG operator] np={np_} f32 hi+lo -> f64: "
@@ -385,9 +408,31 @@ def k2_case(params, seed):
           f"library(csr f64) {library_ms:.4f} ms; "
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
     check(abs_err <= tol, "K2' disagrees with its f64 plain version")
-    return {"abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+    return {"key": k2_key(params, x), "name": "l0 CG operator",
+            "abs_err": abs_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
+
+
+def dia_cases(s, label: str, seed: int, graph=False):
+    """K1' and K2' on every operator a set-up DiaBorderedSolver `s`
+    launches them on, at both widths its solve has: the CG operator
+    (f32) and each sparse level of the cycle, at R = m + 1 (the first
+    solve, border columns and right-hand side together) and at R = 1
+    (the refinement passes), and K2' on the CG operator.  graph: also
+    time the coarsest level at R 1 by graph replay.  Returns (K1' cases,
+    K2' case); the CG operator at R = m + 1 comes first."""
+    r = s.m + 1
+    op, cyc = s.op_params, s.cycle_params   # cyc[-1]: the coarse inverse
+    last = len(cyc) - 2
+    k1 = [k1_case(f"{label}l0 CG operator", op, r, seed),
+          k1_case(f"{label}l0 CG operator", op, 1, seed + 1)]
+    for i, level in enumerate(cyc[:-1]):
+        for width in (r, 1):
+            k1.append(k1_case(f"{label}l{i} cycle operator", level, width,
+                              seed + 2 + 2 * i + (width == 1),
+                              graph=graph and i == last and width == 1))
+    return k1, k2_case(op, seed + 2 * len(cyc))
 
 
 def dia_kernel_cases(system):
@@ -404,16 +449,8 @@ def dia_kernel_cases(system):
     print(f"[kernels] DIA set-up of the main path's operators "
           f"{time.perf_counter() - t0:.2f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
-    op, cyc = s.op_params, s.cycle_params   # cyc[-1]: the coarse inverse
-    k1 = [k1_case("l0 CG operator", op, 4, 2),
-          k1_case("l0 CG operator", op, 1, 1),
-          k1_case("l0 cycle operator", cyc[0], 1, 3),
-          k1_case("l0 cycle operator", cyc[0], 4, 6),
-          k1_case("l1 cycle operator", cyc[1], 4, 4),
-          k1_case(f"l{len(cyc) - 2} cycle operator", cyc[-2], 1, 7,
-                  graph=True)]
-    k2 = k2_case(op, 5)
-    del s, op, cyc
+    k1, k2 = dia_cases(s, "", 1, graph=True)
+    del s
     torch.cuda.empty_cache()
     return k1, k2
 
@@ -745,6 +782,65 @@ class K3Shapes:
         spmv._launch = self.real
 
 
+class DiaShapes:
+    """Counts K1''s and K2''s launches by shape while it is entered, by
+    standing in for the launch functions of ops.dia and ops.comp (the
+    wrappers' own counts are untouched)."""
+
+    def __init__(self):
+        import collections
+
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        from padne_tpu_torch.ops import comp, dia
+
+        self.real = dia._launch, comp._launch
+
+        def k1(params, xt):
+            self.counts[k1_key(params, xt)] += 1
+            return self.real[0](params, xt)
+
+        def k2(params, x):
+            self.counts[k2_key(params, x)] += 1
+            return self.real[1](params, x)
+
+        dia._launch, comp._launch = k1, k2
+        return self.counts
+
+    def __exit__(self, *exc):
+        from padne_tpu_torch.ops import comp, dia
+
+        dia._launch, comp._launch = self.real
+
+
+def check_dia_held(path: str, shapes, launches: dict, k1, k2) -> dict:
+    """Fails if the solve of `path` launched K1' or K2' at a shape that
+    no case of `k1` + [`k2`] held against the plain version, or if the
+    per-shape launches do not add up to the wrappers' counts.  Prints
+    and returns the launches by shape."""
+    held = {c["key"]: c["name"] for c in k1 + [k2]}
+    by_kernel = {"K1'": "dia_sell", "K2'": "comp_sell"}
+    for kernel, name in by_kernel.items():
+        check(sum(v for k, v in shapes.items() if k[0] == kernel)
+              == launches[name],
+              f"{path}: the per-shape launches of {kernel} do not add up "
+              "to its count")
+    by_shape = {}
+    for key, count in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        text = (f"np={key[1]} {key[2]} R={key[3]}" if key[0] == "K1'"
+                else f"np={key[1]}")
+        by_shape[f"{key[0]} {text}"] = count
+        print(f"[{key[0]} launches] {text}: {count} in the {path} solve"
+              + (f" (held above as {held[key]})" if key in held else ""),
+              flush=True)
+    missing = sorted(set(shapes) - set(held))
+    check(not missing, f"the {path} solve launched DIA kernels at shapes "
+                       f"that were not held against the plain version: "
+                       f"{missing}")
+    return by_shape
+
+
 def launch_counts() -> dict:
     from padne_tpu_torch.ops import comp, dia, spmv
 
@@ -845,11 +941,12 @@ def cli_exports(sol, npz: pathlib.Path, tmp: pathlib.Path) -> dict:
 def dia_phases(args, tmp: pathlib.Path):
     """K1' and K2' on the DIA route's operators at --dof, the user path
     through the command-line interface at --dof, then the scipy check at
-    --scipy-dof.  Returns (K1' cases, K2' case, the main solve's launch
-    counts)."""
+    --scipy-dof, each solve's launched shapes held against the cases.
+    Returns (K1' cases, K2' cases, the main solve's launch counts)."""
     import torch
 
     from padne_tpu_torch import cli, solver
+    from padne_tpu_torch.ops import schur
 
     t0 = time.perf_counter()
     prob, cfg = bench_problem(tmp, args.dof)
@@ -863,7 +960,7 @@ def dia_phases(args, tmp: pathlib.Path):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with SolveSpy() as spy:
+    with SolveSpy() as spy, DiaShapes() as shapes:
         cli.main(["solve", str(pro), str(npz),
                   "--mesh-size", repr(cfg.maximum_size),
                   "--variable-size-maximum-factor",
@@ -887,6 +984,7 @@ def dia_phases(args, tmp: pathlib.Path):
     check(stats["route"] == "dia", f"route {stats['route']} is not dia")
     for k in ("dia_sell", "comp_sell"):
         check(launches[k] > 0, f"the slice never launched {k}")
+    by_shape = check_dia_held("cli", shapes, launches, k1, k2)
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check_fields(sol, stats["n"])
@@ -900,15 +998,24 @@ def dia_phases(args, tmp: pathlib.Path):
                       "residual_norm": info.residual_norm,
                       "cg_iterations": info.cg_iterations,
                       "refinement_passes": info.refinement_steps + 1,
-                      "launches": launches, "peak_device_memory_gb": peak_gb,
+                      "launches": launches, "launches_by_shape": by_shape,
+                      "peak_device_memory_gb": peak_gb,
                       "cli_solve_s": t_cli, "setup_s": stats["setup_s"],
                       "solve_s": stats["solve_s"], **times}), flush=True)
     del sol, spy
 
     prob, cfg = bench_problem(tmp / "scipy", args.scipy_dof)
+    s = schur.DiaBorderedSolver(solver.build_system(prob, cfg)[0],
+                                device=DEV)
+    k1s, k2s = dia_cases(s, "scipy-check ", 21)
+    del s
+    torch.cuda.empty_cache()
+    reset_counts()
     stats2 = {}
-    sol = solver.solve(prob, mesher_config=cfg, check_against_scipy=True,
-                       stats=stats2)
+    with DiaShapes() as shapes:
+        sol = solver.solve(prob, mesher_config=cfg,
+                           check_against_scipy=True, stats=stats2)
+    check_dia_held("scipy-check", shapes, launch_counts(), k1s, k2s)
     dv = stats2["scipy_max_dv"]
     print(f"[scipy] route={stats2['route']} n={stats2['n']} "
           f"solve={stats2['solve_s']:.2f}s "
@@ -920,7 +1027,7 @@ def dia_phases(args, tmp: pathlib.Path):
     check_fields(sol, stats2["n"])
     check(sol.solver_info.residual_norm < 1e-9,
           "scipy-check solve misses the 1e-9 gate")
-    return k1, k2, launches
+    return k1 + k1s, [k2, k2s], launches
 
 
 def ell_phases(args, tmp: pathlib.Path):
@@ -1132,21 +1239,16 @@ def fragmented_phase(args) -> dict:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     check(p >= 100 and p + 1 > 64, f"only {p} copper components")
     s = schur.DiaBorderedSolver(system, device=DEV)
-    op, cyc = s.op_params, s.cycle_params
-    r = m + 1
-    k1 = [k1_case("fragmented l0 CG operator", op, r, 11),
-          k1_case("fragmented l0 CG operator", op, 1, 12),
-          k1_case("fragmented l0 cycle operator", cyc[0], r, 13),
-          k1_case("fragmented l1 cycle operator", cyc[1], r, 14)]
-    k2 = k2_case(op, 15)
-    del s, op, cyc, system
+    k1, k2 = dia_cases(s, "fragmented ", 11)
+    del s, system
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     stats = {}
-    sol = solver.solve(prob, mesher_config=cfg, check_against_scipy=True,
-                       stats=stats)
+    with DiaShapes() as shapes:
+        sol = solver.solve(prob, mesher_config=cfg,
+                           check_against_scipy=True, stats=stats)
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     info = sol.solver_info
@@ -1166,6 +1268,7 @@ def fragmented_phase(args) -> dict:
     for k in ("dia_sell", "comp_sell"):
         check(launches[k] > 0, f"the fragmented solve never launched {k}")
     check(launches["ell_spmv"] == 0, "the DIA route launched K3'")
+    by_shape = check_dia_held("fragmented", shapes, launches, k1, k2)
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check(dv <= 1e-6, f"max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
@@ -1177,11 +1280,12 @@ def fragmented_phase(args) -> dict:
            "residual_norm": info.residual_norm, "max_dv_vs_spsolve": dv,
            "cg_iterations": info.cg_iterations,
            "refinement_passes": info.refinement_steps + 1,
-           "launches": launches, "setup_s": stats["setup_s"],
+           "launches": launches, "launches_by_shape": by_shape,
+           "setup_s": stats["setup_s"],
            "solve_s": stats["solve_s"], "peak_device_memory_gb": peak_gb,
-           "k1_ms_at_r": {"r": r, "l0_cg": k1[0]["ms"],
-                          "l0_cycle": k1[2]["ms"], "l1_cycle": k1[3]["ms"]},
-           "k2_ms": k2["ms"]}
+           "k1_ms": {c["name"].removeprefix("fragmented "): c["ms"]
+                     for c in k1},
+           "k2_ms": k2["ms"], "k2_graph_ms": k2["graph_ms"]}
     print(json.dumps(out), flush=True)
     return {"k1": k1, "k2": k2, "launches": launches}
 
@@ -1248,7 +1352,7 @@ def main() -> int:
               k1 + frag["k1"], k1[0]),
         entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"],
-              [k2, frag["k2"]], k2),
+              k2 + [frag["k2"]], k2[0]),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "
               "padne_tpu/ops/spmv_pallas.py:172",

@@ -211,16 +211,10 @@ def do_html(args) -> None:
 def do_validate(args) -> int:
     from . import validate
 
-    argv = [str(args.measurement_set)]
-    if args.no_calibrate:
-        argv.append("--no-calibrate")
-    if args.fit_overetch:
-        argv.append("--fit-overetch")
-    if args.json:
-        argv.append("--json")
-    if args.device is not None:
-        argv += ["--device", args.device]
-    return validate.main(argv)
+    return validate.run(args.measurement_set,
+                        calibrate=not args.no_calibrate,
+                        fit_overetch=args.fit_overetch, as_json=args.json,
+                        device=args.device)
 
 
 @handle_errors

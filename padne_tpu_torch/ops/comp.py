@@ -40,17 +40,8 @@ def comp_sell_plain(params, x32) -> torch.Tensor:
     return y.addcmul_(params["diag64"], x64)
 
 
-def comp_sell(params, x32) -> torch.Tensor:
-    """Kernel K2' (csrc/dia_sell.cu) on CUDA tensors; the plain version
-    for CPU tensors.  params: the CG operator's sliced-ELL dict built
-    with `DiaPack.to_device(..., compensated=True)` (its index arrays and
-    f32 hi values, plus the lo-halves and the f64 diagonal)."""
-    for key in _COMP_KEYS:
-        if key not in params:
-            raise ValueError(f"the operator carries no {key}: build it "
-                             "with compensated=True")
-    if x32.device.type == "cpu":
-        return comp_sell_plain(params, x32)
+def _launch(params, x32) -> torch.Tensor:
+    """K2' on the card: checks operands, launches, returns y (f64)."""
     if x32.dtype != torch.float32 or x32.dim() != 1:
         raise ValueError(f"x must be an f32 vector, got {x32.dtype} "
                          f"{tuple(x32.shape)}")
@@ -67,6 +58,21 @@ def comp_sell(params, x32) -> torch.Tensor:
         params["diag64"].data_ptr(), x32.data_ptr(), x32.shape[0],
         y.data_ptr(), torch.cuda.current_stream(x32.device).cuda_stream)
     kernels.check_launch(rc, "comp_sell")
+    return y
+
+
+def comp_sell(params, x32) -> torch.Tensor:
+    """Kernel K2' (csrc/dia_sell.cu) on CUDA tensors; the plain version
+    for CPU tensors.  params: the CG operator's sliced-ELL dict built
+    with `DiaPack.to_device(..., compensated=True)` (its index arrays and
+    f32 hi values, plus the lo-halves and the f64 diagonal)."""
+    for key in _COMP_KEYS:
+        if key not in params:
+            raise ValueError(f"the operator carries no {key}: build it "
+                             "with compensated=True")
+    if x32.device.type == "cpu":
+        return comp_sell_plain(params, x32)
+    y = _launch(params, x32)
     comp_sell.launches += 1
     return y
 

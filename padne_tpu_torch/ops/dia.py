@@ -496,11 +496,8 @@ def sell_args(params, x, values: dict) -> list:
     return [params[k].data_ptr() for k in _SELL_INDEX]
 
 
-def sell_matvec(params, xt) -> torch.Tensor:
-    """Kernel K1' (csrc/dia_sell.cu) on CUDA tensors: y^T = A x^T for f32
-    xt of shape (R, np_); the plain version for CPU tensors."""
-    if xt.device.type == "cpu":
-        return sell_matvec_plain(params, xt)
+def _launch(params, xt) -> torch.Tensor:
+    """K1' on the card: checks operands, launches, returns y^T."""
     if xt.dtype != torch.float32 or xt.dim() != 2 or xt.shape[0] < 1:
         raise ValueError(f"x^T must be f32 (R, np), got {xt.dtype} "
                          f"{tuple(xt.shape)}")
@@ -517,6 +514,15 @@ def sell_matvec(params, xt) -> torch.Tensor:
         xt.data_ptr(), xt.shape[1], xt.shape[0], y.data_ptr(),
         torch.cuda.current_stream(xt.device).cuda_stream)
     kernels.check_launch(rc, "dia_sell")
+    return y
+
+
+def sell_matvec(params, xt) -> torch.Tensor:
+    """Kernel K1' (csrc/dia_sell.cu) on CUDA tensors: y^T = A x^T for f32
+    xt of shape (R, np_); the plain version for CPU tensors."""
+    if xt.device.type == "cpu":
+        return sell_matvec_plain(params, xt)
+    y = _launch(params, xt)
     sell_matvec.launches += 1
     return y
 

@@ -389,12 +389,21 @@ def main(argv=None) -> int:
                     help="torch device of the solves (default: the CUDA "
                          "card; 'cpu' runs the plain PyTorch versions)")
     args = ap.parse_args(argv)
-    ms = MeasurementSet.load(args.measurement_set)
+    return run(args.measurement_set, calibrate=not args.no_calibrate,
+               fit_overetch=args.fit_overetch, as_json=args.json,
+               device=args.device)
+
+
+def run(measurement_set, calibrate: bool = True, fit_overetch: bool = False,
+        as_json: bool = False, device=None) -> int:
+    """Validate the measurement set at path `measurement_set` and print
+    the report (one JSON object with as_json, else a table).  Returns the
+    exit code: 0 when every measurement is within tolerance."""
+    ms = MeasurementSet.load(measurement_set)
     report = run_validation(
-        ms, do_calibrate=not args.no_calibrate,
-        fit_overetch=args.fit_overetch, device=args.device,
+        ms, do_calibrate=calibrate, fit_overetch=fit_overetch, device=device,
     )
-    if args.json:
+    if as_json:
         print(json.dumps({
             "scale": report.scale,
             "overetch_mm": report.overetch,

@@ -19,7 +19,7 @@ import torch
 
 from padne_tpu import cli as jcli
 from padne_tpu.io import solution as jsolution_io
-from padne_tpu_torch import cli
+from padne_tpu_torch import cli, device
 from padne_tpu_torch.io import solution as solution_io
 
 torch.set_num_threads(1)
@@ -122,6 +122,7 @@ def test_default_device_is_the_card(boards_dir, tmp_path, capsys):
     """Without --device the solve wants the CUDA card: with none it
     exits 1 with the device error, and never falls back to the CPU."""
     if torch.cuda.is_available():
+        assert device.resolve(None).type == "cuda"
         return
     pro = boards_dir / "gen_strip" / "gen_strip.kicad_pro"
     with pytest.raises(SystemExit) as e:

@@ -16,7 +16,8 @@ import torch
 from padne_tpu import kicad as jkicad
 from padne_tpu import mesh as jmesh
 from padne_tpu import sweep as jsweep
-from padne_tpu_torch import geom, kicad, mesh, problem, solver, sweep
+from padne_tpu_torch import (device, geom, kicad, mesh, problem, solver,
+                             sweep)
 from padne_tpu_torch.ops import spmv
 
 from tests import boardgen
@@ -106,6 +107,7 @@ def test_sweep_matches_single_solve():
 
 def test_default_device_is_the_card():
     if torch.cuda.is_available():
+        assert device.resolve(None).type == "cuda"
         return
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         sweep.solve_sweep(port_strip_problem("voltage"), [sweep.SweepSpec()])
