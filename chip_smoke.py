@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; there is no CPU path):
    (the refinement passes): random x at every launch shape, and so
    every kernel instantiation, of the solve; max relative
    error (bound 1e-5 of max|y|: f32 sums in another order) and ms per
-   call of each, by CUDA events, and the peak device memory of the DIA
-   set-up;
+   call of each, by CUDA events and by replaying a captured CUDA graph
+   of 20 calls (the card's time without the host's launch cost), and
+   the peak device memory of the DIA set-up;
 4. kernel K2' (compensated residual) on the level-0 hi and lo values
    against its f64 plain version, bound 2e-13 * max(|A| |x|), and both
    times, by CUDA events and by graph replay;
@@ -80,10 +81,29 @@ Phases (any failure exits non-zero; there is no CPU path):
    (1, 1) within 1e-6 V of phase 8's single solve, the potentials
    proportional to the source scale and of the form v_V + v_I / s in the
    conductance scale; CG iterations, wall times of the one multi-RHS
-   solve and of the 12 recoveries, and peak device memory are printed.
+   solve and of the 12 recoveries, and peak device memory are printed;
+12. the resident solve server ("serve"): a cold `python -m
+   padne_tpu_torch solve` of phase 5's project with phase 5's mesher
+   flags in a fresh process, with no server on the socket; then
+   padne_tpu_torch.serve.serve on the card as a thread of this process
+   (its launches counted from 0 and held by shape as in phase 5),
+   `solve` and `gui` of the same project through it, each in a fresh
+   process (`gui` writes padne_tpu_view.html without a display), `show`
+   on the served artifact, and in this process serve.client_solve of
+   phase 6's system (a new structure: the cached solver is evicted),
+   then of the same system with its excitation doubled; the server
+   shut down.  Checks: the cold and served artifacts within 1e-6 V of
+   phase 5's at residual < 1e-9; the server answered all four requests
+   and both client processes report a served solve; the repeat request
+   on each structure reports setup_seconds 0; K1' and K2' launched in
+   the server at held shapes only, K3' not; the doubled solve within
+   2e-6 V of twice the first and within 1e-6 V of spsolve; both HTML
+   pages parse and hold the solved meshes.  The wall time of each
+   client process, the server's set-up and solve seconds per request
+   and its peak device memory are printed.
 
-Each of the phases cli, fragmented and sweep also prints one JSON line
-{"phase": ...} with its numbers.
+Each of the phases cli, fragmented, sweep and serve also prints one
+JSON line {"phase": ...} with its numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -303,9 +323,9 @@ def k2_key(params, x) -> tuple:
     return ("K2'", params["perm"].numel())
 
 
-def k1_case(name, params, r, seed, graph=False):
+def k1_case(name, params, r, seed):
     """K1' vs its plain version and cuSPARSE on one operator of the main
-    path (random x).  graph: also time both by CUDA-graph replay."""
+    path (random x), timed by CUDA events and by CUDA-graph replay."""
     import torch
 
     from padne_tpu_torch.ops import dia
@@ -331,12 +351,13 @@ def k1_case(name, params, r, seed, graph=False):
     csr_bound_ms = csr_bytes(csr, xn, r) / HBM_BPS * 1e3
     check(lib_err <= 1e-5 * float(ref.abs().max()),
           f"the CSR yardstick of K1' {name} computes another function")
-    if graph:
-        g_ms = graph_ms(lambda: dia.sell_matvec(params, xt))
-        g_lib = graph_ms(lambda: torch.sparse.mm(csr, xn), library=True)
-        print(f"[K1' {name}] R={r} by CUDA-graph replay: kernel "
-              f"{fmt_ms(g_ms)}, library(csr) {fmt_ms(g_lib)}; "
-              f"{graph_note(g_ms, bound_ms, g_lib, library_ms)}", flush=True)
+    # Most K1' calls are shorter than the host's launch interval, which
+    # events then read: graph replay reads the card's own time.
+    g_ms = graph_ms(lambda: dia.sell_matvec(params, xt))
+    g_lib = graph_ms(lambda: torch.sparse.mm(csr, xn), library=True)
+    print(f"[K1' {name}] R={r} by CUDA-graph replay: kernel "
+          f"{fmt_ms(g_ms)}, library(csr) {fmt_ms(g_lib)}; "
+          f"{graph_note(g_ms, bound_ms, g_lib, library_ms)}", flush=True)
     del csr, xn
     torch.cuda.empty_cache()
     stored = params["a_val"].numel() + params["b_val"].numel()
@@ -354,9 +375,10 @@ def k1_case(name, params, r, seed, graph=False):
     check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
                        f"({rel:.3e})")
     return {"key": k1_key(params, xt), "name": f"{name} R={r}",
-            "abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
+            "abs_err": abs_err, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_graph_ms": g_lib,
+            "csr_bound_ms": csr_bound_ms}
 
 
 def k2_case(params, seed):
@@ -411,27 +433,25 @@ def k2_case(params, seed):
     return {"key": k2_key(params, x), "name": "l0 CG operator",
             "abs_err": abs_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "csr_bound_ms": csr_bound_ms}
+            "library_ms": library_ms, "library_graph_ms": g_lib,
+            "csr_bound_ms": csr_bound_ms}
 
 
-def dia_cases(s, label: str, seed: int, graph=False):
+def dia_cases(s, label: str, seed: int):
     """K1' and K2' on every operator a set-up DiaBorderedSolver `s`
     launches them on, at both widths its solve has: the CG operator
     (f32) and each sparse level of the cycle, at R = m + 1 (the first
     solve, border columns and right-hand side together) and at R = 1
-    (the refinement passes), and K2' on the CG operator.  graph: also
-    time the coarsest level at R 1 by graph replay.  Returns (K1' cases,
-    K2' case); the CG operator at R = m + 1 comes first."""
+    (the refinement passes), and K2' on the CG operator.  Returns (K1'
+    cases, K2' case); the CG operator at R = m + 1 comes first."""
     r = s.m + 1
     op, cyc = s.op_params, s.cycle_params   # cyc[-1]: the coarse inverse
-    last = len(cyc) - 2
     k1 = [k1_case(f"{label}l0 CG operator", op, r, seed),
           k1_case(f"{label}l0 CG operator", op, 1, seed + 1)]
     for i, level in enumerate(cyc[:-1]):
         for width in (r, 1):
             k1.append(k1_case(f"{label}l{i} cycle operator", level, width,
-                              seed + 2 + 2 * i + (width == 1),
-                              graph=graph and i == last and width == 1))
+                              seed + 2 + 2 * i + (width == 1)))
     return k1, k2_case(op, seed + 2 * len(cyc))
 
 
@@ -449,7 +469,7 @@ def dia_kernel_cases(system):
     print(f"[kernels] DIA set-up of the main path's operators "
           f"{time.perf_counter() - t0:.2f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
-    k1, k2 = dia_cases(s, "", 1, graph=True)
+    k1, k2 = dia_cases(s, "", 1)
     del s
     torch.cuda.empty_cache()
     return k1, k2
@@ -816,10 +836,10 @@ class DiaShapes:
 
 def check_dia_held(path: str, shapes, launches: dict, k1, k2) -> dict:
     """Fails if the solve of `path` launched K1' or K2' at a shape that
-    no case of `k1` + [`k2`] held against the plain version, or if the
-    per-shape launches do not add up to the wrappers' counts.  Prints
-    and returns the launches by shape."""
-    held = {c["key"]: c["name"] for c in k1 + [k2]}
+    no case of the lists `k1` + `k2` held against the plain version, or
+    if the per-shape launches do not add up to the wrappers' counts.
+    Prints and returns the launches by shape."""
+    held = {c["key"]: c["name"] for c in k1 + k2}
     by_kernel = {"K1'": "dia_sell", "K2'": "comp_sell"}
     for kernel, name in by_kernel.items():
         check(sum(v for k, v in shapes.items() if k[0] == kernel)
@@ -880,7 +900,6 @@ def cli_exports(sol, npz: pathlib.Path, tmp: pathlib.Path) -> dict:
     Returns the wall times."""
     import contextlib
     import io
-    import re
     import xml.etree.ElementTree as ET
 
     from padne_tpu_torch import cli
@@ -925,24 +944,34 @@ def cli_exports(sol, npz: pathlib.Path, tmp: pathlib.Path) -> dict:
     t0 = time.perf_counter()
     cli.main(["html", str(npz), str(tmp / "view.html")])
     times["html_s"] = time.perf_counter() - t0
-    html = (tmp / "view.html").read_text()
-    data = re.search(r"const DATA = (\{.*?\});\n", html, re.S)
-    check(data is not None, "the HTML page holds no payload")
+    check_html(tmp / "view.html", sol)
+    return times
+
+
+def check_html(page: pathlib.Path, sol) -> None:
+    """The HTML viewer `page` exists, and its payload parses and holds
+    the layers and meshes of `sol`."""
+    import re
+
+    check(page.exists(), f"{page.name} was not written")
+    data = re.search(r"const DATA = (\{.*?\});\n", page.read_text(), re.S)
+    check(data is not None, f"{page.name} holds no payload")
     payload = json.loads(data.group(1))
     check([l["name"] for l in payload["layers"]]
           == [l.name for l in sol.problem.layers]
           and sum(e["nv"] for l in payload["layers"] for e in l["meshes"])
           >= sum(m.num_vertices for ls in sol.layer_solutions
                  for m in ls.meshes),
-          "the HTML payload does not hold the solved meshes")
-    return times
+          f"the payload of {page.name} does not hold the solved meshes")
 
 
 def dia_phases(args, tmp: pathlib.Path):
     """K1' and K2' on the DIA route's operators at --dof, the user path
     through the command-line interface at --dof, then the scipy check at
     --scipy-dof, each solve's launched shapes held against the cases.
-    Returns (K1' cases, K2' cases, the main solve's launch counts)."""
+    Returns (K1' cases, K2' cases, the main solve's launch counts, what
+    the serve phase takes from these: the project, its mesher flags,
+    the artifact and the scipy check's system)."""
     import torch
 
     from padne_tpu_torch import cli, solver
@@ -957,14 +986,14 @@ def dia_phases(args, tmp: pathlib.Path):
 
     pro = tmp / "gen_bench_4layer" / "gen_bench_4layer.kicad_pro"
     npz = tmp / "bench.npz"
+    flags = ["--mesh-size", repr(cfg.maximum_size),
+             "--variable-size-maximum-factor",
+             repr(cfg.variable_size_maximum_factor)]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with SolveSpy() as spy, DiaShapes() as shapes:
-        cli.main(["solve", str(pro), str(npz),
-                  "--mesh-size", repr(cfg.maximum_size),
-                  "--variable-size-maximum-factor",
-                  repr(cfg.variable_size_maximum_factor)])
+        cli.main(["solve", str(pro), str(npz), *flags])
     launches = launch_counts()
     t_cli = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -984,7 +1013,7 @@ def dia_phases(args, tmp: pathlib.Path):
     check(stats["route"] == "dia", f"route {stats['route']} is not dia")
     for k in ("dia_sell", "comp_sell"):
         check(launches[k] > 0, f"the slice never launched {k}")
-    by_shape = check_dia_held("cli", shapes, launches, k1, k2)
+    by_shape = check_dia_held("cli", shapes, launches, k1, [k2])
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check_fields(sol, stats["n"])
@@ -993,6 +1022,7 @@ def dia_phases(args, tmp: pathlib.Path):
           f"{npz.stat().st_size / 1e6:.1f} MB); "
           + ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in times.items()),
           flush=True)
+    n_cli = stats["n"]
     print(json.dumps({"phase": "cli", "route": stats["route"],
                       "n": stats["n"], "m": stats["m"],
                       "residual_norm": info.residual_norm,
@@ -1005,8 +1035,8 @@ def dia_phases(args, tmp: pathlib.Path):
     del sol, spy
 
     prob, cfg = bench_problem(tmp / "scipy", args.scipy_dof)
-    s = schur.DiaBorderedSolver(solver.build_system(prob, cfg)[0],
-                                device=DEV)
+    scipy_system = solver.build_system(prob, cfg)[0]
+    s = schur.DiaBorderedSolver(scipy_system, device=DEV)
     k1s, k2s = dia_cases(s, "scipy-check ", 21)
     del s
     torch.cuda.empty_cache()
@@ -1015,7 +1045,7 @@ def dia_phases(args, tmp: pathlib.Path):
     with DiaShapes() as shapes:
         sol = solver.solve(prob, mesher_config=cfg,
                            check_against_scipy=True, stats=stats2)
-    check_dia_held("scipy-check", shapes, launch_counts(), k1s, k2s)
+    check_dia_held("scipy-check", shapes, launch_counts(), k1s, [k2s])
     dv = stats2["scipy_max_dv"]
     print(f"[scipy] route={stats2['route']} n={stats2['n']} "
           f"solve={stats2['solve_s']:.2f}s "
@@ -1027,7 +1057,9 @@ def dia_phases(args, tmp: pathlib.Path):
     check_fields(sol, stats2["n"])
     check(sol.solver_info.residual_norm < 1e-9,
           "scipy-check solve misses the 1e-9 gate")
-    return k1 + k1s, [k2, k2s], launches
+    ctx = {"project": pro, "flags": flags, "artifact": npz, "n": n_cli,
+           "scipy_system": scipy_system}
+    return k1 + k1s, [k2, k2s], launches, ctx
 
 
 def ell_phases(args, tmp: pathlib.Path):
@@ -1268,7 +1300,7 @@ def fragmented_phase(args) -> dict:
     for k in ("dia_sell", "comp_sell"):
         check(launches[k] > 0, f"the fragmented solve never launched {k}")
     check(launches["ell_spmv"] == 0, "the DIA route launched K3'")
-    by_shape = check_dia_held("fragmented", shapes, launches, k1, k2)
+    by_shape = check_dia_held("fragmented", shapes, launches, k1, [k2])
     check(info.residual_norm < 1e-9,
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check(dv <= 1e-6, f"max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
@@ -1285,9 +1317,252 @@ def fragmented_phase(args) -> dict:
            "solve_s": stats["solve_s"], "peak_device_memory_gb": peak_gb,
            "k1_ms": {c["name"].removeprefix("fragmented "): c["ms"]
                      for c in k1},
+           "k1_graph_ms": {c["name"].removeprefix("fragmented "):
+                           c["graph_ms"] for c in k1},
            "k2_ms": k2["ms"], "k2_graph_ms": k2["graph_ms"]}
     print(json.dumps(out), flush=True)
     return {"k1": k1, "k2": k2, "launches": launches}
+
+
+class ServeSpy:
+    """Records each solve request the resident server answers (n, ok,
+    setup_seconds, solve_seconds) while it is entered, by standing in
+    for padne_tpu_torch.serve._handle_solve."""
+
+    def __enter__(self):
+        from padne_tpu_torch import serve
+
+        self.real = serve._handle_solve
+        self.records = []
+
+        def recording(z, *args):
+            reply = self.real(z, *args)
+            r = serve._unpack(reply)
+            ok = bool(int(r["ok"]))
+            self.records.append({
+                "n": int(z["n"]), "ok": ok,
+                "setup_s": float(r["setup_seconds"]) if ok else None,
+                "solve_s": float(r["solve_seconds"]) if ok else None})
+            return reply
+
+        serve._handle_solve = recording
+        return self.records
+
+    def __exit__(self, *exc):
+        from padne_tpu_torch import serve
+
+        serve._handle_solve = self.real
+
+
+def client_run(argv, cwd: pathlib.Path, env: dict, what: str):
+    """`python -m padne_tpu_torch argv` in a fresh process; fails the
+    run on a non-zero exit.  Returns (wall seconds, its log, the
+    timeline of its log: see `timeline`)."""
+    start, t0 = time.time(), time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "padne_tpu_torch", *argv],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
+              file=sys.stderr)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    text = proc.stdout + proc.stderr
+    return wall, text, timeline(text, start)
+
+
+def timeline(text: str, start: float) -> list:
+    """[seconds after `start`, message] of each line a client's command
+    line interface, solver or server client logged: where its wall time
+    went (interpreter and imports before the first line)."""
+    import datetime
+    import re
+
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) - "
+                     r"padne_tpu_torch\.(cli|solver|serve) - INFO - (.*)",
+                     line)
+        if m:
+            at = datetime.datetime.strptime(
+                m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            out.append([round(at - start, 2), m.group(3)[:80]])
+    return out
+
+
+def potentials_of(path: pathlib.Path):
+    """(all potentials, solver info, Solution) of an artifact."""
+    import numpy as np
+
+    from padne_tpu_torch.io import solution as solution_io
+
+    sol = solution_io.load_solution(path)
+    v = np.concatenate([p.values for ls in sol.layer_solutions
+                        for p in ls.potentials])
+    return v, sol.solver_info, sol
+
+
+def short_socket(tmp: pathlib.Path) -> tuple[str, str | None]:
+    """(socket path, a directory to remove after) under `tmp`, or in a
+    fresh temporary directory when that path would pass the 107 bytes a
+    unix socket's path may have."""
+    path = str(tmp / "serve.sock")
+    if len(path.encode()) <= 100:
+        return path, None
+    extra = tempfile.mkdtemp(prefix="pts")
+    return str(pathlib.Path(extra) / "serve.sock"), extra
+
+
+def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
+    """Phase 12: the resident solve server on the card.  A cold `solve`
+    of phase 5's project in a fresh process with no server, then the
+    server as a thread of this process (so the counters and DiaShapes
+    see its launches), `solve` and `gui` through it in fresh processes,
+    `show` on the served artifact, and in this process the scipy check's
+    system twice, the second time with its excitation doubled.  k1, k2:
+    the K1' and K2' cases of phases 3, 4 and 6."""
+    import dataclasses
+    import os
+    import shutil
+    import threading
+
+    import numpy as np
+    import scipy.sparse.linalg
+    import torch
+
+    from padne_tpu_torch import serve
+    from padne_tpu_torch.ops import schur
+
+    pro, flags = str(ctx["project"]), ctx["flags"]
+    ref_v, _, _ = potentials_of(ctx["artifact"])
+    sock, extra_dir = short_socket(tmp)
+    env = dict(os.environ, PADNE_TORCH_SOCKET=sock, PADNE_TORCH_SERVER="1",
+               MPLBACKEND="Agg", PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    walls, lines = {}, {}
+    try:
+        check(serve.ping(sock) is None, "a server answers before the phase")
+        cold = tmp / "cold.npz"
+        walls["cold_solve_s"], _, lines["cold solve"] = client_run(
+            ["solve", pro, str(cold), *flags], tmp, env, "the cold `solve`")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ready = threading.Event()
+        with ServeSpy() as records, DiaShapes() as shapes:
+            daemon = threading.Thread(
+                target=serve.serve, daemon=True,
+                kwargs={"socket_path": sock, "ready_event": ready})
+            daemon.start()
+            check(ready.wait(60), "the server did not come up")
+            info = serve.ping(sock)
+            check(info is not None and info["pid"] == os.getpid()
+                  and info["device"] == torch.device(DEV).type,
+                  f"the server's ping answered {info}")
+            served = tmp / "served.npz"
+            walls["served_solve_s"], log_solve, lines["served solve"] = \
+                client_run(["solve", pro, str(served), *flags], tmp, env,
+                           "`solve` through the server")
+            (tmp / "gui").mkdir()
+            walls["served_gui_s"], log_gui, lines["cached gui"] = client_run(
+                ["gui", pro, *flags], tmp / "gui", env,
+                "`gui` through the server")
+            (tmp / "show").mkdir()
+            walls["show_s"], _, lines["show"] = client_run(
+                ["show", str(served)], tmp / "show", env, "`show`")
+
+            system = ctx["scipy_system"]
+            st1, st2 = {}, {}
+            t0 = time.perf_counter()
+            first = serve.client_solve(system, 1e-10, 8, socket_path=sock,
+                                       device=DEV, stats=st1)
+            walls["client_scipy_board_s"] = time.perf_counter() - t0
+            doubled = dataclasses.replace(
+                system, r_core=system.r_core * 2.0,
+                border=dataclasses.replace(system.border,
+                                           rhs=system.border.rhs * 2.0))
+            t0 = time.perf_counter()
+            second = serve.client_solve(doubled, 2e-10, 8, socket_path=sock,
+                                        device=DEV, stats=st2)
+            walls["client_scipy_board_doubled_s"] = time.perf_counter() - t0
+            check(serve.shutdown(sock), "the server did not shut down")
+            daemon.join(timeout=120)
+            check(not daemon.is_alive(), "the server thread is still running")
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        if serve.ping(sock) is not None:
+            serve.shutdown(sock)
+        if extra_dir is not None:
+            shutil.rmtree(extra_dir, ignore_errors=True)
+
+    for name, marks in lines.items():
+        print(f"[serve client {name}] " + "; ".join(
+            f"+{at:.2f} s {msg}" for at, msg in marks), flush=True)
+    for rec in records:
+        print(f"[serve request] n={rec['n']} ok={rec['ok']} "
+              f"setup_seconds={rec['setup_s']} "
+              f"solve_seconds={rec['solve_s']}", flush=True)
+    print("[serve] client processes: " + ", ".join(
+        f"{k[:-2]} {v:.2f} s" for k, v in walls.items())
+        + f"; server peak device memory {peak_gb:.3f} GB; launches "
+        f"{launches}", flush=True)
+
+    # Who solved: four answered requests, and the clients said so.
+    big, small = ctx["n"], system.n
+    check([(r["n"], r["ok"]) for r in records]
+          == [(big, True), (big, True), (small, True), (small, True)],
+          f"the server did not answer every request: {records}")
+    check(all("solved by the server (pid" in text
+              for text in (log_solve, log_gui)),
+          "a client process did not report a served solve")
+    check(first is not None and second is not None
+          and st1["served_by"] == st2["served_by"] == os.getpid(),
+          "the in-process requests were not served")
+    check(records[0]["setup_s"] > 0 and records[2]["setup_s"] > 0,
+          "a new structure reported no set-up")
+    check(records[1]["setup_s"] == 0.0 and records[3]["setup_s"] == 0.0
+          and st2["setup_s"] == 0.0,
+          "a repeat request on a structure paid a set-up")
+    for k in ("dia_sell", "comp_sell"):
+        check(launches[k] > 0, f"the server never launched {k}")
+    check(launches["ell_spmv"] == 0, "the server launched K3'")
+    by_shape = check_dia_held("serve", shapes, launches, k1, k2)
+
+    # The answers.
+    dv = {}
+    for name, path in (("cold", cold), ("served", served)):
+        v, solver_info, sol = potentials_of(path)
+        dv[name] = float(np.abs(v - ref_v).max())
+        check(dv[name] <= 1e-6, f"the {name} artifact is {dv[name]:.3e} V "
+                                "from phase 5's")
+        check(solver_info.residual_norm < 1e-9, f"the {name} solve's "
+              f"residual {solver_info.residual_norm:.3e}")
+    # `sol`: the served artifact, whose meshes gui's solve has too.
+    check_html(tmp / "gui" / "padne_tpu_view.html", sol)
+    check_html(tmp / "show" / "padne_tpu_view.html", sol)
+    check(first.residual_norm < 1e-9 and second.residual_norm < 2e-9,
+          "an in-process served solve misses the gate")
+    lin = float(np.abs(second.v - 2.0 * first.v).max())
+    L, r, *_ = schur.bordered_scipy_system(doubled)
+    dv_scipy = float(np.abs(scipy.sparse.linalg.spsolve(L, r)[:small]
+                            - second.v).max())
+    print(f"[serve] max|dV| vs phase 5: cold {dv['cold']:.3e} V, served "
+          f"{dv['served']:.3e} V; doubled excitation vs 2x the first "
+          f"{lin:.3e} V, vs spsolve {dv_scipy:.3e} V", flush=True)
+    check(lin <= 2e-6, f"the doubled excitation is {lin:.3e} V from 2x")
+    check(dv_scipy <= 1e-6, f"the doubled solve is {dv_scipy:.3e} V from "
+                            "spsolve")
+    out = {"phase": "serve", **walls, "requests": records,
+           "client_timelines": lines,
+           "launches": launches, "launches_by_shape": by_shape,
+           "peak_device_memory_gb": peak_gb, "max_dv_cold": dv["cold"],
+           "max_dv_served": dv["served"], "doubled_vs_2x": lin,
+           "doubled_vs_spsolve": dv_scipy}
+    print(json.dumps(out), flush=True)
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -1325,11 +1600,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        k1, k2, dia_launches = dia_phases(args, pathlib.Path(tmp))
+        k1, k2, dia_launches, ctx = dia_phases(args, pathlib.Path(tmp))
         torch.cuda.empty_cache()
         k3, ell_launches, sweep = ell_phases(args, pathlib.Path(tmp))
         torch.cuda.empty_cache()
         frag = fragmented_phase(args)
+        torch.cuda.empty_cache()
+        served = serve_phase(pathlib.Path(tmp), ctx, k1, k2)
 
     def entry(name, source, replaces, launches, cases, main_case):
         # launches: on the first main path that runs the kernel (the cli
@@ -1337,14 +1614,15 @@ def main() -> int:
         # on every path, each counted from 0.
         by_path = {"cli": dia_launches[name], "ell": ell_launches[name],
                    "fragmented": frag["launches"][name],
-                   "sweep": sweep["launches"][name]}
+                   "sweep": sweep["launches"][name],
+                   "serve": served["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path,
                 "max_abs_err": max(c["abs_err"] for c in cases),
                 **{key: main_case[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "csr_bound_ms")}}
+                    "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_graph_ms", "csr_bound_ms")}}
 
     kernels_line = {"kernels": [
         entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",

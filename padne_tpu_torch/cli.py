@@ -1,12 +1,15 @@
 """Command-line interface of the port.
 
-Port of padne_tpu.cli: `solve`, `info`, `paraview`, `html` (the
-self-contained WebGL viewer export, no display required) and `validate`,
-with the shared mesher flags.  Solves run on the CUDA card unless
-`--device cpu` asks for the CPU by name (padne_tpu_torch.device); there
-is no silent fallback.  `--tp N` is accepted and raises for N > 1: the
-sharded path is not ported.  The JAX package's `gui`, `show` and `serve`
-subcommands are not in this parser yet.
+Port of padne_tpu.cli: `gui` / `solve` / `show` / `paraview` with the
+shared mesher flags, `html` (the self-contained WebGL viewer export, no
+display required), `info`, `validate` and `serve` (the resident solve
+server, padne_tpu_torch.serve; `solve` and `gui` dispatch to it).
+Solves and the server run on the CUDA card unless `--device cpu` asks
+for the CPU by name (padne_tpu_torch.device); there is no silent
+fallback.  `gui` and `show` open the matplotlib viewer, or write
+padne_tpu_view.html where there is no display (padne_tpu_torch.ui).
+`--tp N` is accepted and raises for N > 1: the sharded path is not
+ported.
 """
 
 from __future__ import annotations
@@ -114,6 +117,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         version=f"padne-torch {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p_gui = sub.add_parser("gui", help="Solve and open the interactive viewer",
+                           formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p_gui.add_argument("kicad_pro_file", type=Path)
+    add_mesher_args(p_gui)
+
+    p_show = sub.add_parser("show", help="Display a pre-computed solution",
+                            formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p_show.add_argument("solution_file", type=Path)
+
     p_solve = sub.add_parser("solve", help="Solve and save the solution",
                              formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p_solve.add_argument("kicad_pro_file", type=Path)
@@ -147,6 +159,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                        help="machine-readable JSON report")
     add_device_arg(p_val)
 
+    p_srv = sub.add_parser(
+        "serve",
+        help="Run a resident solve server (keeps the device and the solver "
+             "set-up warm; later `solve`/`gui` runs dispatch to it)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p_srv.add_argument("--socket", type=Path, default=None,
+                       help="unix socket path (default: $PADNE_TORCH_SOCKET "
+                            "or ~/.cache/padne_tpu_torch/serve.sock)")
+    p_srv.add_argument("--max-requests", type=int, default=None,
+                       help="exit after N requests (default: run forever)")
+    add_device_arg(p_srv)
+
     return parser.parse_args(argv)
 
 
@@ -161,6 +186,48 @@ def handle_errors(func):
             sys.exit(1)
 
     return wrapper
+
+
+@handle_errors
+def do_gui(args) -> int:
+    from . import device as device_mod
+    from . import kicad, solver, ui
+
+    log = logging.getLogger(__name__)
+    check_single_device(args)
+    dev = device_mod.resolve(args.device)
+    log.info("Loading KiCad project for GUI: %s", args.kicad_pro_file)
+    prob = kicad.load_kicad_project(args.kicad_pro_file)
+    with collect_warnings() as warns:
+        solution = solver.solve(
+            prob,
+            mesher_config=mesher_config_from_args(args),
+            device=dev,
+        )
+    captured = [w for w in warns if issubclass(w.category, solver.SolverWarning)]
+    return ui.main(solution, captured)
+
+
+@handle_errors
+def do_show(args) -> int:
+    from . import ui
+    from .io import solution as solution_io
+
+    sol = solution_io.load_solution(args.solution_file)
+    logging.getLogger(__name__).info("Loaded %s", args.solution_file)
+    return ui.main(sol)
+
+
+@handle_errors
+def do_serve(args) -> None:
+    from . import serve as serve_mod
+
+    log = logging.getLogger(__name__)
+    sock = str(args.socket) if args.socket else None
+    log.info("Starting resident solve server (socket: %s)",
+             sock or serve_mod.default_socket_path())
+    serve_mod.serve(socket_path=sock, max_requests=args.max_requests,
+                    device=args.device)
 
 
 @handle_errors
@@ -246,11 +313,14 @@ def main(argv=None) -> None:
     setup_logging(args.debug)
     logging.getLogger(__name__).debug("Parsed arguments: %s", args)
     result = {
+        "gui": do_gui,
         "solve": do_solve,
+        "show": do_show,
         "paraview": do_paraview,
         "html": do_html,
         "info": do_info,
         "validate": do_validate,
+        "serve": do_serve,
     }[args.command](args)
     if isinstance(result, int):
         sys.exit(result)

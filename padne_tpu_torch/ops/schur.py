@@ -279,6 +279,20 @@ class DiaBorderedSolver:
         # solves (only the residual column does), so they solve once.
         self._Xc = None
 
+    def set_excitation(self, r_core, rhs) -> None:
+        """Replace the excitation (core right-hand side r_core (n,) and
+        border right-hand side rhs (m,)) of a set-up solver in place.
+
+        The operator, the hierarchy and A^+ C do not depend on it, so a
+        solve after this one runs its first CG at R = 1.  The ladder's
+        device copy of r_core is rebuilt here: refreshing only the host
+        arrays would leave the compensated residuals evaluated against
+        the old excitation."""
+        self.system.r_core[:] = r_core
+        self.system.border.rhs[:] = rhs
+        self._b64.zero_()
+        self._b64[self.posmap_dev] = _f64(self.system.r_core, self.device)
+
     # -- device pieces ----------------------------------------------------
 
     def _build_rhs(self, rc_pad):

@@ -626,6 +626,32 @@ def build_system(prob: problem.Problem,
     return system, meshes, mesh_to_layer, vindex, disconnected
 
 
+# Systems from this many core unknowns go to a resident server when one
+# answers; smaller ones solve locally faster than they cross the socket.
+SERVE_MIN_N = 200_000
+
+
+def _served(system, dev, stats: dict):
+    """The system solved by a resident server (see `solve`), or None."""
+    import os
+    import pathlib
+
+    from . import serve
+
+    if (system.n < SERVE_MIN_N
+            or os.environ.get("PADNE_TORCH_SERVER", "1") == "0"):
+        return None
+    path = serve.default_socket_path()
+    if not pathlib.Path(path).exists():
+        return None
+    result = serve.client_solve(system, target_residual=1e-10,
+                                max_refinements=8, socket_path=path,
+                                device=dev, stats=stats)
+    if result is not None:
+        stats.update(route="dia", levels=[])
+    return result
+
+
 def solve(
     prob: problem.Problem,
     mesher_config: Optional[mesh.Mesher.Config] = None,
@@ -640,10 +666,19 @@ def solve(
     sends it there: the card plays the accelerator (f32 inner solves
     with f64 refinement), the CPU runs the inner solves in f64.
 
+    A system of SERVE_MIN_N core unknowns or more is shipped to a
+    resident server (padne_tpu_torch.serve) when one answers on its
+    socket and runs on this call's device type; PADNE_TORCH_SERVER=0
+    turns that off.  A server that declines or fails is logged at
+    WARNING and the system solves here, on the same device and kernels.
+
     stats: optional dict that receives the stage wall times in seconds
     (mesh_assemble_s, setup_s, solve_s, postproc_s), the system shape
-    (n, m, levels), the route ("direct", "dia" or "ell") and, with
-    check_against_scipy, scipy_max_dv."""
+    (n, m, levels), the route ("direct", "dia" or "ell"), served_by (the
+    server's pid, or None when solved in this process) and, with
+    check_against_scipy, scipy_max_dv.  For a served solve, setup_s is
+    the server's set-up (0 on a cached operator), server_solve_s its
+    solve and solve_s the rest of the round trip."""
     dev = device_mod.resolve(device)
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
@@ -651,12 +686,20 @@ def solve(
         prob, mesher_config
     )
     t1 = time.perf_counter()
-    inner_dtype = torch.float32 if dev.type == "cuda" else None
-    result = schur.solve_bordered(system, inner_dtype=inner_dtype,
-                                  device=dev, stats=stats)
+    result = _served(system, dev, stats)
+    if result is None:
+        stats["served_by"] = None
+        inner_dtype = torch.float32 if dev.type == "cuda" else None
+        result = schur.solve_bordered(system, inner_dtype=inner_dtype,
+                                      device=dev, stats=stats)
     t3 = time.perf_counter()
     stats.update(n=system.n, m=system.border.m, mesh_assemble_s=t1 - t0,
                  solve_s=t3 - t1 - stats["setup_s"])
+    log.info("Solved on the %s route%s in %.2f s: residual %.3e, %d CG "
+             "iterations", stats["route"],
+             "" if stats["served_by"] is None
+             else f" by the server (pid {stats['served_by']})",
+             t3 - t1, result.residual_norm, result.cg_iterations)
 
     if check_against_scipy:
         import scipy.sparse.linalg

@@ -4,8 +4,9 @@ two generated boards, with `--device cpu` as the tests must ask for it.
 Gates: the saved per-layer potentials lie within 1e-6 V of what
 `padne_tpu.cli solve` saves for the same project, and the port's
 artifact loads through padne_tpu.io.solution; `info`, `paraview` and
-`html` work on it; `--tp 2`, a missing project and a missing card end in
-exit code 1 through handle_errors."""
+`html` work on it; `gui` and `show` write the HTML viewer without a
+display; `--tp 2`, a missing project and a missing card end in exit
+code 1 through handle_errors."""
 
 import pathlib
 import subprocess
@@ -139,11 +140,58 @@ def test_bad_input_exits_nonzero(tmp_path):
     assert e.value.code == 1
 
 
-def test_unported_subcommands_are_not_in_the_parser():
-    for command in ("gui", "show", "serve"):
+def test_gui_show_and_serve_parse_the_jax_packages_flags():
+    """gui, show and serve take the JAX package's arguments; gui and
+    serve also --device, as solve does."""
+    flags = ["--mesh-size", "0.3", "--mesh-angle", "25", "--tp", "1"]
+    for argv in (["gui", "b.kicad_pro", *flags],
+                 ["show", "s.npz"],
+                 ["serve", "--socket", "/tmp/x.sock", "--max-requests", "3"]):
+        want = jcli.parse_args(argv)
+        got = cli.parse_args(argv)
+        assert {k: v for k, v in vars(got).items() if k != "device"} \
+            == vars(want)
+    args = cli.parse_args(["gui", "b.kicad_pro", "--device", "cpu"])
+    assert args.device == "cpu" and args.tp == 1
+    assert cli.parse_args(["serve", "--device", "cpu"]).device == "cpu"
+    assert cli.parse_args(["serve"]).socket is None
+    with pytest.raises(SystemExit) as e:
+        cli.parse_args(["show", "s.npz", "--device", "cpu"])
+    assert e.value.code == 2
+
+
+def test_gui_and_show_write_the_html_viewer(boards_dir, tmp_path,
+                                            monkeypatch, capsys):
+    """Without a display `gui` solves and `show` loads, and both write
+    padne_tpu_view.html where they run."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    pro = boards_dir / "gen_strip" / "gen_strip.kicad_pro"
+    (tmp_path / "gui").mkdir()
+    monkeypatch.chdir(tmp_path / "gui")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         with pytest.raises(SystemExit) as e:
-            cli.parse_args([command, "x"])
-        assert e.value.code == 2
+            cli.main(["gui", str(pro), "--device", "cpu"])
+    assert e.value.code == 0
+    page = (tmp_path / "gui" / "padne_tpu_view.html").read_text()
+    assert "webgl" in page and "gen_strip" in page
+    out = tmp_path / "strip.npz"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cli.main(["solve", str(pro), str(out), "--device", "cpu"])
+    (tmp_path / "show").mkdir()
+    monkeypatch.chdir(tmp_path / "show")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["show", str(out)])
+    assert e.value.code == 0
+    # The artifact keeps no connection points, so `show` writes the page
+    # `html` writes for it, not gui's.
+    cli.main(["html", str(out), str(tmp_path / "html.html")])
+    assert (tmp_path / "show" / "padne_tpu_view.html").read_bytes() \
+        == (tmp_path / "html.html").read_bytes()
+    assert "No interactive display available" in capsys.readouterr().out
 
 
 def test_python_dash_m(boards_dir, tmp_path):

@@ -7,6 +7,7 @@ Run from the repository root:
 
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
+                          [--startup]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -32,6 +33,13 @@ uploads), of the one multi-RHS CG and of the 12 recoveries, and the CG's
 iterations; for the traced one the summed device time of kernels and
 copies over the whole call, the kernels' share of the wall time after
 assembly, K3''s time and calls, and the peak device memory.
+
+--startup times instead what a fresh client process (`python -m
+padne_tpu_torch solve ...`) pays before its first log line, step by
+step, each in --warm + 1 fresh processes: the interpreter, `import
+torch`, the CUDA context (a first tensor on the card), the imports of
+the port's solve path, and the last two together; printed: the least,
+median and largest wall time of each.
 
 --tree names a directory holding another version of padne_tpu_torch (an
 unpacked earlier commit) to trace instead of this repository's, so that
@@ -127,6 +135,39 @@ def trace_sweep(args, prob, cfg, specs) -> int:
     return 0
 
 
+STARTUP_STEPS = (
+    ("interpreter", "pass"),
+    ("import torch", "import torch"),
+    ("CUDA context", "import torch; torch.zeros(1, device='cuda'); "
+                     "torch.cuda.synchronize()"),
+    ("the port's imports", "import padne_tpu_torch.cli, "
+                           "padne_tpu_torch.kicad, padne_tpu_torch.solver"),
+    ("both", "import padne_tpu_torch.cli, padne_tpu_torch.kicad, "
+             "padne_tpu_torch.solver, torch; torch.zeros(1, device='cuda'); "
+             "torch.cuda.synchronize()"),
+)
+
+
+def trace_startup(args) -> int:
+    """The --startup mode: see the module docstring."""
+    import os
+    import statistics
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(args.tree.resolve()))
+    for name, code in STARTUP_STEPS:
+        walls = []
+        for _ in range(args.warm + 1):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                           cwd=args.tree, timeout=300)
+            walls.append(time.perf_counter() - t0)
+        print(f"[startup] {name}: min {min(walls):.2f} s, median "
+              f"{statistics.median(walls):.2f} s, max {max(walls):.2f} s "
+              f"over {len(walls)} fresh processes", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dof", type=int, default=140_000)
@@ -138,6 +179,8 @@ def main() -> int:
     ap.add_argument("--tree", type=pathlib.Path, default=REPO)
     ap.add_argument("--sweep", action="store_true",
                     help="trace the 12-spec design sweep, not one solve")
+    ap.add_argument("--startup", action="store_true",
+                    help="time a fresh client process's start, step by step")
     args = ap.parse_args()
 
     import torch
@@ -145,6 +188,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("trace_port: no CUDA device", file=sys.stderr)
         return 2
+    if args.startup:
+        return trace_startup(args)
     from torch.profiler import ProfilerActivity, profile, record_function
 
     # The board generator is this repository's; the package under test is
