@@ -63,6 +63,26 @@ Phases (any failure exits non-zero; there is no CPU path):
    7 did not hold against the plain version fails the run;
 9. four small generated boards through the auto route, each within
    1e-6 V of spsolve at residual < 1e-9;
+9b. the sharded solve ("sharded") over 4 shards of the one card
+   (parallel.sharding.Mesh naming cuda:0 four times; shards sharing a
+   card measure the decomposition's cost, not multi-card scaling):
+   schur.DiaBorderedSolver(mesh=) on phase 5's assembled system (not
+   meshed again), which must shard with at least 2 sharded levels;
+   K1' on every shard's f32 CG operator and every sharded level's
+   cycle operator over its halo window (rows, nx, x0), at R = m + 1
+   and R = 1, on the one-device tail levels, and K2' on every shard,
+   each against its plain version (the first shard of each shape also
+   timed, by events and graph replay, with its bound and cuSPARSE on
+   the shard's CSR over the same window); the solve with counters
+   reset: residual <= 1e-9, potentials within 1e-6 * max(span, 1) V of
+   phase 5's and border currents within 1e-6 of the largest, every
+   launched K1'/K2' shape held.  Then solve_bordered(mesh=) on phase
+   8's ELL board: K3' at the shard shapes (first shard) held, residual
+   <= 1e-9, |dV| <= 1e-7 * span against phase 8; then `solve --tp N`
+   for N beyond the card count ends in the `exceeds the K available
+   device(s)` error.  Set-up and solve seconds beside phase 5's, CG
+   iterations, passes, launches, peak device memory and the bytes of
+   halo and far exchange per matvec are printed;
 10. a heavily fragmented board ("fragmented"): one copper layer cut into
    12 x 12 separate tiles and a rail, every tile held against the rail
    by its own voltage source and loaded by its own current source, at
@@ -83,27 +103,28 @@ Phases (any failure exits non-zero; there is no CPU path):
    conductance scale; CG iterations, wall times of the one multi-RHS
    solve and of the 12 recoveries, and peak device memory are printed;
 12. the resident solve server ("serve"): a cold `python -m
-   padne_tpu_torch solve` of phase 5's project with phase 5's mesher
-   flags in a fresh process, with no server on the socket; then
+   padne_tpu_torch solve` of phase 6's project (--scipy-dof, still above
+   the server's 200,000-unknown dispatch) with phase 6's mesher flags
+   in a fresh process, with no server on the socket; then
    padne_tpu_torch.serve.serve on the card as a thread of this process
    (its launches counted from 0 and held by shape as in phase 5),
    `solve` and `gui` of the same project through it, each in a fresh
    process (`gui` writes padne_tpu_view.html without a display), `show`
    on the served artifact, and in this process serve.client_solve of
-   phase 6's system (a new structure: the cached solver is evicted),
-   then of the same system with its excitation doubled; the server
-   shut down.  Checks: the cold and served artifacts within 1e-6 V of
-   phase 5's at residual < 1e-9; the server answered all four requests
-   and both client processes report a served solve; the repeat request
-   on each structure reports setup_seconds 0; K1' and K2' launched in
-   the server at held shapes only, K3' not; the doubled solve within
-   2e-6 V of twice the first and within 1e-6 V of spsolve; both HTML
-   pages parse and hold the solved meshes.  The wall time of each
-   client process, the server's set-up and solve seconds per request
-   and its peak device memory are printed.
+   phase 6's system, then of the same system with its excitation
+   doubled; the server shut down.  Checks: the cold and served
+   artifacts within 1e-6 V of phase 6's at residual < 1e-9; the server
+   answered all four requests and both client processes report a
+   served solve; the first request pays the set-up, the repeats report
+   setup_seconds 0; K1' and K2' launched in the server at held shapes
+   only, K3' not; the doubled solve within 2e-6 V of twice the first
+   and within 1e-6 V of spsolve; both HTML pages parse and hold the
+   solved meshes.  The wall time of each client process, the server's
+   set-up and solve seconds per request and its peak device memory are
+   printed.
 
-Each of the phases cli, fragmented, sweep and serve also prints one
-JSON line {"phase": ...} with its numbers.
+Each of the phases cli, sharded, fragmented, sweep and serve also
+prints one JSON line {"phase": ...} with its numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -226,6 +247,7 @@ def sell_csr(params, values=None):
     perm = params["perm"].long()
     np_ = perm.numel()
     diag_rows = torch.arange(np_, device=perm.device)
+    diag_cols = diag_rows + params["x0"]
     if values == "f64":
         vals = [params["a_val"].double() + params["a_lo"].double(),
                 params["b_val"].double() + params["b_lo"].double(),
@@ -233,11 +255,12 @@ def sell_csr(params, values=None):
     else:
         vals = [params["a_val"].float(), params["b_val"], params["diag"]]
     rows = torch.cat([perm[pos_a], perm[pos_b], diag_rows])
-    cols = torch.cat([col_a, col_b, diag_rows])
+    cols = torch.cat([col_a, col_b, diag_cols])
     vals = torch.cat(vals)
     keep = vals != 0
     coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
-                                  vals[keep], (np_, np_)).coalesce()
+                                  vals[keep],
+                                  (np_, params["nx"])).coalesce()
     return coo.to_sparse_csr()
 
 
@@ -312,33 +335,50 @@ def graph_note(g_ms, bound_ms, g_lib, library_ms) -> str:
 
 
 def k1_key(params, xt) -> tuple:
-    """What tells one K1' launch shape from another: the rows, the type
-    of the stored offset values and the width, which together pick the
-    kernel's instantiation and its grid."""
-    return ("K1'", params["perm"].numel(),
+    """What tells one K1' launch shape from another: the rows, the
+    window of x (nx columns, row 0's at x0), the type of the stored
+    offset values and the width, which together pick the kernel's
+    instantiation and its grid."""
+    return ("K1'", params["perm"].numel(), params["nx"], params["x0"],
             str(params["a_val"].dtype).removeprefix("torch."), xt.shape[0])
 
 
 def k2_key(params, x) -> tuple:
-    return ("K2'", params["perm"].numel())
+    return ("K2'", params["perm"].numel(), params["nx"], params["x0"])
 
 
-def k1_case(name, params, r, seed):
+def shape_text(key) -> str:
+    """A K1' or K2' launch shape as printed."""
+    text = f"np={key[1]}"
+    if key[2:4] != (key[1], 0):
+        text += f" nx={key[2]} x0={key[3]}"
+    return text + (f" {key[4]} R={key[5]}" if key[0] == "K1'" else "")
+
+
+def k1_case(name, params, r, seed, timed: bool = True):
     """K1' vs its plain version and cuSPARSE on one operator of the main
-    path (random x), timed by CUDA events and by CUDA-graph replay."""
+    path (random x), timed by CUDA events and by CUDA-graph replay
+    (timed=False: the comparison with the plain version only)."""
     import torch
 
     from padne_tpu_torch.ops import dia
 
-    np_ = params["perm"].numel()
+    np_, nx = params["perm"].numel(), params["nx"]
     dev = params["perm"].device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    xt = torch.randn(r, np_, generator=gen, device=dev)
+    xt = torch.randn(r, nx, generator=gen, device=dev)
     y = dia.sell_matvec(params, xt)
     ref = dia.sell_matvec_plain(params, xt)
     torch.cuda.synchronize()
     abs_err = float((y - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
+    check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
+                       f"({rel:.3e})")
+    if not timed:
+        print(f"[K1' {name}] {shape_text(k1_key(params, xt))}: "
+              f"max_rel_err={rel:.3e} max_abs_err={abs_err:.3e}", flush=True)
+        return {"key": k1_key(params, xt), "name": f"{name} R={r}",
+                "abs_err": abs_err}
     ms = time_ms(lambda: dia.sell_matvec(params, xt))
     plain_ms = time_ms(lambda: dia.sell_matvec_plain(params, xt))
     nbytes, stored_bytes = sell_bytes(params, xt, y)
@@ -361,7 +401,8 @@ def k1_case(name, params, r, seed):
     del csr, xn
     torch.cuda.empty_cache()
     stored = params["a_val"].numel() + params["b_val"].numel()
-    print(f"[K1' {name}] np={np_} nnz={nnz} stored={stored} "
+    print(f"[K1' {name}] {shape_text(k1_key(params, xt))} nnz={nnz} "
+          f"stored={stored} "
           f"(padding {stored / nnz:.3f}) part_a={params['a_val'].numel()} "
           f"int32_part={params['b_val'].numel()} R={r} "
           f"{str(params['a_val'].dtype).removeprefix('torch.')}: "
@@ -372,8 +413,6 @@ def k1_case(name, params, r, seed):
           f"stored) csr_bound {csr_bound_ms:.4f} ms "
           f"library(csr) {library_ms:.4f} ms; "
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
-    check(rel <= 1e-5, f"K1' {name} disagrees with its plain version "
-                       f"({rel:.3e})")
     return {"key": k1_key(params, xt), "name": f"{name} R={r}",
             "abs_err": abs_err, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -381,9 +420,10 @@ def k1_case(name, params, r, seed):
             "csr_bound_ms": csr_bound_ms}
 
 
-def k2_case(params, seed):
+def k2_case(params, seed, name: str = "l0 CG operator", timed: bool = True):
     """K2' vs its f64 plain version and cuSPARSE (f64) on the level-0
-    compensated operator."""
+    compensated operator (or one shard of it; timed=False: the
+    comparison with the plain version only)."""
     import torch
 
     from padne_tpu_torch.ops import comp
@@ -391,15 +431,21 @@ def k2_case(params, seed):
     np_ = params["perm"].numel()
     dev = params["perm"].device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(np_, generator=gen, device=dev) + 1.0
+    x = torch.randn(params["nx"], generator=gen, device=dev) + 1.0
     y = comp.comp_sell(params, x)
     ref = comp.comp_sell_plain(params, x)
-    absp = {k: v.abs() if v.is_floating_point() else v
-            for k, v in params.items()}
+    absp = {k: v.abs() if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in params.items()}
     tol = 2e-13 * float(comp.comp_sell_plain(absp, x.abs()).max())
     del absp
     torch.cuda.synchronize()
     abs_err = float((y - ref).abs().max())
+    check(abs_err <= tol, f"K2' {name} disagrees with its f64 plain "
+                          "version")
+    if not timed:
+        print(f"[K2' {name}] {shape_text(k2_key(params, x))}: "
+              f"max_abs_err={abs_err:.3e} (bound {tol:.3e})", flush=True)
+        return {"key": k2_key(params, x), "name": name, "abs_err": abs_err}
     ms = time_ms(lambda: comp.comp_sell(params, x))
     plain_ms = time_ms(lambda: comp.comp_sell_plain(params, x))
     nbytes, stored_bytes = sell_bytes(params, x, y, lo=True)
@@ -416,12 +462,13 @@ def k2_case(params, seed):
     # graph replay reads the card's own time.
     g_ms = graph_ms(lambda: comp.comp_sell(params, x))
     g_lib = graph_ms(lambda: torch.sparse.mm(csr, x64), library=True)
-    print(f"[K2' l0 CG operator] np={np_} by CUDA-graph replay: kernel "
+    print(f"[K2' {name}] {shape_text(k2_key(params, x))} by CUDA-graph "
+          f"replay: kernel "
           f"{fmt_ms(g_ms)}, library(csr f64) {fmt_ms(g_lib)}; "
           f"{graph_note(g_ms, bound_ms, g_lib, library_ms)}", flush=True)
     del csr
     torch.cuda.empty_cache()
-    print(f"[K2' l0 CG operator] np={np_} f32 hi+lo -> f64: "
+    print(f"[K2' {name}] {shape_text(k2_key(params, x))} f32 hi+lo -> f64: "
           f"max_abs_err={abs_err:.3e} (bound {tol:.3e}) "
           f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s needed) "
           f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
@@ -429,8 +476,7 @@ def k2_case(params, seed):
           f"stored) csr_bound {csr_bound_ms:.4f} ms "
           f"library(csr f64) {library_ms:.4f} ms; "
           f"{target_note(ms, bound_ms, library_ms)}", flush=True)
-    check(abs_err <= tol, "K2' disagrees with its f64 plain version")
-    return {"key": k2_key(params, x), "name": "l0 CG operator",
+    return {"key": k2_key(params, x), "name": name,
             "abs_err": abs_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_graph_ms": g_lib,
@@ -591,6 +637,31 @@ class SolveSpy:
         solver.solve = self.real
 
 
+class BorderedSpy:
+    """Keeps the system and the BorderedSolution of the last
+    ops.schur.solve_bordered call while it is entered, by standing in
+    for it (solver.solve returns neither)."""
+
+    def __enter__(self):
+        from padne_tpu_torch.ops import schur
+
+        self.real = schur.solve_bordered
+        self.system = self.result = None
+
+        def recording(system, **kw):
+            self.system = system
+            self.result = self.real(system, **kw)
+            return self.result
+
+        schur.solve_bordered = recording
+        return self
+
+    def __exit__(self, *exc):
+        from padne_tpu_torch.ops import schur
+
+        schur.solve_bordered = self.real
+
+
 LANES = (1, 2, 4, 8, 16, 32)
 
 
@@ -644,9 +715,10 @@ def k3_case(name, ell, dtype, r, form, gen, sweep=False):
     b, x0 = (torch.randn(n, r, generator=gen, device=dev, dtype=dtype)
              for _ in range(2))
     w = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-    # As the solve calls them: the step corrects the x it multiplies.
+    # As the solve calls them: the step corrects the x it multiplies (a
+    # shard's rows of it, a block of their own, when x is gathered).
     kw = {"plain": {}, "residual": {"b": b}, "add": {"x0": x0},
-          "smooth": {"b": b, "w": w, "x0": x}}[form]
+          "smooth": {"b": b, "w": w, "x0": x if n == nx else x0}}[form]
     csr = scipy_csr(ell_csr(cols, vals, diag, nx), dtype, dev)
     library = {"plain": lambda: torch.sparse.mm(csr, x),
                "residual": lambda: torch.addmm(b, csr, x, alpha=-1.0),
@@ -848,8 +920,7 @@ def check_dia_held(path: str, shapes, launches: dict, k1, k2) -> dict:
               "to its count")
     by_shape = {}
     for key, count in sorted(shapes.items(), key=lambda kv: -kv[1]):
-        text = (f"np={key[1]} {key[2]} R={key[3]}" if key[0] == "K1'"
-                else f"np={key[1]}")
+        text = shape_text(key)
         by_shape[f"{key[0]} {text}"] = count
         print(f"[{key[0]} launches] {text}: {count} in the {path} solve"
               + (f" (held above as {held[key]})" if key in held else ""),
@@ -970,8 +1041,10 @@ def dia_phases(args, tmp: pathlib.Path):
     through the command-line interface at --dof, then the scipy check at
     --scipy-dof, each solve's launched shapes held against the cases.
     Returns (K1' cases, K2' cases, the main solve's launch counts, what
-    the serve phase takes from these: the project, its mesher flags,
-    the artifact and the scipy check's system)."""
+    later phases take from these: the cli solve's system and
+    BorderedSolution for phase sharded; the scipy check's project, its
+    mesher flags, its potentials and its system for phase serve)."""
+    import numpy as np
     import torch
 
     from padne_tpu_torch import cli, solver
@@ -992,7 +1065,7 @@ def dia_phases(args, tmp: pathlib.Path):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with SolveSpy() as spy, DiaShapes() as shapes:
+    with SolveSpy() as spy, BorderedSpy() as bspy, DiaShapes() as shapes:
         cli.main(["solve", str(pro), str(npz), *flags])
     launches = launch_counts()
     t_cli = time.perf_counter() - t0
@@ -1022,7 +1095,13 @@ def dia_phases(args, tmp: pathlib.Path):
           f"{npz.stat().st_size / 1e6:.1f} MB); "
           + ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in times.items()),
           flush=True)
-    n_cli = stats["n"]
+    cli_run = {"system": bspy.system, "bordered": bspy.result,
+               "setup_s": stats["setup_s"], "solve_s": stats["solve_s"],
+               "cg_iterations": info.cg_iterations,
+               "refinement_passes": info.refinement_steps + 1,
+               "peak_device_memory_gb": peak_gb}
+    check(bspy.system is not None and bspy.system.n == stats["n"],
+          "the cli solve's system was not recorded")
     print(json.dumps({"phase": "cli", "route": stats["route"],
                       "n": stats["n"], "m": stats["m"],
                       "residual_norm": info.residual_norm,
@@ -1057,14 +1136,23 @@ def dia_phases(args, tmp: pathlib.Path):
     check_fields(sol, stats2["n"])
     check(sol.solver_info.residual_norm < 1e-9,
           "scipy-check solve misses the 1e-9 gate")
-    ctx = {"project": pro, "flags": flags, "artifact": npz, "n": n_cli,
-           "scipy_system": scipy_system}
+    # Phase serve runs on this board: its project, flags and potentials.
+    ctx = {"project": tmp / "scipy" / "gen_bench_4layer"
+           / "gen_bench_4layer.kicad_pro",
+           "flags": ["--mesh-size", repr(cfg.maximum_size),
+                     "--variable-size-maximum-factor",
+                     repr(cfg.variable_size_maximum_factor)],
+           "ref_v": np.concatenate([pot.values for ls in sol.layer_solutions
+                                    for pot in ls.potentials]),
+           "scipy_system": scipy_system, "cli": cli_run}
     return k1 + k1s, [k2, k2s], launches, ctx
 
 
 def ell_phases(args, tmp: pathlib.Path):
-    """K3' at the ELL phase's shapes, the ELL route at --ell-dof, and the
-    small boards.  Returns (K3' cases, the ELL solve's launch counts)."""
+    """K3' at the ELL phase's shapes, the ELL route at --ell-dof, the
+    sweep and the small boards.  Returns (K3' cases, the ELL solve's
+    launch counts, the sweep's numbers, the ELL solve's system and
+    BorderedSolution for phase sharded)."""
     import torch
 
     from padne_tpu_torch import kicad, solver
@@ -1082,7 +1170,7 @@ def ell_phases(args, tmp: pathlib.Path):
 
     reset_counts()
     stats = {}
-    with K3Shapes() as shapes:
+    with K3Shapes() as shapes, BorderedSpy() as bspy:
         sol = solver.solve(prob, mesher_config=cfg,
                            check_against_scipy=True, stats=stats)
     launches = launch_counts()
@@ -1121,6 +1209,9 @@ def ell_phases(args, tmp: pathlib.Path):
           f"residual {info.residual_norm:.3e} misses the 1e-9 gate")
     check(dv <= 1e-6, f"ELL max |dV| {dv:.3e} V vs scipy exceeds 1e-6 V")
     check_fields(sol, stats["n"])
+    ell_run = {"system": bspy.system, "bordered": bspy.result,
+               "setup_s": stats["setup_s"], "solve_s": stats["solve_s"],
+               "escalated": stats["escalated"]}
     sweep = sweep_phase(prob, cfg, sol, timed)
     del sol
 
@@ -1143,7 +1234,7 @@ def ell_phases(args, tmp: pathlib.Path):
         if name == "gen_floating_island":
             check(disconnected == 1, "the floating island did not reach "
                                      "the display meshes")
-    return k3, launches, sweep
+    return k3, launches, sweep, ell_run
 
 
 SWEEP_SPECS = [(s, src) for s in (0.5, 1.0, 2.0, 4.0)
@@ -1254,6 +1345,257 @@ def sweep_phase(prob, cfg, single, timed: dict) -> dict:
            "peak_device_memory_gb": peak_gb}
     print(json.dumps(out), flush=True)
     return out
+
+
+SHARDS = 4   # phase sharded: shards of the one card
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def sharded_dia_cases(s, seed: int):
+    """K1' and K2' at every shape the sharded DIA solver `s` launches:
+    each shard's f32 CG operator and each sharded cycle level's operator
+    per shard over its window, at R = m + 1 and R = 1, K2' on each
+    shard's CG operator, and the one-device tail levels of the cycle at
+    both widths.  Every shard is held against the plain version; the
+    first shard of each (level, width), whose shape the others share, is
+    also timed.  Returns (K1' cases, K2' cases)."""
+    r = s.m + 1
+    k1, k2 = [], []
+    for sh, prm in enumerate(s.op_params.params):
+        name = f"sharded l0 CG operator shard {sh}"
+        for width in (r, 1):
+            k1.append(k1_case(name, prm, width, seed, timed=sh == 0))
+            seed += 1
+        k2.append(k2_case(prm, seed, name, timed=sh == 0))
+        seed += 1
+    for i, level in enumerate(s.cycle_params[:-1]):
+        shards = level["op"].params if "op" in level else [level]
+        for sh, prm in enumerate(shards):
+            name = (f"sharded l{i} cycle operator"
+                    + (f" shard {sh}" if "op" in level else " (one device)"))
+            for width in (r, 1):
+                k1.append(k1_case(name, prm, width, seed, timed=sh == 0))
+                seed += 1
+    return k1, k2
+
+
+def sharded_k3_cases(system, gen):
+    """K3' at every shape the sharded ELL route launches at R = m + 1,
+    in f32 and, as after an f64 escalation, in f64, on the first shard's
+    operators (the others have its shape): the CG's product over the
+    gathered vector, and per level of the cycle the residual, the
+    restriction, x0 + P xc and the damped-Jacobi step
+    (ops.amg._make_vcycle_sharded)."""
+    import torch
+
+    from padne_tpu_torch.ops import amg
+
+    tp, r = SHARDS, system.border.m + 1
+    levels = amg.build_hierarchy(system.ell).levels
+    pads = [-(-len(lv.a_diag) // tp) * tp for lv in levels]
+
+    def first(cols, vals, diag, n_pad, nx):
+        c, v = amg.shard_rows(cols, vals, diag, n_pad, tp)[0]
+        return c, v, None, nx
+
+    ell = system.ell
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        cases.append(k3_case("sharded A", first(
+            ell.cols, ell.vals, ell.diag, pads[0], pads[0]), dtype, r,
+            "plain", gen))
+        for i, lv in enumerate(levels[:-1]):
+            a = first(lv.a_cols, lv.a_vals, lv.a_diag, pads[i], pads[i])
+            cases += [
+                k3_case(f"sharded A l{i}", a, dtype, r, "residual", gen),
+                k3_case(f"sharded R l{i}", first(lv.r_cols, lv.r_vals, None,
+                                                 pads[i + 1], pads[i]),
+                        dtype, r, "plain", gen),
+                k3_case(f"sharded P l{i}", first(lv.p_cols, lv.p_vals, None,
+                                                 pads[i], pads[i + 1]),
+                        dtype, r, "add", gen),
+                k3_case(f"sharded A l{i}", a, dtype, r, "smooth", gen)]
+    return cases
+
+
+def sharded_phase(cli_run: dict, ell_run: dict, k3, project) -> dict:
+    """Phase sharded: the solve row-sharded over SHARDS shards of the one
+    card (parallel.sharding.Mesh naming cuda:0 SHARDS times).  The DIA
+    route on phase cli's assembled system, the ELL route on phase 8's,
+    each with its kernels held at every shape it launches and its answer
+    against the one-device solve; then `--tp` beyond the card count
+    through the command-line interface.  k3: phase 7's K3' cases."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from padne_tpu_torch import cli
+    from padne_tpu_torch.ops import schur
+    from padne_tpu_torch.parallel import sharding
+
+    card = smi()
+    mesh = sharding.Mesh([torch.device(DEV, 0)] * SHARDS)
+    out = {"phase": "sharded", "tp": SHARDS, "card": card}
+
+    # The DIA route.
+    system, ref = cli_run["system"], cli_run["bordered"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = schur.DiaBorderedSolver(system, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    levels = [(lv.pack.np_, lv.shard) for lv in s.hierarchy.levels]
+    print(f"[sharded] DIA set-up over {SHARDS} shards {setup_s:.2f} s, "
+          f"levels (rows, sharded) {levels}, peak device memory "
+          f"{setup_peak:.3f} GB", flush=True)
+    check(s.sharded and s.n_sharded >= 2,
+          f"the DIA solve did not shard 2 levels: {levels}")
+    k1, k2 = sharded_dia_cases(s, 31)
+    exchange = {"l0 CG R=m+1": s.op_params.exchange_bytes(s.m + 1),
+                "l0 CG R=1": s.op_params.exchange_bytes(1)}
+    for i, level in enumerate(s.cycle_params[:s.n_sharded]):
+        exchange[f"l{i} cycle R=m+1"] = level["op"].exchange_bytes(s.m + 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with DiaShapes() as shapes:
+        sol = s.solve(target_residual=1e-10)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = max(setup_peak, torch.cuda.max_memory_allocated() / 1e9)
+    span = float(ref.v.max() - ref.v.min())
+    dv = float(np.abs(sol.v - ref.v).max())
+    dj = float(np.abs(sol.j - ref.j).max() / np.abs(ref.j).max())
+    print(f"[sharded] DIA n={system.n} m={s.m} solve {solve_s:.2f} s "
+          f"(phase cli: set-up {cli_run['setup_s']:.2f} s, solve "
+          f"{cli_run['solve_s']:.2f} s), cg_iterations={sol.cg_iterations} "
+          f"(cli {cli_run['cg_iterations']}) refinement_passes="
+          f"{sol.refinement_steps + 1} (cli {cli_run['refinement_passes']}) "
+          f"residual_norm={sol.residual_norm:.3e} max|dV| vs cli {dv:.3e} V "
+          f"(span {span:.6f} V) max|dj|/max|j| {dj:.3e} peak_device_memory="
+          f"{peak:.3f} GB (cli {cli_run['peak_device_memory_gb']:.3f} GB) "
+          f"exchange bytes per matvec {exchange} launches={launches}; "
+          f"card {card}", flush=True)
+    check(launches["dia_sell"] > 0 and launches["comp_sell"] > 0
+          and launches["ell_spmv"] == 0,
+          "the sharded DIA solve did not run on K1' and K2' alone")
+    by_shape = check_dia_held("sharded", shapes, launches, k1, k2)
+    check(sol.residual_norm <= 1e-9,
+          f"sharded residual {sol.residual_norm:.3e} misses 1e-9")
+    check(dv <= 1e-6 * max(span, 1.0), f"sharded potentials {dv:.3e} V "
+                                        "from phase cli's")
+    check(dj <= 1e-6, f"sharded border currents {dj:.3e} from phase cli's")
+    out["dia"] = {
+        "n": system.n, "m": s.m, "levels": levels,
+        "sharded_levels": s.n_sharded, "setup_s": setup_s,
+        "solve_s": solve_s, "cg_iterations": sol.cg_iterations,
+        "refinement_passes": sol.refinement_steps + 1,
+        "residual_norm": sol.residual_norm, "max_dv_vs_cli": dv,
+        "max_dj_rel_vs_cli": dj, "peak_device_memory_gb": peak,
+        "exchange_bytes_per_matvec": exchange, "launches": launches,
+        "launches_by_shape": by_shape,
+        "cli": {k: cli_run[k] for k in (
+            "setup_s", "solve_s", "cg_iterations", "refinement_passes",
+            "peak_device_memory_gb")},
+        "k1_graph_ms": {c["name"]: c["graph_ms"] for c in k1
+                        if "graph_ms" in c},
+        "k2_graph_ms": {c["name"]: c["graph_ms"] for c in k2
+                        if "graph_ms" in c}}
+    del s, sol
+    torch.cuda.empty_cache()
+
+    # The ELL route.
+    system, ref = ell_run["system"], ell_run["bordered"]
+    gen = torch.Generator(device=torch.device(DEV)).manual_seed(9)
+    k3s = sharded_k3_cases(system, gen)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with K3Shapes() as k3_shapes:
+        sol = schur.solve_bordered(system, inner_dtype=torch.float32,
+                                   device=DEV, mesh=mesh, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ell_launches = launch_counts()
+    span = float(ref.v.max() - ref.v.min())
+    dv = float(np.abs(sol.v - ref.v).max())
+    print(f"[sharded] ELL n={system.n} route={stats['route']} "
+          f"tp={stats['tp']} levels={stats['levels']} set-up "
+          f"{stats['setup_s']:.2f} s, set-up and solve {wall:.2f} s "
+          f"(phase 8: set-up {ell_run['setup_s']:.2f} s, solve "
+          f"{ell_run['solve_s']:.2f} s) cg_iterations={sol.cg_iterations} "
+          f"refinement_passes={sol.refinement_steps + 1} "
+          f"escalated={stats['escalated']} residual_norm="
+          f"{sol.residual_norm:.3e} max|dV| vs phase 8 {dv:.3e} V (span "
+          f"{span:.6f} V) peak_device_memory="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"launches={ell_launches}", flush=True)
+    check(stats["route"] == "ell" and stats["sharded"]
+          and stats["tp"] == SHARDS, f"the ELL solve did not shard: {stats}")
+    check(ell_launches["ell_spmv"] > 0 and ell_launches["dia_sell"]
+          == ell_launches["comp_sell"] == 0,
+          "the sharded ELL solve did not run on K3' alone")
+    check(sum(k3_shapes.values()) == ell_launches["ell_spmv"],
+          "the per-shape launches of K3' do not add up to its count")
+    held = {c["key"]: c["name"] for c in k3 + k3s}
+    ell_by_shape = {}
+    for key, count in sorted(k3_shapes.items(), key=lambda kv: -kv[1]):
+        n_, nx_, r_, kind, form = key
+        ell_by_shape[f"n={n_} nx={nx_} R={r_} {kind} {form}"] = count
+        print(f"[K3' launches] n={n_} nx={nx_} R={r_} {kind} {form}: "
+              f"{count} in the sharded ELL solve"
+              + (f" (held above as {held[key]})" if key in held else ""),
+              flush=True)
+    missing = sorted(set(k3_shapes) - set(held))
+    check(not missing, f"the sharded ELL solve launched K3' at shapes that "
+                       f"were not held against the plain version: {missing}")
+    check(sol.residual_norm <= 1e-9,
+          f"sharded ELL residual {sol.residual_norm:.3e} misses 1e-9")
+    check(dv <= 1e-7 * span, f"sharded ELL potentials {dv:.3e} V from "
+                             "phase 8's")
+    out["ell"] = {"n": system.n, "levels": stats["levels"],
+                  "setup_s": stats["setup_s"], "wall_s": wall,
+                  "cg_iterations": sol.cg_iterations,
+                  "refinement_passes": sol.refinement_steps + 1,
+                  "escalated": stats["escalated"],
+                  "residual_norm": sol.residual_norm,
+                  "max_dv_vs_phase_8": dv, "launches": ell_launches,
+                  "launches_by_shape": ell_by_shape}
+
+    # --tp beyond the cards: the JAX package's error, exit code 1.
+    count = torch.cuda.device_count()
+    tp = max(2, count + 1)
+    text = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(text), \
+            contextlib.redirect_stderr(io.StringIO()):
+        try:
+            cli.main(["solve", str(project), "unused.npz", "--tp", str(tp)])
+        except SystemExit as exc:
+            code = exc.code
+    want = f"--tp {tp} exceeds the {count} available device(s)"
+    print(f"[sharded] cli solve --tp {tp}: exit {code}, "
+          f"{text.getvalue().strip()!r}", flush=True)
+    check(code == 1 and want in text.getvalue(),
+          f"`solve --tp {tp}` did not end in {want!r}")
+    out["cli_tp_error"] = want
+    print(json.dumps(out), flush=True)
+    return {"k1": k1, "k2": k2, "k3": k3s, "launches": launches,
+            "ell_launches": ell_launches}
 
 
 def fragmented_phase(args) -> dict:
@@ -1415,7 +1757,7 @@ def short_socket(tmp: pathlib.Path) -> tuple[str, str | None]:
 
 def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
     """Phase 12: the resident solve server on the card.  A cold `solve`
-    of phase 5's project in a fresh process with no server, then the
+    of phase 6's project in a fresh process with no server, then the
     server as a thread of this process (so the counters and DiaShapes
     see its launches), `solve` and `gui` through it in fresh processes,
     `show` on the served artifact, and in this process the scipy check's
@@ -1433,8 +1775,7 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
     from padne_tpu_torch import serve
     from padne_tpu_torch.ops import schur
 
-    pro, flags = str(ctx["project"]), ctx["flags"]
-    ref_v, _, _ = potentials_of(ctx["artifact"])
+    pro, flags, ref_v = str(ctx["project"]), ctx["flags"], ctx["ref_v"]
     sock, extra_dir = short_socket(tmp)
     env = dict(os.environ, PADNE_TORCH_SOCKET=sock, PADNE_TORCH_SERVER="1",
                MPLBACKEND="Agg", PYTHONPATH=os.pathsep.join(
@@ -1510,10 +1851,10 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
         + f"; server peak device memory {peak_gb:.3f} GB; launches "
         f"{launches}", flush=True)
 
-    # Who solved: four answered requests, and the clients said so.
-    big, small = ctx["n"], system.n
-    check([(r["n"], r["ok"]) for r in records]
-          == [(big, True), (big, True), (small, True), (small, True)],
+    # Who solved: four answered requests on the one board, and the
+    # clients said so.
+    n = system.n
+    check([(r["n"], r["ok"]) for r in records] == [(n, True)] * 4,
           f"the server did not answer every request: {records}")
     check(all("solved by the server (pid" in text
               for text in (log_solve, log_gui)),
@@ -1521,8 +1862,7 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
     check(first is not None and second is not None
           and st1["served_by"] == st2["served_by"] == os.getpid(),
           "the in-process requests were not served")
-    check(records[0]["setup_s"] > 0 and records[2]["setup_s"] > 0,
-          "a new structure reported no set-up")
+    check(records[0]["setup_s"] > 0, "a new structure reported no set-up")
     check(records[1]["setup_s"] == 0.0 and records[3]["setup_s"] == 0.0
           and st2["setup_s"] == 0.0,
           "a repeat request on a structure paid a set-up")
@@ -1537,7 +1877,7 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
         v, solver_info, sol = potentials_of(path)
         dv[name] = float(np.abs(v - ref_v).max())
         check(dv[name] <= 1e-6, f"the {name} artifact is {dv[name]:.3e} V "
-                                "from phase 5's")
+                                "from phase 6's")
         check(solver_info.residual_norm < 1e-9, f"the {name} solve's "
               f"residual {solver_info.residual_norm:.3e}")
     # `sol`: the served artifact, whose meshes gui's solve has too.
@@ -1547,9 +1887,9 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
           "an in-process served solve misses the gate")
     lin = float(np.abs(second.v - 2.0 * first.v).max())
     L, r, *_ = schur.bordered_scipy_system(doubled)
-    dv_scipy = float(np.abs(scipy.sparse.linalg.spsolve(L, r)[:small]
+    dv_scipy = float(np.abs(scipy.sparse.linalg.spsolve(L, r)[:n]
                             - second.v).max())
-    print(f"[serve] max|dV| vs phase 5: cold {dv['cold']:.3e} V, served "
+    print(f"[serve] max|dV| vs phase 6: cold {dv['cold']:.3e} V, served "
           f"{dv['served']:.3e} V; doubled excitation vs 2x the first "
           f"{lin:.3e} V, vs spsolve {dv_scipy:.3e} V", flush=True)
     check(lin <= 2e-6, f"the doubled excitation is {lin:.3e} V from 2x")
@@ -1579,11 +1919,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    print(smi().splitlines()[0], flush=True)
 
     from padne_tpu_torch import device, kernels
 
@@ -1602,7 +1938,11 @@ def main() -> int:
                                      dir=REPO) as tmp:
         k1, k2, dia_launches, ctx = dia_phases(args, pathlib.Path(tmp))
         torch.cuda.empty_cache()
-        k3, ell_launches, sweep = ell_phases(args, pathlib.Path(tmp))
+        k3, ell_launches, sweep, ell_run = ell_phases(args,
+                                                      pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+        sharded = sharded_phase(ctx.pop("cli"), ell_run, k3, ctx["project"])
+        del ell_run
         torch.cuda.empty_cache()
         frag = fragmented_phase(args)
         torch.cuda.empty_cache()
@@ -1613,6 +1953,8 @@ def main() -> int:
         # solve for K1' and K2', the ELL solve for K3'); launches_by_path:
         # on every path, each counted from 0.
         by_path = {"cli": dia_launches[name], "ell": ell_launches[name],
+                   "sharded": sharded["launches"][name],
+                   "sharded_ell": sharded["ell_launches"][name],
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
                    "serve": served["launches"][name]}
@@ -1627,14 +1969,14 @@ def main() -> int:
     kernels_line = {"kernels": [
         entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"],
-              k1 + frag["k1"], k1[0]),
+              k1 + sharded["k1"] + frag["k1"], k1[0]),
         entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"],
-              k2 + [frag["k2"]], k2[0]),
+              k2 + sharded["k2"] + [frag["k2"]], k2[0]),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "
               "padne_tpu/ops/spmv_pallas.py:172",
-              ell_launches["ell_spmv"], k3, k3[1]),
+              ell_launches["ell_spmv"], k3 + sharded["k3"], k3[1]),
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

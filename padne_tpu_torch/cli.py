@@ -8,8 +8,8 @@ Solves and the server run on the CUDA card unless `--device cpu` asks
 for the CPU by name (padne_tpu_torch.device); there is no silent
 fallback.  `gui` and `show` open the matplotlib viewer, or write
 padne_tpu_view.html where there is no display (padne_tpu_torch.ui).
-`--tp N` is accepted and raises for N > 1: the sharded path is not
-ported.
+`--tp N` shards the solve over N devices: cuda:0 .. cuda:N-1, or with
+`--device cpu` N CPU shards (padne_tpu_torch.parallel.sharding).
 """
 
 from __future__ import annotations
@@ -70,8 +70,10 @@ def add_mesher_args(parser: argparse.ArgumentParser) -> None:
                         default=d.distance_map_quantization,
                         help="Quantization step for distance map")
     parser.add_argument("--tp", type=int, default=1, metavar="N",
-                        help="Tensor-parallel width (only 1, a single "
-                             "device, is ported)")
+                        help="Tensor-parallel width: shard the solve over "
+                             "the first N CUDA devices, or over N CPU "
+                             "shards with --device cpu (1 = single "
+                             "device)")
     add_device_arg(parser)
 
 
@@ -82,13 +84,23 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
                              "runs the plain PyTorch versions")
 
 
-def check_single_device(args) -> None:
-    """--tp > 1 shards the solve over several devices in the JAX package;
-    the port has no sharded path."""
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: the sharded solve is not ported; the port "
-            "runs on a single device (--tp 1)")
+def device_mesh_from_args(args):
+    """The parallel.sharding.Mesh of --tp N > 1, None otherwise: the
+    first N CUDA devices (raises when fewer exist), or N shards on the
+    CPU with --device cpu."""
+    if getattr(args, "tp", 1) <= 1:
+        return None
+    import torch
+
+    from .parallel import sharding
+
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        return sharding.Mesh(["cpu"] * args.tp)
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if args.tp > avail:
+        raise ValueError(
+            f"--tp {args.tp} exceeds the {avail} available device(s)")
+    return sharding.make_mesh(args.tp)
 
 
 def mesher_config_from_args(args):
@@ -194,8 +206,9 @@ def do_gui(args) -> int:
     from . import kicad, solver, ui
 
     log = logging.getLogger(__name__)
-    check_single_device(args)
-    dev = device_mod.resolve(args.device)
+    mesh = device_mesh_from_args(args)
+    dev = device_mod.resolve(args.device if mesh is None
+                             else mesh.devices[0])
     log.info("Loading KiCad project for GUI: %s", args.kicad_pro_file)
     prob = kicad.load_kicad_project(args.kicad_pro_file)
     with collect_warnings() as warns:
@@ -203,6 +216,7 @@ def do_gui(args) -> int:
             prob,
             mesher_config=mesher_config_from_args(args),
             device=dev,
+            device_mesh=mesh,
         )
     captured = [w for w in warns if issubclass(w.category, solver.SolverWarning)]
     return ui.main(solution, captured)
@@ -237,16 +251,18 @@ def do_solve(args) -> None:
     from .io import solution as solution_io
 
     log = logging.getLogger(__name__)
-    check_single_device(args)
-    dev = device_mod.resolve(args.device)
+    mesh = device_mesh_from_args(args)
+    dev = device_mod.resolve(args.device if mesh is None
+                             else mesh.devices[0])
     log.info("Loading KiCad project: %s", args.kicad_pro_file)
     prob = kicad.load_kicad_project(args.kicad_pro_file)
-    log.info("Solving problem on %s...", dev)
+    log.info("Solving problem on %s...", dev if mesh is None else mesh)
     with collect_warnings() as warns:
         sol = solver.solve(
             prob,
             mesher_config=mesher_config_from_args(args),
             device=dev,
+            device_mesh=mesh,
         )
     solution_io.save_solution(sol, args.output_file)
     log.info("Solution saved to %s (%d solver warnings)", args.output_file,

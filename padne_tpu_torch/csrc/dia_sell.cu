@@ -5,17 +5,22 @@
 // pallas_call at dia.py:926) with the slot term it carries and the
 // diagonal and remainder passes around it (dia.py `dia_matvec_t`):
 //
-//   y[r, i] = diag[i] * x[r, i] + sum_j A[i, j] * x[r, j]   (f32 accumulation)
+//   y[r, i] = diag[i] * x[r, x0 + i] + sum_j A[i, j] * x[r, j]   (f32 sums)
 //
-// for x, y of shape (R, np) f32, any R.  K2' replaces padne_tpu/ops/comp.py
-// `_pallas_comp_slab` (pallas_call at comp.py:366) with the remainder and
-// diagonal terms of `matvec_slab` around it:
+// for y of shape (R, np) and x of shape (R, nx) f32, any R.  x is a
+// window: x0 = 0 and nx = np for an operator of its own, and for one shard
+// of a row-sharded operator (padne_tpu_torch/ops/dia_sharded.py) the
+// shard's rows with a halo of its neighbours' on each side (x0 = the halo)
+// and the gathered far exchange after them; A's columns index the window.
+// K2' replaces padne_tpu/ops/comp.py `_pallas_comp_slab` (pallas_call at
+// comp.py:366) with the remainder and diagonal terms of `matvec_slab`
+// around it:
 //
-//   y[i] = diag64[i] * x[i] + sum_j (hi[i, j] + lo[i, j]) * x[j]   (f64)
+//   y[i] = diag64[i] * x[x0 + i] + sum_j (hi[i, j] + lo[i, j]) * x[j]   (f64)
 //
-// for f32 x, where hi is the f32 CG operator and lo its exact f32
-// lo-half; f32 x f32 products are exact in f64, so K2' accumulates
-// (double)hi*x + (double)lo*x with f64 FMAs.
+// for f32 x of length nx (the same window), where hi is the f32 CG
+// operator and lo its exact f32 lo-half; f32 x f32 products are exact in
+// f64, so K2' accumulates (double)hi*x + (double)lo*x with f64 FMAs.
 //
 // The format (built by padne_tpu_torch/ops/dia.py `build_sell`) stores
 // nonzeros only.  The TPU kernels stream dense 128 x 128 weight blocks on a
@@ -25,8 +30,9 @@
 //   * rows are sorted by length within each 128-row block and cut into
 //     slices of 32 rows; a slice's entries are stored K-major, slot k of
 //     its 32 rows contiguous, padded to its longest row;
-//   * part A: an int16 per entry, its column less the first row of its row
-//     block (the Hilbert order keeps nearly every entry within that reach),
+//   * part A: an int16 per entry, its column less the window column of the
+//     first row of its row block (x0 + that row; the Hilbert order keeps
+//     nearly every entry within that reach),
 //     and a value in f32 or bf16;
 //   * part B, same slices: int32 columns and f32 values, for the entries
 //     farther away and for those a bf16 operator keeps in f32;
@@ -67,7 +73,9 @@ struct Sell {
   const int16_t* a_idx;     // column less the row block's first row
   const int64_t* b_ptr;     // (np/32 + 1) entry offsets of part B's slices
   const int32_t* b_col;
-  int64_t np;
+  int64_t np;               // rows of y
+  int64_t nx;               // row length of x (the window)
+  int64_t x0;               // x column of row 0
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -77,9 +85,10 @@ __device__ __forceinline__ float widen(uint16_t v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
-// First row of the row block that holds `slice`: part A's column base.
-__device__ __forceinline__ int64_t a_base(int64_t slice) {
-  return slice * SLICE / ROW_BLOCK * ROW_BLOCK;
+// Window column of the first row of the row block that holds `slice`:
+// part A's column base.
+__device__ __forceinline__ int64_t a_base(const Sell& s, int64_t slice) {
+  return s.x0 + slice * SLICE / ROW_BLOCK * ROW_BLOCK;
 }
 
 template <int RC, typename VT>
@@ -97,8 +106,8 @@ dia_sell_kernel(Sell s, const VT* __restrict__ a_val,
   const int64_t slice = warp / chunks;
   const int r0 = static_cast<int>(warp - slice * chunks) * RC;
   const int nr = min(RC, r_total - r0);
-  const float* xr = x + r0 * s.np;
-  const int64_t base = a_base(slice);
+  const float* xr = x + r0 * s.nx;
+  const int64_t base = a_base(s, slice);
   float acc[RC];
 #pragma unroll
   for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
@@ -109,7 +118,7 @@ dia_sell_kernel(Sell s, const VT* __restrict__ a_val,
     const int64_t col = base + __ldg(s.a_idx + e);
 #pragma unroll
     for (int i = 0; i < RC; ++i)
-      if (i < nr) acc[i] = fmaf(v, __ldg(xr + i * s.np + col), acc[i]);
+      if (i < nr) acc[i] = fmaf(v, __ldg(xr + i * s.nx + col), acc[i]);
   }
   const int64_t b_end = __ldg(s.b_ptr + slice + 1);
   for (int64_t e = __ldg(s.b_ptr + slice) + lane; e < b_end; e += SLICE) {
@@ -117,14 +126,15 @@ dia_sell_kernel(Sell s, const VT* __restrict__ a_val,
     const int64_t col = __ldg(s.b_col + e);
 #pragma unroll
     for (int i = 0; i < RC; ++i)
-      if (i < nr) acc[i] = fmaf(v, __ldg(xr + i * s.np + col), acc[i]);
+      if (i < nr) acc[i] = fmaf(v, __ldg(xr + i * s.nx + col), acc[i]);
   }
   const int64_t row = __ldg(s.perm + slice * SLICE + lane);
   const float d = __ldg(diag + row);
 #pragma unroll
   for (int i = 0; i < RC; ++i)
     if (i < nr)
-      y[(r0 + i) * s.np + row] = fmaf(d, __ldg(xr + i * s.np + row), acc[i]);
+      y[(r0 + i) * s.np + row] =
+          fmaf(d, __ldg(xr + i * s.nx + s.x0 + row), acc[i]);
 }
 
 __global__ void __launch_bounds__(MAX_WARPS * SLICE)
@@ -139,7 +149,7 @@ comp_sell_kernel(Sell s, const float* __restrict__ a_hi,
       threadIdx.x / SLICE;
   const int lane = threadIdx.x % SLICE;
   if (slice >= s.np / SLICE) return;
-  const int64_t base = a_base(slice);
+  const int64_t base = a_base(s, slice);
   double acc = 0.0;
   const int64_t a_end = __ldg(s.a_ptr + slice + 1);
 #pragma unroll 4
@@ -155,7 +165,8 @@ comp_sell_kernel(Sell s, const float* __restrict__ a_hi,
     acc = fma(static_cast<double>(__ldg(b_lo + e)), xv, acc);
   }
   const int64_t row = __ldg(s.perm + slice * SLICE + lane);
-  y[row] = fma(__ldg(diag + row), static_cast<double>(__ldg(x + row)), acc);
+  y[row] = fma(__ldg(diag + row), static_cast<double>(__ldg(x + s.x0 + row)),
+               acc);
 }
 
 // RHS columns per lane: up to 4, halved while the launch would give fewer
@@ -176,7 +187,8 @@ int warps_per_block(int64_t warps) {
 }
 
 bool valid(const Sell& s) {
-  return s.np > 0 && s.np % ROW_BLOCK == 0;
+  return s.np > 0 && s.np % ROW_BLOCK == 0 && s.x0 >= 0 &&
+         s.x0 + s.np <= s.nx;
 }
 
 template <int RC, typename VT>
@@ -195,9 +207,9 @@ extern "C" int pg_dia_sell(const int32_t* perm, const int64_t* a_ptr,
                            const int16_t* a_idx, const int64_t* b_ptr,
                            const int32_t* b_col, const void* a_val,
                            int a_bf16, const float* b_val, const float* diag,
-                           const float* x, int64_t np_, int r, float* y,
-                           void* stream) {
-  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_};
+                           const float* x, int64_t np_, int64_t nx,
+                           int64_t x0, int r, float* y, void* stream) {
+  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_, nx, x0};
   if (!valid(s) || r < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = rhs_chunk(np_ / SLICE, r);
@@ -222,9 +234,9 @@ extern "C" int pg_comp_sell(const int32_t* perm, const int64_t* a_ptr,
                             const int32_t* b_col, const float* a_hi,
                             const float* a_lo, const float* b_hi,
                             const float* b_lo, const double* diag,
-                            const float* x, int64_t np_, double* y,
-                            void* stream) {
-  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_};
+                            const float* x, int64_t np_, int64_t nx,
+                            int64_t x0, double* y, void* stream) {
+  const Sell s{perm, a_ptr, a_idx, b_ptr, b_col, np_, nx, x0};
   if (!valid(s)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t warps = np_ / SLICE;
   const int w = warps_per_block(warps);

@@ -71,9 +71,13 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     sell = [vp] * 5          # perm, a_ptr, a_idx, b_ptr, b_col
     lib.pg_dia_sell.restype = i32
-    lib.pg_dia_sell.argtypes = sell + [vp, i32, vp, vp, vp, i64, i32, vp, vp]
+    # a_val, a_bf16, b_val, diag, x, np, nx, x0, r, y, stream
+    lib.pg_dia_sell.argtypes = sell + [vp, i32, vp, vp, vp, i64, i64, i64,
+                                       i32, vp, vp]
     lib.pg_comp_sell.restype = i32
-    lib.pg_comp_sell.argtypes = sell + [vp, vp, vp, vp, vp, vp, i64, vp, vp]
+    # a_hi, a_lo, b_hi, b_lo, diag64, x, np, nx, x0, y, stream
+    lib.pg_comp_sell.argtypes = sell + [vp, vp, vp, vp, vp, vp, i64, i64, i64,
+                                        vp, vp]
     lib.pg_ell_spmv.restype = i32
     # f64, perm, ptr, col, val, diag, lanes, n, x, r, b, w, x0, y, stream
     lib.pg_ell_spmv.argtypes = ([i32] + [vp] * 5 + [i32, i64, vp, i32]

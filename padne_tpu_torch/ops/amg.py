@@ -2,16 +2,19 @@
 
 Port of padne_tpu.ops.amg.  DIA half: the host build (Hilbert
 order, capped aggregation, smoothed prolongation, Galerkin operators,
-aligned padded row layouts, dense coarse inverse) is carried as numpy
-and calls the port's own copy of the native core (..native).  The device
-cycle is plain torch around ops.dia matvecs (kernel K1' on every level,
-however small) in the transposed (R, n) layout; every transfer between
-levels is a reshape plus a child-permutation scatter/gather.
+aligned padded row layouts, dense coarse inverse; with tp > 1 the
+prefix of levels that shards) is carried as numpy and calls the port's
+own copy of the native core (..native).  The device cycle is plain torch
+around ops.dia matvecs (kernel K1' on every level, however small) in the
+transposed (R, n) layout; every transfer between levels is a reshape
+plus a child-permutation scatter/gather.  `make_vcycle_dia_sharded` runs
+the sharded prefix row-sharded over a mesh (ops.dia_sharded) and the
+rest as `make_vcycle_dia_t` does.
 
 ELL half (the generic route): `build_hierarchy` (greedy aggregation,
 smoothed prolongation, Galerkin coarse operators, dense pinv bottom) is
 carried as numpy; `make_vcycle` runs every level product through kernel
-K3' (ops.spmv).
+K3' (ops.spmv), on one device or row-sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ class AlignedLevel:
     cap: int                # slots per aggregate at this level
     child_len: int          # padded length of the child level's vectors
     child_perm: np.ndarray  # (nc,) child row -> child padded position
+    shard: bool = False     # row-shardable over the tp axis (ops.dia_sharded)
     lam: float = 0.0        # 1.1-margin estimate of lambda_max(D^-1 A)
 
 
@@ -211,6 +215,8 @@ def build_hierarchy_dia(
     max_offsets: int = 8,
     smooth_levels: int = 2,
     drop_tol: float = 1e-4,
+    tp: int = 1,
+    shard_min: int = 32768,
     group: "np.ndarray | None" = None,
     a_csr=None,
     deep_max_offsets: "int | None" = 24,
@@ -224,6 +230,12 @@ def build_hierarchy_dia(
     (zero matrix rows/columns, zero dinv), so every transfer on the
     device is a reshape.  Levels >= 1 may widen the offset budget
     (deep_max_offsets / deep_coverage); level 0 keeps max_offsets.
+
+    tp > 1: a prefix of levels of at least max(shard_min, tp * 1024)
+    padded rows shards over tp devices (`shard`, decided finally by
+    ops.dia_sharded.shardable): those levels pad to whole grid steps per
+    shard (tp * 1024 rows) and keep the narrow offset budget, since a
+    wider one grows the halo past the one-neighbour reach.
 
     a_csr: caller-provided CSR of the same operator (skips a second
     ELL->CSR conversion)."""
@@ -306,10 +318,16 @@ def build_hierarchy_dia(
         slot[order] = np.arange(nl) - starts[agg[order]]
         pos = agg * cap_l + slot
         np_l = max(((cap_l * nc + 1023) // 1024) * 1024, 1024)
+        # Only a prefix of levels shards: once a level is too small (or
+        # not shardable), it and every deeper level run on one device.
+        shard_l = (tp > 1 and cap_l * nc >= max(shard_min, tp * 1024)
+                   and (not levels or levels[-1].shard))
+        if shard_l:
+            np_l = -(-np_l // (tp * 1024)) * (tp * 1024)
 
         diag_pad = np.zeros(np_l)
         diag_pad[pos] = np.asarray(A.diagonal(), dtype=np.float64)
-        widen_deep = level_i > 0
+        widen_deep = level_i > 0 and not shard_l
         mo_l = max_offsets if not widen_deep else (
             deep_max_offsets if deep_max_offsets is not None
             else max_offsets)
@@ -319,6 +337,10 @@ def build_hierarchy_dia(
             A, pos, diag=diag_pad, coverage=cov_l,
             max_offsets=mo_l, np_override=np_l,
         )
+        if shard_l:
+            from . import dia_sharded
+
+            shard_l = dia_sharded.shardable(pack, tp)
         dinv_pad = np.zeros(np_l)
         dinv_pad[pos] = dinv
         all_pos.append(pos)
@@ -361,7 +383,7 @@ def build_hierarchy_dia(
         levels.append(AlignedLevel(
             pack=pack, dinv=dinv_pad, omega_p=omega_p, omega_s=omega_s,
             cap=cap_l, child_len=0, child_perm=None,   # patched below
-            lam=lam,
+            shard=shard_l, lam=lam,
         ))
         A = Ac
         lvl_coords = coords_c
@@ -435,40 +457,35 @@ def _coarse_inv_device(h: AlignedHierarchy, device) -> torch.Tensor:
     return ci.to(torch.bfloat16).to(torch.float32).to(device)
 
 
-def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
-                      w_levels: int = 3, lump_strength: float = 0.05):
-    """(apply_t, params): z = apply_t(params, rt) on (R, np0), a
-    symmetric V(1,1) cycle with damped-Jacobi smoothing and smoothed
-    aggregation transfers, so a valid SPD preconditioner for CG.
+def _cycle_level(h: AlignedHierarchy, i: int, lump_strength: float):
+    """(pack, dinv) of level i's cycle operator: level 0 strength-lumped
+    (_lumped_level0), the others as built."""
+    lv = h.levels[i]
+    if i == 0:
+        return _lumped_level0(lv.pack, lump_strength)
+    return lv.pack, lv.dinv
 
-    Level 0 runs on the strength-lumped operator (_lumped_level0) for
-    every application — the exact AMG preconditioner of the lumped
-    operator, consistent smoother/operator pair, no full-remainder pass.
-    Every level's operator is uploaded in the sliced-ELL format with its
-    offset entries in `dtype` (ops.dia.DiaPack.to_device).
 
-    w_levels: coarse levels 2..w_levels are visited twice (a W-shape on
-    the top of the coarse hierarchy; the second visit is a stationary
-    re-application B -> 2B - BAB, so the cycle stays SPD).  Values < 2
-    give the plain V-cycle."""
-    params = []
-    for i, lv in enumerate(h.levels):
-        if i == 0:
-            pack, dinv = _lumped_level0(lv.pack, lump_strength)
-        else:
-            pack, dinv = lv.pack, lv.dinv
-        entry = pack.to_device(device, dtype=dtype)
-        entry["dinv"] = torch.from_numpy(dinv.astype(np.float32)).to(device)
-        entry["child_perm"] = torch.from_numpy(
-            lv.child_perm.astype(np.int64)).to(device)
-        params.append(entry)
-    params.append({"coarse_inv": _coarse_inv_device(h, device)})
+def _level_entry(h: AlignedHierarchy, i: int, device, dtype,
+                 lump_strength: float) -> dict:
+    """Level i's cycle operator on `device` in the sliced-ELL format with
+    its offset entries in `dtype`, its dinv and child permutation."""
+    pack, dinv = _cycle_level(h, i, lump_strength)
+    entry = pack.to_device(device, dtype=dtype)
+    entry["dinv"] = torch.from_numpy(dinv.astype(np.float32)).to(device)
+    entry["child_perm"] = torch.from_numpy(
+        h.levels[i].child_perm.astype(np.int64)).to(device)
+    return entry
 
+
+def _cycle_t(h: AlignedHierarchy, w_levels: int):
+    """cycle_t(level, p, bt): the cycle from `level` down on one device,
+    bt and the result (R, np_level); p[i] is level i's entry
+    (_level_entry) for every level visited, p[-1] the coarse inverse."""
     metas = [lv.pack.meta for lv in h.levels]
     nlev = len(h.levels)
 
     def cycle_t(level: int, p, bt):
-        """bt, return: (R, np_level)."""
         if level == nlev:
             return bt @ p[-1]["coarse_inv"].T
         lv, e, meta = h.levels[level], p[level], metas[level]
@@ -502,10 +519,170 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
         x = x + (px - om_p * dinv * mv(px) if om_p else px)
         return x + om_s * dinv * (bt - mv(x))
 
+    return cycle_t
+
+
+def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
+                      w_levels: int = 3, lump_strength: float = 0.05):
+    """(apply_t, params): z = apply_t(params, rt) on (R, np0), a
+    symmetric V(1,1) cycle with damped-Jacobi smoothing and smoothed
+    aggregation transfers, so a valid SPD preconditioner for CG.
+
+    Level 0 runs on the strength-lumped operator (_lumped_level0) for
+    every application — the exact AMG preconditioner of the lumped
+    operator, consistent smoother/operator pair, no full-remainder pass.
+    Every level's operator is uploaded in the sliced-ELL format with its
+    offset entries in `dtype` (ops.dia.DiaPack.to_device).
+
+    w_levels: coarse levels 2..w_levels are visited twice (a W-shape on
+    the top of the coarse hierarchy; the second visit is a stationary
+    re-application B -> 2B - BAB, so the cycle stays SPD).  Values < 2
+    give the plain V-cycle."""
+    params = [_level_entry(h, i, device, dtype, lump_strength)
+              for i in range(len(h.levels))]
+    params.append({"coarse_inv": _coarse_inv_device(h, device)})
+    cycle_t = _cycle_t(h, w_levels)
+
     def apply_t(p, bt):
         return cycle_t(0, p, bt)
 
     return apply_t, params
+
+
+def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
+                            w_levels: int = 3, lump_strength: float = 0.05):
+    """The cycle of make_vcycle_dia_t with the sharded prefix of levels
+    (AlignedLevel.shard) row-sharded over `mesh` (a
+    parallel.sharding.Mesh; ops.dia_sharded: halo exchange, compressed
+    far exchange, one K1' launch per shard and product).  The same
+    levels, lumping, types and W-shape, so the same preconditioner.
+
+    Returns (apply, params, n_sharded): zs = apply(params, rts) on lists
+    of per-shard (R, np0 / tp) blocks; params[i] for a sharded level
+    holds its ops.dia_sharded.ShardedOperator ("op") and per-shard dinv
+    and transfer indices, for a deeper level the one-device entry of
+    make_vcycle_dia_t on the mesh's first device; n_sharded is how many
+    levels (from the top) are sharded.
+
+    Level transfers: within the sharded prefix, restriction all-gathers
+    the (R, np_l / cap) aggregate residual and each child shard takes
+    its rows; prolongation all-gathers the child correction and each
+    shard takes its aggregates' values.  The deeper levels run as one
+    replicated tail in the JAX package (the same values on every
+    shard); here they run once, on the mesh's first device, through the
+    one-device cycle, and the coarse correction is copied to every
+    shard."""
+    from ..parallel import sharding
+    from . import dia_sharded
+
+    tp = mesh.size
+    n_sh = 0
+    while n_sh < len(h.levels) and h.levels[n_sh].shard:
+        n_sh += 1
+    if n_sh == 0:
+        raise ValueError("hierarchy has no shardable levels "
+                         "(build_hierarchy_dia with tp= and a reachable "
+                         "shard_min)")
+    dev0 = mesh.devices[0]
+    params = []
+    for i, lv in enumerate(h.levels):
+        if i >= n_sh:
+            params.append(_level_entry(h, i, dev0, dtype, lump_strength))
+            continue
+        pack, dinv = _cycle_level(h, i, lump_strength)
+        nl = pack.np_ // tp
+        al = nl // lv.cap                   # aggregates of one shard
+        perm = lv.child_perm.astype(np.int64)
+        dinv32 = torch.from_numpy(dinv.astype(np.float32))
+        entry = {
+            "op": dia_sharded.upload_sharded(
+                pack, dia_sharded.plan_shards(pack, tp), mesh, dtype=dtype),
+            "dinv": [dinv32[s * nl:(s + 1) * nl].to(dev)
+                     for s, dev in enumerate(mesh.devices)],
+            # Prolongation: the child positions of each shard's
+            # aggregates (the last shards' may run past nc: zeros).
+            "prolong": [torch.from_numpy(perm[s * al:(s + 1) * al]).to(dev)
+                        for s, dev in enumerate(mesh.devices)],
+        }
+        if i + 1 < n_sh:
+            # Restriction into a sharded child: for each child shard,
+            # which aggregates land on its rows, and where.
+            cl = lv.child_len // tp
+            entry["restrict"] = []
+            for s, dev in enumerate(mesh.devices):
+                agg = np.nonzero((perm >= s * cl) & (perm < (s + 1) * cl))[0]
+                entry["restrict"].append(
+                    (torch.from_numpy(agg).to(dev),
+                     torch.from_numpy(perm[agg] - s * cl).to(dev)))
+        else:
+            entry["child_perm"] = torch.from_numpy(perm).to(dev0)
+        params.append(entry)
+    params.append({"coarse_inv": _coarse_inv_device(h, dev0)})
+    tail = _cycle_t(h, w_levels)
+    nlev = len(h.levels)
+
+    def w_visit(level: int) -> bool:
+        return 2 <= level <= w_levels and level < nlev
+
+    def cyc(level: int, p, bts):
+        lv, e = h.levels[level], p[level]
+        om_p, om_s, cap = lv.omega_p, lv.omega_s, lv.cap
+        r_cols, nl = bts[0].shape
+        al = nl // cap
+
+        def mv(xts):
+            return dia_sharded.dia_matvec_t_sharded(e["op"], xts)
+
+        dinv = [d[None, :] for d in e["dinv"]]
+        x = [om_s * d * bt for d, bt in zip(dinv, bts)]
+        r1 = [bt - y for bt, y in zip(bts, mv(x))]
+        if om_p:
+            r1 = [a - om_p * y for a, y in
+                  zip(r1, mv([d * a for d, a in zip(dinv, r1)]))]
+        rc = [t.reshape(r_cols, al, cap).sum(axis=2) for t in r1]
+        if level + 1 < n_sh:
+            cl = lv.child_len // tp
+            bcs = []
+            for full, (agg, pos) in zip(
+                    sharding.all_gather(mesh, rc, dim=1), e["restrict"]):
+                bc = full.new_zeros(r_cols, cl)
+                bc[:, pos] = full[:, agg]
+                bcs.append(bc)
+            xcs = cyc(level + 1, p, bcs)
+            if w_visit(level + 1):
+                r2 = [bc - y for bc, y in zip(bcs, dia_sharded.
+                      dia_matvec_t_sharded(p[level + 1]["op"], xcs))]
+                xcs = [a + b for a, b in zip(xcs, cyc(level + 1, p, r2))]
+            xcf = sharding.all_gather(mesh, xcs, dim=1)
+        else:
+            full = sharding.gather_to(rc, dev0, dim=1)
+            bc = full.new_zeros(r_cols, lv.child_len)
+            bc[:, e["child_perm"]] = full[:, :len(lv.child_perm)]
+            xc = tail(level + 1, p, bc)
+            if w_visit(level + 1):
+                r2 = bc - dia.dia_matvec_t(h.levels[level + 1].pack.meta,
+                                           p[level + 1], xc)
+                xc = xc + tail(level + 1, p, r2)
+            xcf = sharding.broadcast(mesh, xc)
+        px = []
+        for xf, idx in zip(xcf, e["prolong"]):
+            xct = xf[:, idx]
+            if xct.shape[1] < al:
+                xct = torch.nn.functional.pad(xct, (0, al - xct.shape[1]))
+            px.append(xct[:, :, None].expand(r_cols, al, cap).reshape(
+                r_cols, nl))
+        if om_p:
+            x = [xi + pi - om_p * d * y for xi, pi, d, y in
+                 zip(x, px, dinv, mv(px))]
+        else:
+            x = [xi + pi for xi, pi in zip(x, px)]
+        return [xi + om_s * d * (bt - y) for xi, d, bt, y in
+                zip(x, dinv, bts, mv(x))]
+
+    def apply(p, rts):
+        return cyc(0, p, rts)
+
+    return apply, params, n_sh
 
 
 # ---------------------------------------------------------------------------
@@ -682,10 +859,12 @@ def build_hierarchy(
     return AMGHierarchy(levels=levels, coarse_inv=coarse_inv)
 
 
-def make_vcycle(h: AMGHierarchy, device, a0=None):
+def make_vcycle(h: AMGHierarchy, device, a0=None, mesh=None):
     """(apply, params): z = apply(params, r) on (N, R) tensors, a
     symmetric V(1,1) cycle (damped-Jacobi pre/post smoothing from a zero
-    guess), so an SPD preconditioner for CG.  Single device.
+    guess), so an SPD preconditioner for CG.  On one device, or with a
+    mesh of more than one device row-sharded over it (_make_vcycle_sharded:
+    apply then takes and returns lists of per-shard row blocks).
 
     The cycle is laid out in float64; `vcycle_as` gives the same cycle
     in another precision over the same index arrays.  Every level
@@ -697,6 +876,8 @@ def make_vcycle(h: AMGHierarchy, device, a0=None):
     shared instead of uploaded again."""
     from . import spmv
 
+    if mesh is not None and mesh.size > 1:
+        return _make_vcycle_sharded(h, mesh)
     f64 = torch.float64
     sizes = [len(lv.a_diag) for lv in h.levels] + [h.coarse_inv.shape[0]]
     params = []
@@ -733,9 +914,99 @@ def make_vcycle(h: AMGHierarchy, device, a0=None):
     return apply, params
 
 
+def shard_rows(cols, vals, diag, n_pad: int, tp: int) -> list:
+    """Host ELL rows (n, K) and the diagonal (n,) or None, padded with
+    empty rows to n_pad and cut into tp row blocks: [(cols, vals)] of
+    each shard, the diagonal as one more entry of each row at the row's
+    own column."""
+    n = cols.shape[0]
+    if diag is not None:
+        cols = np.concatenate([cols, np.arange(n)[:, None]], axis=1)
+        vals = np.concatenate([vals, np.asarray(diag)[:, None]], axis=1)
+    cols = np.pad(cols, ((0, n_pad - n), (0, 0)))
+    vals = np.pad(vals, ((0, n_pad - n), (0, 0)))
+    nl = n_pad // tp
+    return [(cols[s * nl:(s + 1) * nl], vals[s * nl:(s + 1) * nl])
+            for s in range(tp)]
+
+
+def shard_ell_rows(cols, vals, diag, nx: int, n_pad: int, mesh, dtype):
+    """`shard_rows` as one rectangular ops.spmv.EllOperator (n_pad / tp,
+    nx) per shard on its device, over the all-gathered x."""
+    from . import spmv
+
+    return [spmv.build_operator(c, v, None, nx, dev, dtype)
+            for (c, v), dev in zip(shard_rows(cols, vals, diag, n_pad,
+                                              mesh.size), mesh.devices)]
+
+
+def _make_vcycle_sharded(h: AMGHierarchy, mesh):
+    """make_vcycle row-sharded over `mesh`, as the JAX package's
+    make_vcycle(tp=): every level's rows are padded to a multiple of tp
+    (padding rows inert: no entries, zero smoothing weight), and each
+    level's A, P and R are row-sharded K3' operators over the
+    all-gathered level vector, the smoothing and residual lines fused
+    into their products as on one device.  The dense coarsest solve runs
+    once, on the mesh's first device, and each shard takes its rows.
+    Laid out in float64 (vcycle_as casts)."""
+    from ..parallel import sharding
+    from . import spmv
+
+    f64, tp, dev0 = torch.float64, mesh.size, mesh.devices[0]
+    sizes = [len(lv.a_diag) for lv in h.levels] + [h.coarse_inv.shape[0]]
+    pads = [-(-n // tp) * tp for n in sizes]
+    params = []
+    for i, lv in enumerate(h.levels[:-1]):
+        d = np.asarray(lv.a_diag, np.float64)
+        w = np.zeros(pads[i])
+        w[:sizes[i]] = lv.omega * np.where(
+            d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+        params.append({
+            "a": shard_ell_rows(lv.a_cols, lv.a_vals, d, pads[i], pads[i],
+                                mesh, f64),
+            "w": sharding.split(mesh, torch.from_numpy(w), dim=0),
+            "p": shard_ell_rows(lv.p_cols, lv.p_vals, None, pads[i + 1],
+                                pads[i], mesh, f64),
+            "r": shard_ell_rows(lv.r_cols, lv.r_vals, None, pads[i],
+                                pads[i + 1], mesh, f64),
+        })
+    params.append({"coarse_inv": torch.from_numpy(h.coarse_inv).to(
+        device=dev0, dtype=f64)})
+
+    def gathered(xs):
+        return sharding.all_gather(mesh, xs, dim=0)
+
+    def cycle(level: int, p, bs):
+        if level == len(p) - 1:
+            nc = sizes[level]
+            xc = p[-1]["coarse_inv"] @ sharding.gather_to(bs, dev0, 0)[:nc]
+            xc = torch.nn.functional.pad(xc, (0, 0, 0, pads[level] - nc))
+            return sharding.split(mesh, xc, dim=0)
+        a, w = p[level]["a"], p[level]["w"]
+        x = [wi[:, None] * b for wi, b in zip(w, bs)]
+        r = [spmv.ell_spmv(ai, xf, b=b) for ai, xf, b in
+             zip(a, gathered(x), bs)]
+        rc = [spmv.ell_spmv(ri, rf) for ri, rf in
+              zip(p[level]["r"], gathered(r))]
+        xc = gathered(cycle(level + 1, p, rc))
+        x = [spmv.ell_spmv(pi, xcf, x0=xi) for pi, xcf, xi in
+             zip(p[level]["p"], xc, x)]
+        return [spmv.ell_spmv(ai, xf, b=b, w=wi, x0=xi) for ai, xf, b, wi, xi
+                in zip(a, gathered(x), bs, w, x)]
+
+    def apply(p, rs):
+        return cycle(0, p, rs)
+
+    return apply, params
+
+
 def vcycle_as(vcycle, dtype):
     """make_vcycle's (apply, params) with every value cast to `dtype`;
     the operators' index arrays are shared, not copied."""
     apply, params = vcycle
-    return apply, [{key: v.to(dtype) for key, v in entry.items()}
+
+    def cast(v):
+        return [t.to(dtype) for t in v] if isinstance(v, list) else v.to(dtype)
+
+    return apply, [{key: cast(v) for key, v in entry.items()}
                    for entry in params]

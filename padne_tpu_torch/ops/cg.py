@@ -11,6 +11,11 @@ which yields A^+ B.  Each column keeps its own alpha/beta and stops on
 its own tolerance; all columns share one multi-RHS matvec and one
 preconditioner application per iteration.
 
+`make_pcg_sharded` is the same solver over per-shard state on a device
+mesh (padne_tpu.ops.cg's `make_pcg_t_sharded` and `make_pcg(mesh=)`):
+dots are sums of per-shard partials, and the deflation projector sums
+per-shard segment sums across the shards.
+
 The JAX `while_loop` is a Python loop here: the continue condition is
 read on the host once per iteration (one device sync per iteration).
 The stateful chunked restarts of the JAX package (`solve.stateful`,
@@ -195,6 +200,114 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
         rtrue = (spmv.ell_spmv(a, x, b=b) if operator is None
                  else b - matvec(x))
         x = project(x)
+        return CGResult(x=x if dim == 0 else x.T, iterations=k,
+                        residual_norms=dot(rtrue, rtrue).sqrt())
+
+    return solve
+
+
+def jacobi_sharded(diags: list, dim: int = 0):
+    """(apply, params) of the Jacobi preconditioner over per-shard
+    diagonals, for make_pcg_sharded: z = r / diag where diag > 0."""
+    minv = [torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
+                        1.0).unsqueeze(1 - dim) for d in diags]
+
+    def apply(p, rs):
+        return [m * r for m, r in zip(p, rs)]
+
+    return apply, minv
+
+
+def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
+                     precond: tuple, stall_window: Optional[int] = None,
+                     dim: int = 0):
+    """Deflated PCG over per-shard state on `mesh`
+    (parallel.sharding.Mesh): the counterpart of the JAX package's
+    make_pcg_t_sharded (dim 1, the DIA route's (R, N) layout) and
+    make_pcg(mesh=) (dim 0, the ELL route's (N, R)).
+
+    operator, precond: (apply, params) with ys = apply(params, xs) on
+    lists of per-shard blocks, shard s's rows [s * N / tp, (s + 1) * N /
+    tp) on mesh.devices[s] (e.g. ops.dia_sharded.dia_matvec_t_sharded
+    and amg.make_vcycle_dia_sharded, or jacobi_sharded).  comp_id: (N,)
+    component of each row (N a multiple of the mesh size).
+
+    The iteration is make_pcg's: every dot is a psum of per-shard
+    partials, the projector subtracts component means from per-shard
+    segment sums summed across shards, and the continue condition is
+    read on the host once per iteration.  solve(b, tol, maxiter) takes
+    (N, R) on any device and returns CGResult with x (N, R) on the
+    mesh's first device."""
+    from ..parallel import sharding
+
+    a_apply, a_params = operator
+    m_apply, m_params = precond
+    comp = sharding.split(mesh, torch.as_tensor(comp_id).long(), dim=0)
+    counts = sharding.psum(mesh, [
+        torch.zeros(num_components, dtype=torch.float64,
+                    device=c.device).index_add_(
+            0, c, torch.ones(len(c), dtype=torch.float64, device=c.device))
+        for c in comp]).clamp_min(1.0)
+    window = _NO_STALL if stall_window is None else stall_window
+
+    def project(xs):
+        shape = list(xs[0].shape)
+        shape[dim] = num_components
+        sums = sharding.psum(mesh, [
+            x.new_zeros(shape).index_add_(dim, c, x)
+            for x, c in zip(xs, comp)])
+        means = sums / counts.to(sums.dtype).unsqueeze(1 - dim)
+        return [x - m.index_select(dim, c) for x, m, c in
+                zip(xs, sharding.broadcast(mesh, means), comp)]
+
+    def dot(xs, ys):
+        return sharding.psum(mesh, [(x * y).sum(dim=dim)
+                                    for x, y in zip(xs, ys)])   # (R,)
+
+    def scaled(coef):
+        return sharding.broadcast(mesh, coef.unsqueeze(dim))
+
+    def solve(b, tol, maxiter: int = 10000) -> CGResult:
+        bs = project(sharding.split(mesh, b if dim == 0 else b.T, dim))
+        target = tol * dot(bs, bs).sqrt().clamp_min(1e-300)
+        xs = [torch.zeros_like(x) for x in bs]
+        rs = bs
+        zs = project(m_apply(m_params, rs))
+        ps = zs
+        rz = dot(rs, zs)
+        rn = dot(rs, rs).sqrt()
+        best = rn
+        stall = torch.zeros_like(rn, dtype=torch.int32)
+        k = 0
+        while k < maxiter:
+            active = rn > target
+            if not bool((active & (stall < window)).any()):
+                break
+            aps = a_apply(a_params, ps)
+            pap = dot(ps, aps)
+            alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0),
+                                0.0)
+            alpha = scaled(torch.where(active, alpha, 0.0))
+            xs = [x + a * p for x, a, p in zip(xs, alpha, ps)]
+            rs = [r - a * ap for r, a, ap in zip(rs, alpha, aps)]
+            if k % 50 == 49:
+                # Periodic re-projection kills drift into the nullspace.
+                rs = project(rs)
+            zs = project(m_apply(m_params, rs))
+            rz_new = dot(rs, zs)
+            beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0),
+                               0.0)
+            # Restart (p = z) on negative beta, as make_pcg.
+            beta = scaled(torch.where(active & (beta > 0), beta, 0.0))
+            ps = [z + bt * p for z, bt, p in zip(zs, beta, ps)]
+            rz = rz_new
+            rn = dot(rs, rs).sqrt()
+            improved = rn < 0.97 * best
+            best = torch.minimum(best, rn)
+            stall = torch.where(improved, 0, stall + 1)
+            k += 1
+        rtrue = [b_ - y for b_, y in zip(bs, a_apply(a_params, xs))]
+        x = sharding.gather_to(project(xs), mesh.devices[0], dim)
         return CGResult(x=x if dim == 0 else x.T, iterations=k,
                         residual_norms=dot(rtrue, rtrue).sqrt())
 

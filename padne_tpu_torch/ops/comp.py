@@ -27,17 +27,19 @@ _COMP_KEYS = ("a_lo", "b_lo", "diag64")
 
 def comp_sell_plain(params, x32) -> torch.Tensor:
     """Plain PyTorch version of K2': A64 @ x as float64 from the f32 hi
-    and lo values (exact f32 products in f64) and the f64 diagonal."""
+    and lo values (exact f32 products in f64) and the f64 diagonal, for
+    x of the operator's window (nx,); y is (np_,)."""
     (pos_a, col_a), (pos_b, col_b) = dia.sell_entries(params)
+    np_, x0 = params["perm"].numel(), params["x0"]
     x64 = x32.double()
-    acc = torch.zeros_like(x64)
+    acc = x64.new_zeros(np_)
     acc.index_add_(0, pos_a, params["a_val"].double() * x64[col_a]
                    + params["a_lo"].double() * x64[col_a])
     acc.index_add_(0, pos_b, params["b_val"].double() * x64[col_b]
                    + params["b_lo"].double() * x64[col_b])
     y = torch.empty_like(acc)
     y[params["perm"].long()] = acc
-    return y.addcmul_(params["diag64"], x64)
+    return y.addcmul_(params["diag64"], x64[x0:x0 + np_])
 
 
 def _launch(params, x32) -> torch.Tensor:
@@ -51,12 +53,14 @@ def _launch(params, x32) -> torch.Tensor:
     ptrs = dia.sell_args(params, x32, {
         "a_val": f32, "a_lo": f32, "b_val": f32, "b_lo": f32,
         "diag64": (torch.float64,)})
-    y = torch.empty(x32.shape, dtype=torch.float64, device=x32.device)
+    np_ = params["perm"].numel()
+    y = torch.empty(np_, dtype=torch.float64, device=x32.device)
     rc = kernels.load().pg_comp_sell(
         *ptrs, params["a_val"].data_ptr(), params["a_lo"].data_ptr(),
         params["b_val"].data_ptr(), params["b_lo"].data_ptr(),
-        params["diag64"].data_ptr(), x32.data_ptr(), x32.shape[0],
-        y.data_ptr(), torch.cuda.current_stream(x32.device).cuda_stream)
+        params["diag64"].data_ptr(), x32.data_ptr(), np_, params["nx"],
+        params["x0"], y.data_ptr(),
+        torch.cuda.current_stream(x32.device).cuda_stream)
     kernels.check_launch(rc, "comp_sell")
     return y
 
@@ -65,7 +69,8 @@ def comp_sell(params, x32) -> torch.Tensor:
     """Kernel K2' (csrc/dia_sell.cu) on CUDA tensors; the plain version
     for CPU tensors.  params: the CG operator's sliced-ELL dict built
     with `DiaPack.to_device(..., compensated=True)` (its index arrays and
-    f32 hi values, plus the lo-halves and the f64 diagonal)."""
+    f32 hi values, plus the lo-halves and the f64 diagonal), or one
+    shard's (ops.dia_sharded); x32 spans its window (nx,)."""
     for key in _COMP_KEYS:
         if key not in params:
             raise ValueError(f"the operator carries no {key}: build it "

@@ -25,6 +25,13 @@ format built by `build_sell`:
   keeps in f32 (slots and remainder);
 * the diagonal is a dense (np,) vector.
 
+Columns index a window of x: `nx` columns, row i's own at `x0 + i`.  An
+operator of its own has nx = np and x0 = 0; one shard of a row-sharded
+operator (ops.dia_sharded) reads its rows with a halo of its neighbours'
+on each side (x0 = the halo) and the gathered far exchange after them,
+and part A's distance then counts from the block's first row in that
+window.
+
 `sell_matvec` is kernel K1' (csrc/dia_sell.cu) over that format, with
 its plain PyTorch version `sell_matvec_plain`; `dia_matvec_t` is one
 launch of it, in the transposed (R, np) layout the DIA route uses.
@@ -371,10 +378,12 @@ def _lo_half(v64) -> torch.Tensor:
 
 
 def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
-               keep_f32=None, compensated: bool = False) -> dict:
-    """An (np_, np_) operator, diagonal + off-diagonal COO (rows, cols,
+               keep_f32=None, compensated: bool = False,
+               nx: Optional[int] = None, x0: int = 0) -> dict:
+    """An (np_, nx) operator, diagonal + off-diagonal COO (rows, cols,
     vals), in the sliced-ELL device format (module doc), built on
-    `device` with torch ops.
+    `device` with torch ops.  cols index the window of x (module doc):
+    nx columns (default np_), row i's own at x0 + i.
 
     keep_f32: bool mask of entries whose values stay f32 when `dtype` is
     narrower (they take the int32-column part).  compensated (f32 only):
@@ -385,17 +394,23 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     a_ptr/b_ptr (np_/32 + 1,) int64 slice offsets of part A and part B;
     a_idx int16 (column less the row block's first row), a_val (dtype);
     b_col int32, b_val f32; diag f32; with compensated a_lo, b_lo f32 and
-    diag64 f64.  Padding entries carry value 0 and index 0 (a column
-    the slice's rows read anyway)."""
+    diag64 f64; nx and x0 as ints.  Padding entries carry value 0 and
+    index 0 (a column the slice's rows read anyway)."""
+    nx = np_ if nx is None else nx
     if np_ % ROW_BLOCK:
         raise ValueError(f"np_ must be a multiple of {ROW_BLOCK}, got {np_}")
+    if x0 < 0 or x0 + np_ > nx:
+        raise ValueError(f"rows {x0}..{x0 + np_} lie outside the window "
+                         f"of {nx} columns")
     if compensated and dtype != torch.float32:
         raise ValueError("the compensated operator shares f32 values")
     dev = torch.device(device)
     rows = torch.as_tensor(rows, device=dev).long()
     cols = torch.as_tensor(cols, device=dev).long()
     v64 = torch.as_tensor(vals, dtype=torch.float64, device=dev)
-    delta = cols - rows // ROW_BLOCK * ROW_BLOCK
+    if len(cols) and (int(cols.min()) < 0 or int(cols.max()) >= nx):
+        raise ValueError(f"columns out of range for a window of {nx}")
+    delta = cols - (x0 + rows // ROW_BLOCK * ROW_BLOCK)
     in_a = (delta >= -2**15) & (delta < 2**15)
     if keep_f32 is not None and dtype != torch.float32:
         in_a &= ~torch.as_tensor(keep_f32, device=dev)
@@ -429,7 +444,7 @@ def build_sell(np_, rows, cols, vals, diag, device, dtype=torch.float32,
     diag64 = torch.as_tensor(np.asarray(diag, np.float64), device=dev)
     params = {"perm": perm.int(), "a_ptr": a_ptr, "a_idx": a_idx,
               "a_val": a_val, "b_ptr": b_ptr, "b_col": b_col, "b_val": b_val,
-              "diag": diag64.float()}
+              "diag": diag64.float(), "nx": nx, "x0": x0}
     if compensated:
         params["a_lo"] = torch.zeros_like(a_val)
         params["a_lo"][dest_a] = _lo_half(v64[in_a])
@@ -449,26 +464,28 @@ def entries(ptr) -> torch.Tensor:
 
 
 def sell_entries(params) -> tuple:
-    """((pos_a, col_a), (pos_b, col_b)): slice-lane position and column
-    of every stored entry of part A and part B,
+    """((pos_a, col_a), (pos_b, col_b)): slice-lane position and window
+    column of every stored entry of part A and part B,
     padding included (row = perm[pos])."""
     pos_a = entries(params["a_ptr"])
-    col_a = pos_a // ROW_BLOCK * ROW_BLOCK + params["a_idx"].long()
+    col_a = (params["x0"] + pos_a // ROW_BLOCK * ROW_BLOCK
+             + params["a_idx"].long())
     return ((pos_a, col_a),
             (entries(params["b_ptr"]), params["b_col"].long()))
 
 
 def sell_matvec_plain(params, xt) -> torch.Tensor:
-    """Plain PyTorch version of K1': y^T = A x^T for f32 xt (R, np_), a
+    """Plain PyTorch version of K1': y^T = A x^T for f32 xt (R, nx), a
     gather and a sum over each slice's width in f32 (bf16 values widened),
-    then the diagonal."""
+    then the diagonal.  y^T is (R, np_)."""
     (pos_a, col_a), (pos_b, col_b) = sell_entries(params)
-    acc = torch.zeros_like(xt)
+    np_, x0 = params["perm"].numel(), params["x0"]
+    acc = xt.new_zeros(xt.shape[0], np_)
     acc.index_add_(1, pos_a, params["a_val"].float() * xt[:, col_a])
     acc.index_add_(1, pos_b, params["b_val"] * xt[:, col_b])
     y = torch.empty_like(acc)
     y[:, params["perm"].long()] = acc
-    return y.addcmul_(params["diag"], xt)
+    return y.addcmul_(params["diag"], xt[:, x0:x0 + np_])
 
 
 _SELL_INDEX = {"perm": torch.int32, "a_ptr": torch.int64,
@@ -478,13 +495,16 @@ _SELL_INDEX = {"perm": torch.int32, "a_ptr": torch.int64,
 
 def sell_args(params, x, values: dict) -> list:
     """The format's index pointers for a kernel entry point, after
-    checking device, type, contiguity and sizes of those arrays and of
-    the value arrays `values` names ({key: allowed dtypes}); shared by
-    K1' and K2'."""
-    np_ = params["perm"].numel()
-    if np_ % ROW_BLOCK or x.shape[-1] != np_:
-        raise ValueError(f"x has {x.shape[-1]} columns, the operator "
-                         f"{np_} rows (a multiple of {ROW_BLOCK})")
+    checking device, type, contiguity and sizes of those arrays, of the
+    value arrays `values` names ({key: allowed dtypes}) and of x against
+    the window (nx, x0); shared by K1' and K2'."""
+    np_, nx, x0 = params["perm"].numel(), params["nx"], params["x0"]
+    if np_ % ROW_BLOCK or x.shape[-1] != nx:
+        raise ValueError(f"x has {x.shape[-1]} columns, the operator's "
+                         f"window {nx} ({np_} rows, a multiple of "
+                         f"{ROW_BLOCK})")
+    if x0 < 0 or x0 + np_ > nx:
+        raise ValueError(f"rows {x0}..{x0 + np_} lie outside the window")
     for key, dts in {**{k: (dt,) for k, dt in _SELL_INDEX.items()},
                      **values}.items():
         t = params[key]
@@ -499,27 +519,29 @@ def sell_args(params, x, values: dict) -> list:
 def _launch(params, xt) -> torch.Tensor:
     """K1' on the card: checks operands, launches, returns y^T."""
     if xt.dtype != torch.float32 or xt.dim() != 2 or xt.shape[0] < 1:
-        raise ValueError(f"x^T must be f32 (R, np), got {xt.dtype} "
+        raise ValueError(f"x^T must be f32 (R, nx), got {xt.dtype} "
                          f"{tuple(xt.shape)}")
     if not xt.is_contiguous():
         raise ValueError("x^T must be contiguous")
     f32 = (torch.float32,)
     ptrs = sell_args(params, xt, {"a_val": (torch.float32, torch.bfloat16),
                                   "b_val": f32, "diag": f32})
-    y = torch.empty_like(xt)
+    np_ = params["perm"].numel()
+    y = xt.new_empty(xt.shape[0], np_)
     rc = kernels.load().pg_dia_sell(
         *ptrs, params["a_val"].data_ptr(),
         int(params["a_val"].dtype == torch.bfloat16),
         params["b_val"].data_ptr(), params["diag"].data_ptr(),
-        xt.data_ptr(), xt.shape[1], xt.shape[0], y.data_ptr(),
-        torch.cuda.current_stream(xt.device).cuda_stream)
+        xt.data_ptr(), np_, params["nx"], params["x0"], xt.shape[0],
+        y.data_ptr(), torch.cuda.current_stream(xt.device).cuda_stream)
     kernels.check_launch(rc, "dia_sell")
     return y
 
 
 def sell_matvec(params, xt) -> torch.Tensor:
     """Kernel K1' (csrc/dia_sell.cu) on CUDA tensors: y^T = A x^T for f32
-    xt of shape (R, np_); the plain version for CPU tensors."""
+    xt of shape (R, nx), y^T (R, np_); the plain version for CPU
+    tensors."""
     if xt.device.type == "cpu":
         return sell_matvec_plain(params, xt)
     y = _launch(params, xt)

@@ -27,12 +27,21 @@ components: up to 63 the CG projects with a dense one-hot, beyond that
 with the segment-sum projector of ops.cg (index_add_ and a gather), so
 heavily fragmented boards run the same kernels and the same ladder.
 
-Out of scope here (raises NotImplementedError, never falls back):
-multi-device row sharding.
+With a mesh (parallel.sharding.Mesh) of more than one device both
+routes row-shard the inner solve, as the JAX package's `mesh=` does: the
+DIA route over ops.dia_sharded (halo windows, K1' and K2' per shard) and
+the sharded aligned cycle, where the hierarchy's top level shards and
+the deflation has at most 64 components (else it solves on one device,
+as the JAX package routes it); the ELL route over rectangular K3' shard
+operators on the all-gathered vector and the sharded ELL cycle, padding
+rows forming their own deflation component.  The small Schur block, the
+border products and the refinement residuals stay on the mesh's first
+device.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -41,7 +50,10 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from . import amg, assembly, cg, comp, dia, spmv
+from ..parallel import sharding
+from . import amg, assembly, cg, comp, dia, dia_sharded, spmv
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -187,17 +199,31 @@ class DiaBorderedSolver:
     compensated refinement residuals all stay on the device; the host
     solves the small (m+p) Schur block, and verifies the final residual
     in f64 on its CSR copy of the operator.
+
+    mesh: a parallel.sharding.Mesh; with more than one device its
+    devices become one row-sharding axis (tp) and the hierarchy pads for
+    it (shard_min: the fewest padded rows a level shards at).  The solve
+    shards (`sharded`) when the top level shards and the deflation has
+    at most 64 components, as the JAX package decides: the CG operator
+    and the ladder's K2' per shard over its halo window
+    (ops.dia_sharded), the cycle's sharded prefix as
+    amg.make_vcycle_dia_sharded, the CG as cg.make_pcg_sharded.  Else
+    it logs the decline and solves on the mesh's first device.  `device`
+    is then that device.
     """
 
     def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
                  maxiter: int = 40000, cycle_dtype=None,
                  w_levels: "int | None" = None, max_offsets: int = 4,
                  coarse_size: int = 3000, inner_tol: float = 1e-5,
-                 comp_inner_tol: float = 3e-4):
+                 comp_inner_tol: float = 3e-4, mesh=None,
+                 shard_min: int = 32768):
         import scipy.sparse
 
-        dev = device_mod.resolve(device)
+        tp = mesh.size if mesh is not None else 1
+        dev = device_mod.resolve(mesh.devices[0] if tp > 1 else device)
         self.device = dev
+        self.mesh, self.tp = mesh, tp
         on_card = dev.type == "cuda"
         if cycle_dtype is None:
             cycle_dtype = torch.bfloat16 if on_card else torch.float32
@@ -213,17 +239,23 @@ class DiaBorderedSolver:
         self.A_host = system.ell.to_scipy()
         hierarchy = amg.build_hierarchy_dia(
             system.ell, system.coords, coarse_size=coarse_size,
-            group=system.group, a_csr=self.A_host, max_offsets=max_offsets)
+            group=system.group, a_csr=self.A_host, max_offsets=max_offsets,
+            tp=tp, shard_min=shard_min)
         if not hierarchy.levels:
             raise _NoDiaHierarchy(
                 f"n={n} is too small for a DIA hierarchy at "
                 f"coarse_size={coarse_size}")
         self.hierarchy = hierarchy
         meta0 = hierarchy.levels[0].pack.meta
-
-        op_params = amg.make_dia_cg_operator(hierarchy, dev)
-        vcycle_apply, vparams = amg.make_vcycle_dia_t(
-            hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels)
+        self.sharded = tp > 1 and hierarchy.levels[0].shard and p + 1 <= 64
+        if tp > 1 and not self.sharded:
+            log.info("DIA sharding declined over %d devices: %s; solving "
+                     "on %s", tp,
+                     "the top level does not shard"
+                     if not hierarchy.levels[0].shard else
+                     f"{p} deflation components exceed the sharded "
+                     "projector's budget (64)", dev)
+        self.n_sharded = 0
 
         posmap = hierarchy.posmap0
         np0 = hierarchy.np0
@@ -232,17 +264,35 @@ class DiaBorderedSolver:
         comp_pad[posmap] = system.comp_id
         self.comp_pad_dev = _index(comp_pad, dev)
 
-        def a_apply_t(prm, xt):
-            return dia.dia_matvec_t(meta0, prm, xt)
+        if self.sharded:
+            lv0 = hierarchy.levels[0]
+            op_params = dia_sharded.upload_sharded(
+                lv0.pack, dia_sharded.plan_shards(lv0.pack, tp), mesh,
+                compensated=True)
+            vcycle_apply, vparams, self.n_sharded = \
+                amg.make_vcycle_dia_sharded(hierarchy, mesh,
+                                            dtype=cycle_dtype,
+                                            w_levels=w_levels)
+            self.cg_solver = cg.make_pcg_sharded(
+                mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
+                comp_pad, p + 1, (vcycle_apply, vparams), stall_window=30,
+                dim=1)
+        else:
+            op_params = amg.make_dia_cg_operator(hierarchy, dev)
+            vcycle_apply, vparams = amg.make_vcycle_dia_t(
+                hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels)
 
-        # The device operands of K1': the CG operator (shared with K2'),
-        # and the cycle's operators level by level.
+            def a_apply_t(prm, xt):
+                return dia.dia_matvec_t(meta0, prm, xt)
+
+            self.cg_solver = cg.make_pcg(
+                None, self.comp_pad_dev, p + 1,
+                operator=(a_apply_t, op_params),
+                precond=(vcycle_apply, vparams), stall_window=30, dim=1)
+        # The device operands of K1': the CG operator (shared with K2';
+        # a dia_sharded.ShardedOperator when sharded), and the cycle's
+        # operators level by level.
         self.op_params, self.cycle_params = op_params, vparams
-
-        self.cg_solver = cg.make_pcg(
-            None, self.comp_pad_dev, p + 1,
-            operator=(a_apply_t, op_params),
-            precond=(vcycle_apply, vparams), stall_window=30, dim=1)
         self.inner_tol = max(tol, inner_tol)
         self.comp_inner_tol = max(tol, comp_inner_tol)
         # f32 CG gains stall after a few dozen cycles; the outer ladder
@@ -319,6 +369,15 @@ class DiaBorderedSolver:
         return out.index_add_(0, self._col_node_pos,
                               self._col_val64 * j64[self._col_idx])
 
+    def _a64(self, v32):
+        """A64 @ v as f64 for padded f32 v (np0,): kernel K2' over the CG
+        operator, one launch, or one per shard over its window."""
+        if not self.sharded:
+            return comp.comp_sell(self.op_params, v32)
+        return sharding.gather_to(dia_sharded.comp_sharded(
+            self.op_params, sharding.split(self.mesh, v32, dim=0)),
+            self.device, dim=0)
+
     def _ztr(self, r64):
         """Z^T r per component (without the dummy padding slot)."""
         out = torch.zeros(self.p + 1, dtype=torch.float64,
@@ -390,7 +449,7 @@ class DiaBorderedSolver:
         c_full = torch.cat([c, c.new_zeros(1)]).float()
         dj32 = dj.float()
         dv = self._Xc @ dj32 - xr + c_full[self.comp_pad_dev]
-        av = comp.comp_sell(self.op_params, dv)
+        av = self._a64(dv)
         r_new = r64 + av - self._c_apply(dj32.double())
         rb_new = rb64 - (BXc64 @ dj - Bxr + BZ64 @ c)
         n2 = (r_new * r_new).sum() + (rb_new * rb_new).sum()
@@ -406,7 +465,7 @@ class DiaBorderedSolver:
         dev = self.device
         b = self.system.border
         j64 = _f64(j, dev)
-        r64 = (self._b64 + comp.comp_sell(self.op_params, v1_pad)
+        r64 = (self._b64 + self._a64(v1_pad)
                - self._c_apply(j64))
         rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
         res_norm = float(((r64 * r64).sum() + (rb64 * rb64).sum()).sqrt())
@@ -503,6 +562,7 @@ def solve_bordered(
     operator: str = "auto",
     device=None,
     stats: Optional[dict] = None,
+    mesh=None,
 ) -> BorderedSolution:
     """Solve the full bordered system, routed as the JAX package routes.
 
@@ -517,9 +577,14 @@ def solve_bordered(
     "ell" force one.  The ELL route preconditions with AMG from
     _AMG_THRESHOLD core unknowns, with Jacobi below.
 
+    mesh: a parallel.sharding.Mesh; with more than one device the inner
+    solve row-shards over it (module doc) and `device` is the mesh's
+    first device.
+
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
-    uploads) and, on the ELL route, ell_k and escalated."""
+    uploads), tp and sharded (whether the inner solve sharded) and, on
+    the ELL route, ell_k and escalated."""
     n, m = system.n, system.border.m
     stats = {} if stats is None else stats
     if operator == "dia" and system.coords is None:
@@ -536,6 +601,10 @@ def solve_bordered(
             stats.update(route="direct", levels=[], setup_s=0.0)
             return direct
 
+    if mesh is not None and mesh.size > 1:
+        device = mesh.devices[0]
+    else:
+        mesh = None
     dev = device_mod.resolve(device)
     use_dia = operator == "dia" or (
         operator == "auto" and inner_dtype is not None
@@ -544,27 +613,30 @@ def solve_bordered(
         t0 = time.perf_counter()
         try:
             solver = DiaBorderedSolver(system, device=dev, tol=tol,
-                                       maxiter=maxiter)
+                                       maxiter=maxiter, mesh=mesh)
         except _NoDiaHierarchy:
             solver = None   # fall through to the ELL route
         if solver is not None:
             stats.update(route="dia", setup_s=time.perf_counter() - t0,
                          levels=[lv.pack.np_
-                                 for lv in solver.hierarchy.levels])
+                                 for lv in solver.hierarchy.levels],
+                         tp=solver.tp, sharded=solver.sharded)
             return solver.solve(target_residual=target_residual,
                                 max_refinements=max_refinements)
     return _solve_bordered_ell(
         system, dev, tol=tol, maxiter=maxiter,
         max_refinements=max_refinements, target_residual=target_residual,
-        inner_dtype=inner_dtype, stats=stats)
+        inner_dtype=inner_dtype, stats=stats, mesh=mesh)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                         max_refinements, target_residual, inner_dtype,
-                        stats) -> BorderedSolution:
+                        stats, mesh=None) -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
     PCG per Schur pass over the ELL operator (kernel K3'), the small
-    dense block by host lstsq, f64 full-system refinement."""
+    dense block by host lstsq, f64 full-system refinement.  With a mesh
+    the PCG and the cycle row-shard over its first row of devices
+    (_sharded_ell_cg); the rest stays on `dev`."""
     t0 = time.perf_counter()
     n, m = system.n, system.border.m
     p = system.num_components
@@ -576,7 +648,6 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     B, C = _dense_border(system, dev)
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
-    a_inner = a64.to(inner)                           # a64 itself in f64
     inner_tol = max(tol, 1e-5) if mixed else tol
     use_amg = n >= _AMG_THRESHOLD
     if use_amg and not mixed:
@@ -592,23 +663,33 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
 
     r_core = _f64(system.r_core, dev)
     r_border = _f64(system.border.rhs, dev)
+    row_mesh = None if mesh is None else sharding.Mesh(mesh.grid[0])
+    tp = 1 if row_mesh is None else row_mesh.size
+    n_pad = n + (-n) % tp
     hierarchy = vcycle = vcycle64 = None
     if use_amg:
         # One layout of the cycle's operators, in f64 (what an escalation
         # needs); the mixed inner solve casts the values and shares the
         # index arrays.
         hierarchy = amg.build_hierarchy(system.ell)
-        vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64)
+        vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64, mesh=row_mesh)
         vcycle = amg.vcycle_as(vcycle64, inner) if mixed else vcycle64
+
+    def make_solver(dtype, precond, stall_window):
+        if row_mesh is None:
+            return cg.make_pcg(a64.to(dtype), comp_id, p, precond=precond,
+                               stall_window=stall_window)
+        return _sharded_ell_cg(system, row_mesh, n_pad, dtype, precond,
+                               stall_window)
+
     # Stall exit only with a mixed-precision inner solve (see make_pcg).
-    cg_solver = cg.make_pcg(a_inner, comp_id, p, precond=vcycle,
-                            stall_window=30 if mixed else None)
+    cg_solver = make_solver(inner, vcycle, 30 if mixed else None)
     BZ = zt(B.T).T.cpu().numpy()          # (m, p)
     ZtC = zt(C).cpu().numpy()             # (p, m)
     stats.update(route="ell", ell_k=int(system.ell.cols.shape[1]),
                  levels=([len(lv.a_diag) for lv in hierarchy.levels]
                          if hierarchy is not None else []),
-                 setup_s=time.perf_counter() - t0)
+                 setup_s=time.perf_counter() - t0, tp=tp, sharded=tp > 1)
     total_cg_iters = 0
 
     def solve_once(rc, rb, tol_pass=None):
@@ -616,11 +697,12 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         tensors); tol_pass: inner CG tolerance (default inner_tol)."""
         nonlocal total_cg_iters
         rhs = torch.cat([C, rc[:, None]], dim=1)              # (n, m+1)
+        rhs = torch.nn.functional.pad(rhs, (0, 0, 0, n_pad - n))
         res = cg_solver(rhs.to(inner),
                         inner_tol if tol_pass is None else tol_pass,
                         maxiter)
         total_cg_iters += res.iterations
-        X = res.x.to(f64)                  # [A^+ C | A^+ rc]
+        X = res.x[:n].to(f64)              # [A^+ C | A^+ rc]
         Xc, xr = X[:, :m], X[:, m]
         BXc = (B @ Xc).cpu().numpy()                          # (m, m)
         Bxr = (B @ xr).cpu().numpy()                          # (m,)
@@ -658,8 +740,7 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         boards mixing milliohm couplings with thin-sliver cotan weights
         push kappa past 1e7, above the target."""
         nonlocal cg_solver, inner_tol, inner
-        cg_solver = cg.make_pcg(a64, comp_id, p, precond=vcycle64,
-                                stall_window=None)
+        cg_solver = make_solver(f64, vcycle64, None)
         inner = f64
         inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)
 
@@ -703,3 +784,31 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     return BorderedSolution(
         v=v.cpu().numpy(), j=j, residual_norm=res_norm, ground_current=gc,
         cg_iterations=total_cg_iters, refinement_steps=refinements)
+
+
+def _sharded_ell_cg(system: CoreSystem, mesh, n_pad: int, dtype, precond,
+                    stall_window):
+    """The ELL route's deflated PCG row-sharded over `mesh`, the JAX
+    package's make_pcg(mesh=): rows padded to n_pad (a multiple of the
+    mesh size; padding rows form their own deflation component, so they
+    carry exactly zero), each shard's rows a rectangular K3' operator
+    over the all-gathered x with the diagonal as one more entry a row
+    (amg.shard_ell_rows), Jacobi from the padded diagonal when no cycle
+    is given.  Solves (n_pad, R) right-hand sides."""
+    ell, n, p = system.ell, system.n, system.num_components
+    ops = amg.shard_ell_rows(ell.cols, ell.vals, ell.diag, n_pad, n_pad,
+                             mesh, dtype)
+    comp_cg = np.concatenate([system.comp_id,
+                              np.full(n_pad - n, p, np.int64)])
+
+    def matvec(prm, xs):
+        return [spmv.ell_spmv(op, xf) for op, xf in
+                zip(prm, sharding.all_gather(mesh, xs, dim=0))]
+
+    if precond is None:
+        diag = torch.from_numpy(np.pad(np.asarray(ell.diag, np.float64),
+                                       (0, n_pad - n))).to(dtype)
+        precond = cg.jacobi_sharded(sharding.split(mesh, diag, dim=0))
+    return cg.make_pcg_sharded(mesh, (matvec, ops), comp_cg,
+                               p + (n_pad > n), precond,
+                               stall_window=stall_window)

@@ -658,9 +658,15 @@ def solve(
     check_against_scipy: bool = False,
     device=None,
     stats: Optional[dict] = None,
+    device_mesh=None,
 ) -> Solution:
     """Solve a problem end-to-end on `device` (None: the CUDA card; see
     padne_tpu_torch.device).
+
+    device_mesh: optional parallel.sharding.Mesh; with more than one
+    device the inner solve row-shards over it (ops.schur.solve_bordered)
+    and the mesh's first device takes the place of `device`.  A mesh
+    skips the resident-server dispatch, as in the JAX package.
 
     The system goes through ops.schur.solve_bordered as the JAX package
     sends it there: the card plays the accelerator (f32 inner solves
@@ -679,6 +685,10 @@ def solve(
     check_against_scipy, scipy_max_dv.  For a served solve, setup_s is
     the server's set-up (0 on a cached operator), server_solve_s its
     solve and solve_s the rest of the round trip."""
+    if device_mesh is not None and device_mesh.size > 1:
+        device = device_mesh.devices[0]
+    else:
+        device_mesh = None
     dev = device_mod.resolve(device)
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
@@ -686,12 +696,13 @@ def solve(
         prob, mesher_config
     )
     t1 = time.perf_counter()
-    result = _served(system, dev, stats)
+    result = None if device_mesh is not None else _served(system, dev, stats)
     if result is None:
         stats["served_by"] = None
         inner_dtype = torch.float32 if dev.type == "cuda" else None
         result = schur.solve_bordered(system, inner_dtype=inner_dtype,
-                                      device=dev, stats=stats)
+                                      device=dev, stats=stats,
+                                      mesh=device_mesh)
     t3 = time.perf_counter()
     stats.update(n=system.n, m=system.border.m, mesh_assemble_s=t1 - t0,
                  solve_s=t3 - t1 - stats["setup_s"])

@@ -5,8 +5,9 @@ Gates: the saved per-layer potentials lie within 1e-6 V of what
 `padne_tpu.cli solve` saves for the same project, and the port's
 artifact loads through padne_tpu.io.solution; `info`, `paraview` and
 `html` work on it; `gui` and `show` write the HTML viewer without a
-display; `--tp 2`, a missing project and a missing card end in exit
-code 1 through handle_errors."""
+display; `--tp 4 --device cpu` solves sharded as `padne_tpu.cli solve
+--tp 4` does; `--tp` beyond the cards, a missing project and a missing
+card end in exit code 1 through handle_errors."""
 
 import pathlib
 import subprocess
@@ -106,17 +107,54 @@ def test_mesher_flags_reach_the_solve(boards_dir, tmp_path):
     assert args.device is None and args.tp == 1
 
 
-def test_tp_above_one_is_not_ported(boards_dir, tmp_path, capsys):
+def test_tp_solve_matches_the_jax_cli(boards_dir, tmp_path, monkeypatch):
+    """`solve --device cpu --tp 4` shards the solve over four CPU shards
+    and saves what `padne_tpu.cli solve --tp 4` saves, within 1e-6 V."""
+    from padne_tpu_torch.ops import schur
+
     pro = boards_dir / "gen_strip" / "gen_strip.kicad_pro"
+    seen = []
+    real = schur.solve_bordered
+
+    def recording(system, **kw):
+        stats = kw.setdefault("stats", {})
+        sol = real(system, **kw)
+        seen.append(stats)
+        return sol
+
+    monkeypatch.setattr(schur, "solve_bordered", recording)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cli.main(["solve", str(pro), str(tmp_path / "tp4.npz"), "--device",
+                  "cpu", "--tp", "4"])
+        jcli.main(["solve", str(pro), str(tmp_path / "jax.npz"), "--tp",
+                   "4"])
+    assert [(st["tp"], st["sharded"]) for st in seen] == [(4, True)]
+    got = solution_io.load_solution(tmp_path / "tp4.npz")
+    want = jsolution_io.load_solution(tmp_path / "jax.npz")
+    assert got.solver_info.residual_norm < 1e-9
+    for lg, lw in zip(got.layer_solutions, want.layer_solutions, strict=True):
+        for pg, pw in zip(lg.potentials, lw.potentials, strict=True):
+            assert np.abs(pg.values - pw.values).max() <= 1e-6
+
+
+def test_tp_above_the_card_count_raises(boards_dir, tmp_path, capsys):
+    """Without --device, --tp N takes cuda:0 .. cuda:N-1 and ends in the
+    JAX package's error when fewer cards exist."""
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    pro = boards_dir / "gen_strip" / "gen_strip.kicad_pro"
+    tp = str(max(2, avail + 1))
     with pytest.raises(SystemExit) as e:
-        cli.main(["solve", str(pro), str(tmp_path / "o.npz"), "--device",
-                  "cpu", "--tp", "2"])
+        cli.main(["solve", str(pro), str(tmp_path / "o.npz"), "--tp", tp])
     assert e.value.code == 1
-    assert "NotImplementedError" in capsys.readouterr().err
+    assert (f"--tp {tp} exceeds the {avail} available device(s)"
+            in capsys.readouterr().out)
     assert not (tmp_path / "o.npz").exists()
-    with pytest.raises(NotImplementedError):
-        cli.check_single_device(cli.parse_args(
-            ["solve", "a.kicad_pro", "b.npz", "--tp", "2"]))
+    assert cli.device_mesh_from_args(cli.parse_args(
+        ["solve", "a.kicad_pro", "b.npz", "--tp", "1"])) is None
+    mesh = cli.device_mesh_from_args(cli.parse_args(
+        ["solve", "a.kicad_pro", "b.npz", "--device", "cpu", "--tp", "3"]))
+    assert mesh.size == 3 and {d.type for d in mesh.devices} == {"cpu"}
 
 
 def test_default_device_is_the_card(boards_dir, tmp_path, capsys):

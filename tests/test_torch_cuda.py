@@ -14,7 +14,10 @@ window (the int32-column part), and at R in {2, 3, 4, 9} on a level
 wide enough for the 2- and 4-column chunks of K1'; K2' on the odd
 operator; K3' at every lanes-per-row setting, f32 and f64, R in {1, 2,
 4, 5}, each epilogue, square and rectangular with empty rows, rows off
-the 16-byte grid; and the launch counters.  Tolerances: f32 sums in another order
+the 16-byte grid; K1' and K2' over a window (x0 > 0, columns in the
+halos and past them), and the sharded products of ops.dia_sharded on
+four shards of the card against the one-device ones; and the launch
+counters.  Tolerances: f32 sums in another order
 (1e-5 of max|y|), f64 likewise (1e-12); K2' against the f64 bound
 2e-13 * max(|A| |x|).
 """
@@ -117,6 +120,69 @@ def test_comp_sell_matches_f64(cuda, size):
                 b_lo=params["b_lo"].abs(), diag64=params["diag64"].abs())
     bound = comp.comp_sell_plain(absp, x.abs()).max()
     assert (y - ref).abs().max() <= 2e-13 * bound
+
+
+def _windowed(seed, np_=24 * 128, n=2900, x0=384, extra=640):
+    """_operator's rows over a window of x: row i's own column at x0 + i,
+    each entry's column shifted by x0, and a fifth of them moved into
+    the halos or past the rows (as a shard's near and far entries)."""
+    np_, rows, cols, vals, diag = _operator(seed, np_=np_, n=n)
+    nx = x0 + np_ + extra
+    rng = np.random.default_rng(seed)
+    moved = rng.random(len(rows)) < 0.2
+    cols = np.where(moved, rng.integers(0, nx, len(rows)), cols + x0)
+    return np_, rows, cols, vals, diag, nx, x0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 4])
+def test_windowed_kernels_match_plain(cuda, dtype, r):
+    np_, rows, cols, vals, diag, nx, x0 = _windowed(seed=30 + r)
+    params = dia.build_sell(np_, rows, cols, vals, diag, cuda, dtype=dtype,
+                            compensated=dtype == torch.float32, nx=nx, x0=x0)
+    xt = torch.randn(r, nx, device=cuda)
+    y = dia.sell_matvec(params, xt)
+    ref = dia.sell_matvec_plain(params, xt)
+    torch.cuda.synchronize()
+    assert y.shape == (r, np_)
+    assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+    with pytest.raises(ValueError):
+        dia.sell_matvec(params, xt[:, :np_].contiguous())
+    if dtype == torch.float32:
+        x = xt[0].contiguous()
+        y = comp.comp_sell(params, x)
+        ref = comp.comp_sell_plain(params, x)
+        absp = dict(params, a_val=params["a_val"].abs(),
+                    a_lo=params["a_lo"].abs(), b_val=params["b_val"].abs(),
+                    b_lo=params["b_lo"].abs(), diag64=params["diag64"].abs())
+        bound = comp.comp_sell_plain(absp, x.abs()).max()
+        assert (y - ref).abs().max() <= 2e-13 * bound
+
+
+def test_sharded_products_on_the_card(cuda):
+    """K1' and K2' shard by shard (ops.dia_sharded) on four shards of the
+    card against one launch over the whole operator."""
+    from padne_tpu_torch.ops import dia_sharded
+    from padne_tpu_torch.parallel import sharding
+
+    np_, rows, cols, vals, diag = _operator(seed=40, np_=64 * 128, n=8000)
+    pack = dia.pack_dia(np_, rows, cols, vals, diag=diag, np_override=np_)
+    mesh = sharding.Mesh([cuda] * 4)
+    op = dia_sharded.upload_sharded(pack, dia_sharded.plan_shards(pack, 4),
+                                    mesh, compensated=True)
+    whole = pack.to_device(cuda, compensated=True)
+    xt = torch.randn(3, np_, device=cuda)
+    before = dia.sell_matvec.launches
+    y = torch.cat(dia_sharded.dia_matvec_t_sharded(
+        op, sharding.split(mesh, xt, dim=1)), dim=1)
+    assert dia.sell_matvec.launches == before + 4
+    ref = dia.sell_matvec(whole, xt)
+    x = xt[0].contiguous()
+    c = torch.cat(dia_sharded.comp_sharded(op, sharding.split(mesh, x, 0)))
+    c_ref = comp.comp_sell(whole, x)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (c - c_ref).abs().max() <= 1e-12 * c_ref.abs().max()
 
 
 def _ell_operator(shape, dtype, cuda, seed, lanes):

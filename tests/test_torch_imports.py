@@ -36,6 +36,8 @@ def test_port_modules_import_without_jax():
                  "colormaps", "raster", "ui"):
         assert f"padne_tpu_torch.{name}" in mods
     assert "padne_tpu_torch.kicad" in mods and "padne_tpu_torch.native" in mods
+    for name in ("parallel", "parallel.sharding", "ops.dia_sharded"):
+        assert f"padne_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,8 +50,10 @@ def test_port_modules_import_without_jax():
 
 
 def test_user_path_runs_without_jax(tmp_path):
-    """solve, info, paraview, html and a sweep in one process: nothing
-    on the user path pulls in a forbidden module at run time either."""
+    """solve, info, paraview, html, a sweep and the sharded solves (the
+    CLI's `--tp 4` on the ELL route, a DIA solve over a four-shard mesh)
+    in one process: nothing on the user path pulls in a forbidden module
+    at run time either."""
     code = (
         "import pathlib, sys, warnings\n"
         "warnings.simplefilter('ignore')\n"
@@ -66,6 +70,25 @@ def test_user_path_runs_without_jax(tmp_path):
         "r = sweep.solve_sweep(kicad.load_kicad_project(pro),\n"
         "                      [sweep.SweepSpec(2.0, 3.3)], device='cpu')\n"
         "assert r[0].residual_norm < 1e-8\n"
+        "cli.main(['solve', str(pro), str(tmp / 't.npz'), '--device', 'cpu',\n"
+        "          '--tp', '4'])\n"
+        "import numpy as np\n"
+        "from padne_tpu_torch.ops import assembly, schur\n"
+        "from padne_tpu_torch.parallel import sharding\n"
+        "g = 96\n"
+        "idx = np.arange(g * g).reshape(g, g)\n"
+        "e = np.concatenate([np.stack([idx[:-1].ravel(), idx[1:].ravel()], 1),\n"
+        "                    np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1)])\n"
+        "ell = assembly.build_ell(g * g, e, np.ones(len(e)))\n"
+        "ij = np.stack(np.meshgrid(np.arange(g), np.arange(g), indexing='ij'), -1)\n"
+        "one = lambda *v: np.array(v)\n"
+        "border = schur.BorderSpec(1, one(0, 0), one(0, g * g - 1), one(1., -1.),\n"
+        "                          one(0, 0), one(0, g * g - 1), one(1., -1.), one(1.))\n"
+        "system = schur.CoreSystem(g * g, ell, np.zeros(g * g, np.int64), 1, border,\n"
+        "                          np.zeros(g * g), 0, ij.reshape(-1, 2) * 1.0)\n"
+        "s = schur.DiaBorderedSolver(system, mesh=sharding.Mesh(['cpu'] * 4),\n"
+        "                            shard_min=4096, coarse_size=200)\n"
+        "assert s.sharded and s.solve().residual_norm < 1e-9\n"
         f"{_FORBIDDEN}"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
