@@ -83,6 +83,27 @@ Phases (any failure exits non-zero; there is no CPU path):
    device(s)` error.  Set-up and solve seconds beside phase 5's, CG
    iterations, passes, launches, peak device memory and the bytes of
    halo and far exchange per matvec are printed;
+9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
+   entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
+   on phase 5's system (not meshed again): batched_sharded_cg of 4
+   conductance scales 1 + 0.5 b, R = 2 balanced source/sink columns
+   each, f64, 200 iterations; sharded_cg of the scale-1 system on the 4
+   shards of one dp row; no synchronizing call inside either loop
+   (torch.cuda.set_sync_debug_mode("error")); K3' exactly once per
+   iteration, shard and system, held against its plain version at the
+   shard's and the whole operator's shape (the first timed by events
+   and graph replay, with its bound and cuSPARSE on the same CSR); each
+   system within 1e-9 of max|x| of sharded_cg on one device after 50
+   iterations (DP_TP_CHECK_ITERS: later the runs part by CG's own
+   rounding), |b - A x| / |b| lower after 200 than after 50.  Printed:
+   set-up seconds, wall ms, K3' launches and device events per
+   iteration (profiler), host us per device event, busy share,
+   |b - A x| / |b| of each system, the distance from one device after
+   50 and after 200 iterations, peak device memory.  Part B, the DIA
+   production path's replicas: phase 6's system at conductance scales 1
+   and 2, each a DiaBorderedSolver over its own dp row of 4 shards,
+   residual < 1e-9 and within 1e-9 V of the one-device solve of its own
+   scaled system, every K1'/K2' shape launched held;
 10. a heavily fragmented board ("fragmented"): one copper layer cut into
    12 x 12 separate tiles and a rail, every tile held against the rail
    by its own voltage source and loaded by its own current source, at
@@ -123,8 +144,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    set-up and solve seconds per request and its peak device memory are
    printed.
 
-Each of the phases cli, sharded, fragmented, sweep and serve also
-prints one JSON line {"phase": ...} with its numbers.
+Each of the phases cli, sharded, dp_tp, fragmented, sweep and serve
+also prints one JSON line {"phase": ...} with its numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -483,22 +504,23 @@ def k2_case(params, seed, name: str = "l0 CG operator", timed: bool = True):
             "csr_bound_ms": csr_bound_ms}
 
 
-def dia_cases(s, label: str, seed: int):
+def dia_cases(s, label: str, seed: int, timed: bool = True):
     """K1' and K2' on every operator a set-up DiaBorderedSolver `s`
     launches them on, at both widths its solve has: the CG operator
     (f32) and each sparse level of the cycle, at R = m + 1 (the first
     solve, border columns and right-hand side together) and at R = 1
-    (the refinement passes), and K2' on the CG operator.  Returns (K1'
-    cases, K2' case); the CG operator at R = m + 1 comes first."""
+    (the refinement passes), and K2' on the CG operator (timed=False:
+    the comparisons with the plain versions only).  Returns (K1' cases,
+    K2' case); the CG operator at R = m + 1 comes first."""
     r = s.m + 1
     op, cyc = s.op_params, s.cycle_params   # cyc[-1]: the coarse inverse
-    k1 = [k1_case(f"{label}l0 CG operator", op, r, seed),
-          k1_case(f"{label}l0 CG operator", op, 1, seed + 1)]
+    k1 = [k1_case(f"{label}l0 CG operator", op, r, seed, timed),
+          k1_case(f"{label}l0 CG operator", op, 1, seed + 1, timed)]
     for i, level in enumerate(cyc[:-1]):
         for width in (r, 1):
             k1.append(k1_case(f"{label}l{i} cycle operator", level, width,
-                              seed + 2 + 2 * i + (width == 1)))
-    return k1, k2_case(op, seed + 2 * len(cyc))
+                              seed + 2 + 2 * i + (width == 1), timed))
+    return k1, k2_case(op, seed + 2 * len(cyc), timed=timed)
 
 
 def dia_kernel_cases(system):
@@ -1358,22 +1380,23 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def sharded_dia_cases(s, seed: int):
+def sharded_dia_cases(s, seed: int, timed: bool = True):
     """K1' and K2' at every shape the sharded DIA solver `s` launches:
     each shard's f32 CG operator and each sharded cycle level's operator
     per shard over its window, at R = m + 1 and R = 1, K2' on each
     shard's CG operator, and the one-device tail levels of the cycle at
     both widths.  Every shard is held against the plain version; the
     first shard of each (level, width), whose shape the others share, is
-    also timed.  Returns (K1' cases, K2' cases)."""
+    also timed (timed=False: none).  Returns (K1' cases, K2' cases)."""
     r = s.m + 1
     k1, k2 = [], []
     for sh, prm in enumerate(s.op_params.params):
         name = f"sharded l0 CG operator shard {sh}"
         for width in (r, 1):
-            k1.append(k1_case(name, prm, width, seed, timed=sh == 0))
+            k1.append(k1_case(name, prm, width, seed,
+                              timed=timed and sh == 0))
             seed += 1
-        k2.append(k2_case(prm, seed, name, timed=sh == 0))
+        k2.append(k2_case(prm, seed, name, timed=timed and sh == 0))
         seed += 1
     for i, level in enumerate(s.cycle_params[:-1]):
         shards = level["op"].params if "op" in level else [level]
@@ -1381,7 +1404,8 @@ def sharded_dia_cases(s, seed: int):
             name = (f"sharded l{i} cycle operator"
                     + (f" shard {sh}" if "op" in level else " (one device)"))
             for width in (r, 1):
-                k1.append(k1_case(name, prm, width, seed, timed=sh == 0))
+                k1.append(k1_case(name, prm, width, seed,
+                                  timed=timed and sh == 0))
                 seed += 1
     return k1, k2
 
@@ -1596,6 +1620,338 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project) -> dict:
     print(json.dumps(out), flush=True)
     return {"k1": k1, "k2": k2, "k3": k3s, "launches": launches,
             "ell_launches": ell_launches}
+
+
+DP_TP = (2, 4)       # phase dp_tp: dp rows x tp shards of the one card
+DP_TP_BATCH = 4      # systems of the batched solve: conductance 1 + 0.5 b
+DP_TP_ITERS = 200
+# Where phase dp_tp holds the sharded solvers against one device.  Two
+# f64 CG runs whose dots only sum in another order (the psum of shard
+# partials) agree to rounding for the first ~50 iterations on phase
+# cli's system, then part as CG loses orthogonality (2.4e-4 of max|x|
+# after 200 on an NVIDIA H100 80GB HBM3 at 700 W), while one device
+# against itself stays bit-equal.  The phase prints the distance at
+# each count of DP_TP_CURVE.
+DP_TP_CHECK_ITERS = 50
+DP_TP_CURVE = (25, 50, 100, 150, 200)
+
+
+def dp_tp_batch(system, seed: int = 1):
+    """The batch of phase dp_tp on `system`'s core Laplacian, as
+    __graft_entry__.dryrun_multichip builds it: DP_TP_BATCH conductance
+    scales 1 + 0.5 b of one structure, each with R = 2 balanced
+    source/sink columns (a source and a sink of one copper component, so
+    that the singular system is consistent).  Returns (the batch as an
+    EllMatrix, b (B, n, 2), the scales)."""
+    import numpy as np
+
+    from padne_tpu_torch.ops import assembly
+
+    ell, n = system.ell, system.n
+    scales = 1.0 + 0.5 * np.arange(DP_TP_BATCH)
+    rng = np.random.default_rng(seed)
+    b = np.zeros((DP_TP_BATCH, n, 2))
+    for col in np.ndindex(DP_TP_BATCH, 2):
+        i = int(rng.integers(n))
+        same = np.flatnonzero(system.comp_id == system.comp_id[i])
+        j = int(same[rng.integers(len(same))])
+        b[col[0], i, col[1]] += 1.0
+        b[col[0], j, col[1]] -= 1.0
+    batch = assembly.EllMatrix(cols=ell.cols,
+                               vals=ell.vals[None] * scales[:, None, None],
+                               diag=ell.diag[None] * scales[:, None])
+    return batch, b, scales
+
+
+class SyncForbidden:
+    """While entered, a call that makes the host wait for the card raises
+    (torch.cuda.set_sync_debug_mode("error"))."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def device_events(fn) -> tuple[int, float]:
+    """(device events, ms of kernels) of one call of fn under
+    torch.profiler: kernels and copies on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(e.time_range.elapsed_us() for e in events
+             if not e.name.startswith(("Memcpy", "Memset"))) / 1e3
+    return len(events), ms
+
+
+def dp_tp_solvers(system, k3_shapes) -> dict:
+    """Part A of phase dp_tp: parallel.sharding's standalone solvers at
+    the main path's width (phase cli's system): batched_sharded_cg of
+    DP_TP_BATCH conductance scales on a dp x tp mesh of the one card and
+    sharded_cg of the scale-1 system on one dp row, DP_TP_ITERS
+    iterations each with no synchronizing call inside either loop, K3'
+    held at every shape launched (k3_shapes: the phase's K3Shapes
+    counter).  Both are held against sharded_cg on one device after
+    DP_TP_CHECK_ITERS iterations; after DP_TP_ITERS their distance from
+    the one-device run is printed, not held (see DP_TP_CHECK_ITERS)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from padne_tpu_torch.ops import amg, assembly
+    from padne_tpu_torch.parallel import sharding
+
+    dp, tp = DP_TP
+    f64, iters = torch.float64, DP_TP_ITERS
+    dev = torch.device(DEV, 0)
+    mesh = sharding.Mesh([dev] * (dp * tp), dp=dp)
+    one = sharding.Mesh([dev])
+    ell, n = system.ell, system.n
+    batch, b, scales = dp_tp_batch(system)
+    n_pad = n + (-n) % tp
+
+    # K3' at the phase's two shapes: a shard's rows over the gathered
+    # vector (every shard and system of both solvers) and the whole
+    # operator (the one-device references), f64, R = 2.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = []
+    for name, rows, count in (("dp_tp A shard 0", n_pad, tp),
+                              ("dp_tp A one device", n, 1)):
+        c, v = amg.shard_rows(ell.cols, ell.vals, ell.diag, rows, count)[0]
+        cases.append(k3_case(name, (c, v, None, rows), f64, 2, "plain",
+                             gen))
+    torch.cuda.empty_cache()
+    held = {c["key"]: c["name"] for c in cases}
+
+    def timed(fn, guard=contextlib.nullcontext):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with guard():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches = {"dia_sell": 0, "comp_sell": 0, "ell_spmv": 0}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        for key, count in launch_counts().items():
+            launches[key] += count
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    placed, setup_s = timed(
+        lambda: sharding.prepare_sharded_system(batch, b, mesh))
+    single = assembly.EllMatrix(cols=ell.cols, vals=ell.vals, diag=ell.diag)
+    placed1, setup1_s = timed(
+        lambda: sharding.prepare_sharded_system(single, b[0], mesh))
+
+    def batched(k=iters):
+        return sharding.batched_sharded_cg(mesh, *placed, iters=k)
+
+    def row(k=iters):
+        return sharding.sharded_cg(mesh, *placed1, iters=k)
+
+    x, wall = timed(lambda: counted(batched), SyncForbidden)
+    check(launches["ell_spmv"] == iters * DP_TP_BATCH * tp,
+          f"batched_sharded_cg launched K3' {launches['ell_spmv']} times, "
+          "not once per iteration, shard and system")
+    x1, wall1 = timed(lambda: counted(row), SyncForbidden)
+    check(launches["ell_spmv"] == iters * (DP_TP_BATCH + 1) * tp,
+          "sharded_cg did not launch K3' once per iteration and shard")
+    # Device events and kernel time of one whole call each, under the
+    # profiler (its set-up and gather are a few events of thousands).
+    events, kernel_ms = device_events(batched)
+    events1, _ = device_events(row)
+    early = counted(lambda: batched(DP_TP_CHECK_ITERS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    a0 = ell.to_scipy()
+
+    def rel_residual(j, xj):
+        return float(np.linalg.norm(b[j] - scales[j] * (a0 @ xj))
+                     / np.linalg.norm(b[j]))
+
+    def dist(a, ref):
+        return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+    gap, gap_late, rel_res, curve = [], [], [], {}
+    for j in range(DP_TP_BATCH):
+        system_j = assembly.EllMatrix(cols=ell.cols, vals=batch.vals[j],
+                                      diag=batch.diag[j])
+        placed_j = sharding.prepare_sharded_system(system_j, b[j], one)
+        ref = {k: counted(lambda k=k: sharding.sharded_cg(
+            one, *placed_j, iters=k))[:n].cpu().numpy()
+            for k in (DP_TP_CURVE if j == 0 else (DP_TP_CHECK_ITERS, iters))}
+        del placed_j
+        got = [early[j, :n].cpu().numpy()]
+        late = [x[j, :n].cpu().numpy()]
+        if j == 0:
+            # sharded_cg on one dp row (system 0) against one device, by
+            # the iteration count: where the two runs part.
+            curve = {k: dist(counted(lambda k=k: row(k))[:n].cpu().numpy(),
+                             ref[k]) for k in DP_TP_CURVE}
+            late.append(x1[:n].cpu().numpy())
+        gap.append(max([dist(g, ref[DP_TP_CHECK_ITERS]) for g in got]
+                       + ([curve[DP_TP_CHECK_ITERS]] if j == 0 else [])))
+        gap_late.append(max(dist(g, ref[iters]) for g in late))
+        check(gap[-1] <= 1e-9, f"system {j} after {DP_TP_CHECK_ITERS} "
+                               f"iterations is {gap[-1]:.3e} of max|x| "
+                               "from the one-device run")
+        rel_res.append(rel_residual(j, late[0]))
+        first = rel_residual(j, got[0])
+        check(np.isfinite(late).all() and rel_res[-1] < first,
+              f"system {j}: |b - A x| / |b| {rel_res[-1]:.3e} after "
+              f"{iters} iterations, {first:.3e} after {DP_TP_CHECK_ITERS}")
+    del placed, placed1
+    torch.cuda.empty_cache()
+    missing = sorted(set(k3_shapes) - set(held))
+    check(not missing, f"phase dp_tp launched K3' at shapes that were not "
+                       f"held against the plain version: {missing}")
+    check(launches["dia_sell"] == launches["comp_sell"] == 0,
+          "the standalone solvers launched a DIA kernel")
+    wall_it_ms = wall / iters * 1e3
+    out = {"n": n, "n_pad": n_pad, "dp": dp, "tp": tp,
+           "batch": DP_TP_BATCH, "r": 2, "dtype": "f64", "iters": iters,
+           "setup_s": setup_s, "wall_s": wall,
+           "wall_ms_per_iteration": wall_it_ms,
+           "k3_launches_per_iteration": DP_TP_BATCH * tp,
+           "device_events_per_iteration": events / iters,
+           "host_us_per_launch": wall * 1e6 / events,
+           "busy_share": kernel_ms / (wall * 1e3),
+           "rel_residual": rel_res,
+           "check_iters": DP_TP_CHECK_ITERS,
+           "max_dx_vs_one_device": max(gap),
+           "max_dx_vs_one_device_after_iters": max(gap_late),
+           "sharded_cg_dx_vs_one_device_by_iters": curve,
+           "peak_device_memory_gb": peak,
+           "sharded_cg": {"setup_s": setup1_s, "wall_s": wall1,
+                          "wall_ms_per_iteration": wall1 / iters * 1e3,
+                          "device_events_per_iteration": events1 / iters},
+           "k3_cases": {c["name"]: {k: c[k] for k in (
+               "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+               "library_graph_ms")} for c in cases}}
+    print(f"[dp_tp] batched_sharded_cg n={n} dp {dp} x tp {tp} B="
+          f"{DP_TP_BATCH} R=2 f64 {iters} iterations: set-up {setup_s:.2f} "
+          f"s, {wall_it_ms:.3f} ms an iteration ({wall:.3f} s), K3' "
+          f"{DP_TP_BATCH * tp} and device events {events / iters:.1f} an "
+          f"iteration, host {out['host_us_per_launch']:.2f} us a device "
+          f"event, busy share {out['busy_share']:.3f}, |b - A x| / |b| "
+          f"{', '.join(f'{r:.3e}' for r in rel_res)}; sharded_cg on one dp "
+          f"row: set-up {setup1_s:.2f} s, {wall1 / iters * 1e3:.3f} ms an "
+          f"iteration, device events {events1 / iters:.1f} an iteration; "
+          f"max|dx| vs one device {max(gap):.3e} of max|x| after "
+          f"{DP_TP_CHECK_ITERS} iterations, {max(gap_late):.3e} after "
+          f"{iters}; sharded_cg's by iterations "
+          f"{', '.join(f'{k}: {v:.3e}' for k, v in curve.items())}; no "
+          f"synchronizing call in either loop; peak device memory "
+          f"{peak:.3f} GB", flush=True)
+    return {"out": out, "cases": cases, "launches": launches}
+
+
+def dp_tp_replicas(system, seed: int = 41) -> dict:
+    """Part B of phase dp_tp: the dp x tp layout of the DIA production
+    path (__graft_entry__.dryrun_multichip, JAX
+    test_dp_x_tp_production_replicas) on `system` (phase 6's): the rows
+    of a dp x tp mesh of the one card as replicas, each a
+    DiaBorderedSolver over its own row for the system at conductance
+    scale 1 + d, each against the one-device solve of its own scaled
+    system; every K1'/K2' shape that any of the solves launches held
+    against the plain version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from padne_tpu_torch.ops import assembly, schur
+    from padne_tpu_torch.parallel import sharding
+
+    dp, tp = DP_TP
+    mesh = sharding.Mesh([torch.device(DEV, 0)] * (dp * tp), dp=dp)
+    k1, k2, replicas, solved = [], [], [], []
+    for d, row in enumerate(mesh.grid):
+        ell = system.ell
+        scaled = dataclasses.replace(system, ell=assembly.EllMatrix(
+            cols=ell.cols, vals=ell.vals * (1.0 + d),
+            diag=ell.diag * (1.0 + d)))
+        t0 = time.perf_counter()
+        s = schur.DiaBorderedSolver(scaled, mesh=sharding.Mesh(row))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(s.sharded, f"replica {d} did not shard")
+        ref = schur.DiaBorderedSolver(scaled, device=DEV)
+        for cases in (sharded_dia_cases(s, seed, timed=False),
+                      dia_cases(ref, f"dp_tp one-device x{1.0 + d} ",
+                                seed + 50, timed=False)):
+            k1 += cases[0]
+            k2 += cases[1] if isinstance(cases[1], list) else [cases[1]]
+        seed += 100
+        replicas.append((s, ref, scaled.n, setup_s))
+    reset_counts()
+    with DiaShapes() as shapes:
+        for d, (s, ref, n, setup_s) in enumerate(replicas):
+            t0 = time.perf_counter()
+            sol = s.solve()
+            solve_s = time.perf_counter() - t0
+            one = ref.solve()
+            dv = float(np.abs(sol.v - one.v).max())
+            dj = float(np.abs(sol.j - one.j).max() / np.abs(one.j).max())
+            solved.append({"scale": 1.0 + d, "sharded_levels": s.n_sharded,
+                           "levels": [(lv.pack.np_, lv.shard)
+                                      for lv in s.hierarchy.levels],
+                           "setup_s": setup_s, "solve_s": solve_s,
+                           "cg_iterations": sol.cg_iterations,
+                           "residual_norm": sol.residual_norm,
+                           "max_dv_vs_one_device": dv,
+                           "max_dj_rel_vs_one_device": dj})
+            print(f"[dp_tp] DIA replica {d} (row {d} of dp {dp} x tp {tp}, "
+                  f"conductance x{1.0 + d}) n={n}: "
+                  f"{s.n_sharded} sharded levels {solved[-1]['levels']}, "
+                  f"set-up {setup_s:.2f} s, solve {solve_s:.2f} s, "
+                  f"cg_iterations={sol.cg_iterations} residual_norm="
+                  f"{sol.residual_norm:.3e} max|dV| vs one device {dv:.3e} "
+                  f"V, max|dj|/max|j| {dj:.3e}", flush=True)
+            check(sol.residual_norm < 1e-9,
+                  f"replica {d}: residual {sol.residual_norm:.3e}")
+            check(dv <= 1e-9, f"replica {d}: |dV| {dv:.3e} V from its "
+                              "one-device solve")
+        launches = launch_counts()
+    check(launches["ell_spmv"] == 0, "the DIA replicas launched K3'")
+    by_shape = check_dia_held("dp_tp", shapes, launches, k1, k2)
+    del replicas
+    torch.cuda.empty_cache()
+    return {"replicas": solved, "launches": launches,
+            "launches_by_shape": by_shape, "k1": k1, "k2": k2}
+
+
+def dp_tp_phase(cli_system, scipy_system) -> dict:
+    """Phase dp_tp: part A (`dp_tp_solvers`) on phase cli's system, part
+    B (`dp_tp_replicas`) on phase 6's."""
+    out = {"phase": "dp_tp", "card": smi()}
+    with K3Shapes() as k3_shapes:
+        part_a = dp_tp_solvers(cli_system, k3_shapes)
+    part_b = dp_tp_replicas(scipy_system)
+    launches = {k: part_a["launches"][k] + part_b["launches"][k]
+                for k in part_a["launches"]}
+    out.update(solvers=part_a["out"], replicas=part_b["replicas"],
+               launches=launches,
+               dia_launches_by_shape=part_b["launches_by_shape"])
+    print(json.dumps(out), flush=True)
+    return {"k1": part_b["k1"], "k2": part_b["k2"], "k3": part_a["cases"],
+            "launches": launches}
 
 
 def fragmented_phase(args) -> dict:
@@ -1941,8 +2297,12 @@ def main() -> int:
         k3, ell_launches, sweep, ell_run = ell_phases(args,
                                                       pathlib.Path(tmp))
         torch.cuda.empty_cache()
-        sharded = sharded_phase(ctx.pop("cli"), ell_run, k3, ctx["project"])
+        cli_run = ctx.pop("cli")
+        sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"])
         del ell_run
+        torch.cuda.empty_cache()
+        dp_tp = dp_tp_phase(cli_run.pop("system"), ctx["scipy_system"])
+        del cli_run
         torch.cuda.empty_cache()
         frag = fragmented_phase(args)
         torch.cuda.empty_cache()
@@ -1955,6 +2315,7 @@ def main() -> int:
         by_path = {"cli": dia_launches[name], "ell": ell_launches[name],
                    "sharded": sharded["launches"][name],
                    "sharded_ell": sharded["ell_launches"][name],
+                   "dp_tp": dp_tp["launches"][name],
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
                    "serve": served["launches"][name]}
@@ -1969,14 +2330,15 @@ def main() -> int:
     kernels_line = {"kernels": [
         entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"],
-              k1 + sharded["k1"] + frag["k1"], k1[0]),
+              k1 + sharded["k1"] + dp_tp["k1"] + frag["k1"], k1[0]),
         entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"],
-              k2 + sharded["k2"] + [frag["k2"]], k2[0]),
+              k2 + sharded["k2"] + dp_tp["k2"] + [frag["k2"]], k2[0]),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "
               "padne_tpu/ops/spmv_pallas.py:172",
-              ell_launches["ell_spmv"], k3 + sharded["k3"], k3[1]),
+              ell_launches["ell_spmv"], k3 + sharded["k3"] + dp_tp["k3"],
+              k3[1]),
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

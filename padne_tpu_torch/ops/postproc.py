@@ -1,8 +1,9 @@
 """Field post-processing: per-face gradients and power density (device).
 
-Port of padne_tpu.ops.postproc as torch ops in float64.  All meshes go
-through one concatenated call (vertex indices offset per mesh, per-face
-conductance); with no compiler in the way, no padding buckets are needed.
+Port of padne_tpu.ops.postproc as torch ops in float64.  The solve's
+meshes go through one concatenated call (vertex indices offset per mesh,
+per-face conductance); with no compiler in the way, no padding buckets
+are needed.  `power_density` takes one mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ def face_gradients(vertices: torch.Tensor, triangles: torch.Tensor,
     safe = torch.where(nz, area2, torch.ones_like(area2))
     grad = torch.einsum("fk,fkd->fd", f, rot) / safe[:, None]
     return torch.where(nz[:, None], grad, torch.zeros_like(grad))
+
+
+def power_density(vertices: torch.Tensor, triangles: torch.Tensor,
+                  values: torch.Tensor, conductance: float) -> torch.Tensor:
+    """p = sigma * |grad V|^2 per face of one mesh (sigma = the layer's
+    sheet conductance), on the tensors' device.  Returns (F,)."""
+    g = face_gradients(vertices, triangles, values)
+    return conductance * (g * g).sum(dim=1)
 
 
 def power_density_batch(meshes, values_list, conductances,

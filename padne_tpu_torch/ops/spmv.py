@@ -17,15 +17,17 @@ operands fuse the lines of the V-cycle into the product:
 so `b` alone gives the residual b - A x, `b, w, x0` the damped-Jacobi
 step x0 + w * (b - A x) and `x0` alone the prolongation x0 + P xc.
 
-Device format (`build_operator`, the one owner of the layout): nonzeros
-only, in a sliced ELL.  Rows are sorted by length, longest first, inside
-windows of WINDOW rows; `lanes` (a power of two up to 32, chosen per
-operator by `choose_lanes`) neighbouring lanes of a warp share a row, lane
-t taking the row's entries t, t + lanes, ...; a slice is the 32 lanes of
+Device format (`build_operators`, the one owner of the layout, and
+`build_operator` for one operator): nonzeros only, in a sliced ELL.
+Rows are sorted by length, longest first, inside windows of WINDOW rows;
+`lanes` (a power of two up to 32, chosen per operator by
+`choose_lanes`) neighbouring lanes of a warp share a row, lane t taking
+the row's entries t, t + lanes, ...; a slice is the 32 lanes of
 one warp (32 / lanes rows), padded to its longest lane and stored
 step-major, so that at every step the warp reads 32 neighbouring column
 indices (int32) and values.  The index arrays are shared by the f32 and
-f64 values of one operator (`EllOperator.to`).
+f64 values of one operator (`EllOperator.to`) and by the operators of a
+batch of one structure (`build_operators`).
 
 On CUDA tensors `ell_spmv` launches K3' (csrc/ell_spmv.cu); on CPU
 tensors it runs the plain PyTorch version, which reads the same format.
@@ -136,13 +138,25 @@ def build_operator(cols: np.ndarray, vals: np.ndarray, diag, nx: int, device,
     `dtype`, laid out with torch ops there.  Every column must index a
     row of x (0 <= col < nx): checked here, once, because the kernel
     gathers unchecked.  lanes: lanes per row, default `choose_lanes`."""
+    return build_operators(cols, np.asarray(vals)[None],
+                           None if diag is None else np.asarray(diag)[None],
+                           nx, device, dtype, lanes)[0]
+
+
+def build_operators(cols: np.ndarray, vals: np.ndarray, diag, nx: int,
+                    device, dtype, lanes: Optional[int] = None) -> list:
+    """`build_operator` for B operators of one structure: vals (B, n, K)
+    over the one cols (n, K), diag (B, n) or None.  The layout is built
+    once, from the entries nonzero in any of the B, and the operators
+    share its index arrays (perm, ptr, col); each lays its own values
+    into the slots (0 where its entry is 0)."""
     n = cols.shape[0]
     if cols.size and (cols.min() < 0 or cols.max() >= nx):
         raise ValueError(f"ELL columns out of range for x of {nx} rows")
     dev = torch.device(device)
     cols_d = torch.from_numpy(np.ascontiguousarray(cols, np.int32)).to(dev)
     vals_d = torch.from_numpy(np.ascontiguousarray(vals, np.float64)).to(dev)
-    nz = vals_d != 0
+    nz = (vals_d != 0).any(0)
     lengths = nz.sum(1)
     if lanes is None:
         lanes = choose_lanes(float(lengths.double().mean()), n)
@@ -172,13 +186,16 @@ def build_operator(cols: np.ndarray, vals: np.ndarray, diag, nx: int, device,
                          lane_id, ptr)
     col = torch.zeros(int(ptr[-1]), dtype=torch.int32, device=dev)
     col[dest] = cols_d[nz]
-    val = torch.zeros(len(col), dtype=dtype, device=dev)
-    val[dest] = vals_d[nz].to(dtype)
-    if diag is not None:
-        diag = torch.from_numpy(np.asarray(diag, np.float64)).to(
-            device=dev, dtype=dtype)
-    return EllOperator(perm=perm.int(), ptr=ptr, col=col, val=val, diag=diag,
-                       lanes=lanes, nx=nx)
+    perm = perm.int()
+    ops = []
+    for b, v in enumerate(vals_d):
+        val = torch.zeros(len(col), dtype=dtype, device=dev)
+        val[dest] = v[nz].to(dtype)
+        d = None if diag is None else torch.from_numpy(
+            np.asarray(diag[b], np.float64)).to(device=dev, dtype=dtype)
+        ops.append(EllOperator(perm=perm, ptr=ptr, col=col, val=val, diag=d,
+                               lanes=lanes, nx=nx))
+    return ops
 
 
 def _check(op: EllOperator, x, b, w, x0) -> None:

@@ -567,6 +567,14 @@ def assemble_core_system(
     return system, extra_var_elements
 
 
+def system_to_scipy(system) -> tuple:
+    """Full sparse system in reference layout [core | border] for
+    cross-checking against a scipy direct solve: L z = r with
+    L = [[-A, C], [B, 0]] (ops.schur.bordered_scipy_system)."""
+    L, r, *_ = schur.bordered_scipy_system(system)
+    return L, r
+
+
 def produce_layer_solutions(layers, vindex, meshes, mesh_to_layer, v,
                             disconnected_by_layer,
                             device) -> list[LayerSolution]:
@@ -715,7 +723,7 @@ def solve(
     if check_against_scipy:
         import scipy.sparse.linalg
 
-        L, r, *_ = schur.bordered_scipy_system(system)
+        L, r = system_to_scipy(system)
         z_ref = scipy.sparse.linalg.spsolve(L, r)
         dv = float(np.abs(z_ref[: system.n] - result.v).max())
         stats["scipy_max_dv"] = dv

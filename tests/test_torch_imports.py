@@ -50,9 +50,10 @@ def test_port_modules_import_without_jax():
 
 
 def test_user_path_runs_without_jax(tmp_path):
-    """solve, info, paraview, html, a sweep and the sharded solves (the
-    CLI's `--tp 4` on the ELL route, a DIA solve over a four-shard mesh)
-    in one process: nothing on the user path pulls in a forbidden module
+    """solve, info, paraview, html, a sweep, the sharded solves (the
+    CLI's `--tp 4` on the ELL route, a DIA solve over a four-shard mesh),
+    the scipy form of the system and the dp x tp standalone solvers in
+    one process: nothing on the user path pulls in a forbidden module
     at run time either."""
     code = (
         "import pathlib, sys, warnings\n"
@@ -89,6 +90,18 @@ def test_user_path_runs_without_jax(tmp_path):
         "s = schur.DiaBorderedSolver(system, mesh=sharding.Mesh(['cpu'] * 4),\n"
         "                            shard_min=4096, coarse_size=200)\n"
         "assert s.sharded and s.solve().residual_norm < 1e-9\n"
+        "from padne_tpu_torch import solver\n"
+        "assert solver.system_to_scipy(system)[0].shape == (g * g + 1,) * 2\n"
+        "m8 = sharding.Mesh(['cpu'] * 8, dp=2)\n"
+        "b = np.zeros((2, g * g, 1))\n"
+        "b[:, 0], b[:, -1] = 1.0, -1.0\n"
+        "two = assembly.EllMatrix(ell.cols, np.stack([ell.vals, 2 * ell.vals]),\n"
+        "                         np.stack([ell.diag, 2 * ell.diag]))\n"
+        "x = sharding.batched_sharded_cg(\n"
+        "    m8, *sharding.prepare_sharded_system(two, b, m8), iters=5)\n"
+        "x1 = sharding.sharded_cg(\n"
+        "    m8, *sharding.prepare_sharded_system(ell, b[0], m8), iters=5)\n"
+        "assert x.shape == (2, g * g, 1) and x1.shape == (g * g, 1)\n"
         f"{_FORBIDDEN}"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -18,6 +18,7 @@ one (tests/test_dia_sharded.py, tests/test_parallel_solve.py):
 * ELL route: |dV| < 1e-8 V.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -523,3 +524,31 @@ def test_solver_solve_with_a_mesh(boards_dir, monkeypatch):
         for pot_s, pot_t in zip(ls_s.potentials, ls_t.potentials,
                                 strict=True):
             assert np.abs(pot_s.values - pot_t.values).max() < 1e-8
+
+
+def test_dp_x_tp_dia_replicas():
+    """dp x tp of the DIA production path (JAX tests/test_dia_sharded.py
+    test_dp_x_tp_production_replicas): a dp 2 x tp 4 mesh split into two
+    replicas, each solving a scaled copy of the system row-sharded over
+    its own row of 4 devices.  The forced volt is scale-invariant, the
+    border current doubles with the conductance."""
+    mesh = sharding.Mesh(["cpu"] * 8, dp=2)
+    system = convert.core_system_from_numpy(volt_grid(128))
+    results = []
+    for d, row in enumerate(mesh.grid):
+        scale = 1.0 + d
+        ell = assembly.EllMatrix(cols=system.ell.cols,
+                                 vals=system.ell.vals * scale,
+                                 diag=system.ell.diag * scale)
+        s = schur.DiaBorderedSolver(
+            dataclasses.replace(system, ell=ell), device="cpu",
+            mesh=sharding.Mesh(row), shard_min=4096, coarse_size=COARSE)
+        assert s.sharded and s.tp == 4 and s.n_sharded >= 1
+        sol = s.solve(target_residual=1e-9)
+        assert sol.residual_norm < 1e-9
+        results.append(sol)
+    for sol in results:
+        assert abs(float(sol.v.max() - sol.v.min()) - 1.0) < 1e-6
+    np.testing.assert_allclose(results[1].v, results[0].v, atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(results[1].j, 2.0 * results[0].j, rtol=1e-6)

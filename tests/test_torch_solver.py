@@ -111,3 +111,44 @@ def test_device_policy():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             device.resolve(None)
+
+
+@pytest.mark.parametrize("name", ["gen_regulator", "gen_two_layer_via"])
+def test_system_to_scipy_matches_jax(tmp_path, name):
+    """The bordered system in the reference layout, L and r equal to the
+    JAX package's on each package's own assembly of the board."""
+    pro = board_project(tmp_path, name)
+    system = solver.build_system(kicad.load_kicad_project(pro))[0]
+    ref = jsolver.build_system(jkicad.load_kicad_project(pro))[0]
+    got_l, got_r = solver.system_to_scipy(system)
+    want_l, want_r = jsolver.system_to_scipy(ref)
+    assert got_l.shape == want_l.shape
+    assert (got_l != want_l).nnz == 0
+    np.testing.assert_array_equal(got_r, want_r)
+
+
+def test_power_density_matches_jax():
+    """One mesh's power density, f64, against the JAX package's, and the
+    batch of one mesh."""
+    import jax.numpy as jnp
+
+    from padne_tpu import geom as jgeom
+    from padne_tpu.ops import postproc as jpostproc
+    from padne_tpu_torch.ops import postproc
+
+    m = jmesh.Mesher(jmesh.Mesher.Config(
+        maximum_size=0.7, variable_size_maximum_factor=1.0)).poly_to_mesh(
+        jgeom.box(0, 0, 4, 3))
+    vals = np.random.default_rng(5).standard_normal(m.num_vertices)
+    want = np.asarray(jpostproc.power_density(
+        jnp.asarray(m.vertices), jnp.asarray(m.triangles), jnp.asarray(vals),
+        2.5))
+    got = postproc.power_density(
+        torch.from_numpy(np.asarray(m.vertices, np.float64)),
+        torch.from_numpy(np.asarray(m.triangles, np.int64)),
+        torch.from_numpy(vals), 2.5)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(
+        postproc.power_density_batch([m], [vals], [2.5], "cpu")[0],
+        got.numpy())

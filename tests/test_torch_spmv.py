@@ -119,6 +119,38 @@ def test_stored_image_equals_ell(shape, lanes):
                                   op.val.numpy().astype(np.float32))
 
 
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_batch_of_one_structure(shape):
+    """build_operators: three value sets over one cols, an entry zero in
+    one of them only.  The operators share one layout (that of the
+    entries nonzero in any), each gives its own A x exactly as an
+    operator built for its values alone, and build_operator is the batch
+    of one."""
+    n, nx, k, square = SHAPES[shape]
+    cols, vals = _ragged_ell(n, nx, k, seed=7, pad_self=square)
+    batch = np.stack([vals, 2.0 * vals, -vals])
+    live = np.flatnonzero(vals[:, 0])
+    batch[1, live[:3], 0] = 0.0
+    rng = np.random.default_rng(4)
+    diag = rng.random((3, n)) + 1.0 if square else None
+    ops = spmv.build_operators(cols, batch, diag, nx, "cpu", torch.float64)
+    assert len(ops) == 3
+    assert all(op.col is ops[0].col and op.ptr is ops[0].ptr
+               and op.perm is ops[0].perm for op in ops)
+    one = spmv.build_operator(cols, vals, None if diag is None else diag[0],
+                              nx, "cpu", torch.float64)
+    for name in ("perm", "ptr", "col", "val"):
+        assert torch.equal(getattr(one, name), getattr(ops[0], name))
+    x = torch.from_numpy(rng.standard_normal((nx, 2)))
+    for b, op in enumerate(ops):
+        want = _dense(n, nx, np.repeat(np.arange(n), k), cols.ravel(),
+                      batch[b].ravel()) @ x.numpy()
+        if square:
+            want += diag[b][:, None] * x.numpy()
+        np.testing.assert_allclose(spmv.ell_spmv(op, x).numpy(), want,
+                                   rtol=1e-13, atol=1e-13)
+
+
 # The products of a 154,257-row board's hierarchy (rows, mean nonzeros a
 # row) and the lanes a row gets: one lane walks a short row of a large
 # level, a whole warp the 97-entry rows of the deepest restriction.

@@ -7,7 +7,7 @@ Run from the repository root:
 
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
-                          [--startup]
+                          [--startup] [--tp N [--dp D]]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -41,6 +41,16 @@ torch`, the CUDA context (a first tensor on the card), the imports of
 the port's solve path, and the last two together; printed: the least,
 median and largest wall time of each.
 
+--tp N traces the bordered solve row-sharded over N shards of the one
+card (parallel.sharding.Mesh naming cuda:0 N times), then
+parallel.sharding.batched_sharded_cg on the same board: chip_smoke.py's
+batch of 4 conductance scales (R = 2, f64, 200 iterations) over a mesh of
+--dp rows of N shards (--dp divides 4), placed once, run --warm + 1
+times untraced, once under the profiler and --warm + 1 times untraced
+again; printed for the batched solve: wall ms an iteration before and
+after the traced run, kernels (K3' among them) and copies an iteration,
+host us per kernel and the busy share.
+
 --tree names a directory holding another version of padne_tpu_torch (an
 unpacked earlier commit) to trace instead of this repository's, so that
 two versions can be run in turns in one go on one card.
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import pathlib
 import sys
 import tempfile
@@ -135,6 +146,67 @@ def trace_sweep(args, prob, cfg, specs) -> int:
     return 0
 
 
+def trace_batched(args, system) -> None:
+    """The batched solve of --tp: see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from padne_tpu_torch.parallel import sharding
+
+    iters = chip_smoke.DP_TP_ITERS
+    mesh = sharding.Mesh(["cuda:0"] * (args.dp * args.tp), dp=args.dp)
+    batch, b, _ = chip_smoke.dp_tp_batch(system)
+    t0 = time.perf_counter()
+    placed = sharding.prepare_sharded_system(batch, b, mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharding.batched_sharded_cg(mesh, *placed, iters=iters)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def untraced():
+        walls = sorted(run() for _ in range(args.warm + 1))
+        return walls[len(walls) // 2], f"{walls[0] / iters * 1e3:.3f}-" \
+            f"{walls[-1] / iters * 1e3:.3f} ms an iteration over " \
+            f"{len(walls)} runs"
+
+    median, before = untraced()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    kernels, copies, ms_by_name, calls = device_ms(prof)
+    copy_calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.name.startswith(("Memcpy", "Memset")))
+    del prof
+    gc.collect()
+    after = untraced()[1]
+    events = sum(calls.values())
+    k3 = sum(c for k, c in calls.items() if OWN_KERNELS[2] in k)
+    print(f"[batched] n={system.n} dp {args.dp} x tp {args.tp} "
+          f"B={len(b)} R={b.shape[2]} f64 {iters} iterations: set-up "
+          f"{setup_s:.2f} s; untraced wall {before} (after the traced "
+          f"run: {after}); traced {wall / iters * 1e3:.3f} ms an "
+          f"iteration, kernel_sum={kernels:.1f}ms copy_sum={copies:.1f}ms "
+          f"busy_share={kernels / (wall * 1e3):.3f} (of the untraced "
+          f"median: {kernels / (median * 1e3):.3f}) "
+          f"kernels={events} per_iteration={events / iters:.1f} "
+          f"(K3' {k3 / iters:.1f}), copies per iteration "
+          f"{sum(copy_calls.values()) / iters:.1f} {dict(copy_calls)}, "
+          f"host {median * 1e6 / max(events, 1):.2f} us a kernel "
+          f"(untraced median)", flush=True)
+    total = sum(ms_by_name.values())
+    for name, ms in ms_by_name.most_common(args.top):
+        print(f"  {ms:9.3f} ms {ms / total:6.1%} {calls[name]:6d} calls  "
+              f"{name[:90]}")
+
+
 STARTUP_STEPS = (
     ("interpreter", "pass"),
     ("import torch", "import torch"),
@@ -181,6 +253,11 @@ def main() -> int:
                     help="trace the 12-spec design sweep, not one solve")
     ap.add_argument("--startup", action="store_true",
                     help="time a fresh client process's start, step by step")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="shards of the one card for the solve, and tp of "
+                         "the batched solve traced after it")
+    ap.add_argument("--dp", type=int, default=1, choices=(1, 2, 4),
+                    help="dp rows of the batched solve (with --tp)")
     args = ap.parse_args()
 
     import torch
@@ -199,6 +276,9 @@ def main() -> int:
     sys.path.insert(0, str(args.tree.resolve()))
     from padne_tpu_torch import solver
     from padne_tpu_torch.ops import schur
+    from padne_tpu_torch.parallel import sharding
+
+    mesh = None if args.tp == 1 else sharding.Mesh(["cuda:0"] * args.tp)
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
@@ -224,7 +304,7 @@ def main() -> int:
         stats = Stats()
         t0 = time.perf_counter()
         sol = schur.solve_bordered(system, inner_dtype=torch.float32,
-                                   device="cuda", stats=stats)
+                                   device="cuda", mesh=mesh, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats.mark.__exit__(None, None, None)
@@ -267,7 +347,7 @@ def main() -> int:
             calls[e.name] += 1
     n_events = sum(calls.values())
     kernel_sum = phase_ms["solve", "kernels"]
-    print(f"[trace] route={stats['route']} n={system.n} "
+    print(f"[trace] route={stats['route']} n={system.n} tp={args.tp} "
           f"levels={stats['levels']} setup={stats['setup_s']:.3f}s "
           f"solve_wall={solve_wall * 1e3:.1f}ms "
           f"kernel_sum={kernel_sum:.1f}ms "
@@ -291,6 +371,12 @@ def main() -> int:
               f"{name[:90]}")
     if args.trace:
         prof.export_chrome_trace(str(args.trace))
+    if mesh is not None:
+        # The profile's events are many Python objects: let the batched
+        # solve's untraced runs not pay for them in the collector.
+        del prof, events
+        gc.collect()
+        trace_batched(args, system)
     return 0
 
 
