@@ -138,18 +138,23 @@ def build_operator(cols: np.ndarray, vals: np.ndarray, diag, nx: int, device,
     `dtype`, laid out with torch ops there.  Every column must index a
     row of x (0 <= col < nx): checked here, once, because the kernel
     gathers unchecked.  lanes: lanes per row, default `choose_lanes`."""
-    return build_operators(cols, np.asarray(vals)[None],
-                           None if diag is None else np.asarray(diag)[None],
-                           nx, device, dtype, lanes)[0]
+    op, _ = build_operators(cols, np.asarray(vals)[None], nx, device, dtype,
+                            lanes)
+    if diag is None:
+        return op
+    return dataclasses.replace(op, diag=torch.from_numpy(
+        np.asarray(diag, np.float64)).to(device=op.val.device, dtype=dtype))
 
 
-def build_operators(cols: np.ndarray, vals: np.ndarray, diag, nx: int,
-                    device, dtype, lanes: Optional[int] = None) -> list:
-    """`build_operator` for B operators of one structure: vals (B, n, K)
-    over the one cols (n, K), diag (B, n) or None.  The layout is built
-    once, from the entries nonzero in any of the B, and the operators
-    share its index arrays (perm, ptr, col); each lays its own values
-    into the slots (0 where its entry is 0)."""
+def build_operators(cols: np.ndarray, vals: np.ndarray, nx: int, device,
+                    dtype, lanes: Optional[int] = None):
+    """`build_operator` (without a diagonal) for B operators of one
+    structure: vals (B, n, K) over the one cols (n, K).  The layout is
+    built once, from the entries nonzero in any of the B.  Returns (op,
+    val): val (B, stored), row b the values of operator b in the
+    layout's slots (0 where its entry is 0), and op the layout holding
+    operator 0's values (op.val is val[0]); operator b is
+    `dataclasses.replace(op, val=val[b])`, over the same index arrays."""
     n = cols.shape[0]
     if cols.size and (cols.min() < 0 or cols.max() >= nx):
         raise ValueError(f"ELL columns out of range for x of {nx} rows")
@@ -186,16 +191,12 @@ def build_operators(cols: np.ndarray, vals: np.ndarray, diag, nx: int,
                          lane_id, ptr)
     col = torch.zeros(int(ptr[-1]), dtype=torch.int32, device=dev)
     col[dest] = cols_d[nz]
-    perm = perm.int()
-    ops = []
+    val = torch.zeros(len(vals_d), len(col), dtype=dtype, device=dev)
     for b, v in enumerate(vals_d):
-        val = torch.zeros(len(col), dtype=dtype, device=dev)
-        val[dest] = v[nz].to(dtype)
-        d = None if diag is None else torch.from_numpy(
-            np.asarray(diag[b], np.float64)).to(device=dev, dtype=dtype)
-        ops.append(EllOperator(perm=perm, ptr=ptr, col=col, val=val, diag=d,
-                               lanes=lanes, nx=nx))
-    return ops
+        val[b, dest] = v[nz].to(dtype)
+    op = EllOperator(perm=perm.int(), ptr=ptr, col=col, val=val[0],
+                     diag=None, lanes=lanes, nx=nx)
+    return op, val
 
 
 def _check(op: EllOperator, x, b, w, x0) -> None:

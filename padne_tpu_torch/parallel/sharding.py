@@ -210,18 +210,17 @@ def prepare_sharded_system(ell, b, mesh: Mesh):
     for k, dev in enumerate(mesh.devices[:dp * tp]):
         d, s = divmod(k, tp)
         group = range(d * per_row, (d + 1) * per_row)
-        ops = spmv.build_operators(
-            rows[0][s][0], np.stack([rows[j][s][1] for j in group]), None,
-            n_pad, dev, dtype)
-        val = torch.stack([op.val for op in ops])
-        parts = [val] + [torch.from_numpy(np.array(
+        # The layout holds the row's first system's values: op.val is
+        # val[0], no copy.
+        op, val = spmv.build_operators(
+            rows[0][s][0], np.stack([rows[j][s][1] for j in group]), n_pad,
+            dev, dtype)
+        parts = [op, val] + [torch.from_numpy(np.array(
             t[group.start:group.stop, s * nl:(s + 1) * nl])).to(dev, dtype)
             for t in (diag, b)]
         if not batch:
-            parts = [t[0] for t in parts]
-        # The operator's own values are the first system's, in `val`.
-        out[0].append(dataclasses.replace(ops[0], val=val[0]))
-        for lst, t in zip(out[1:], parts):
+            parts[1:] = [t[0] for t in parts[1:]]
+        for lst, t in zip(out, parts):
             lst.append(t)
     return out
 

@@ -20,6 +20,8 @@ they replace in the JAX package, on seeded numpy inputs given to both.
   correction) against the unfused expression over the plain product:
   1e-6 (f32) and 1e-14 (f64) of the largest operand, rounding only."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -122,8 +124,8 @@ def test_stored_image_equals_ell(shape, lanes):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_batch_of_one_structure(shape):
     """build_operators: three value sets over one cols, an entry zero in
-    one of them only.  The operators share one layout (that of the
-    entries nonzero in any), each gives its own A x exactly as an
+    one of them only.  One layout (that of the entries nonzero in any)
+    holds the three rows of values, each gives its own A x exactly as an
     operator built for its values alone, and build_operator is the batch
     of one."""
     n, nx, k, square = SHAPES[shape]
@@ -133,13 +135,16 @@ def test_batch_of_one_structure(shape):
     batch[1, live[:3], 0] = 0.0
     rng = np.random.default_rng(4)
     diag = rng.random((3, n)) + 1.0 if square else None
-    ops = spmv.build_operators(cols, batch, diag, nx, "cpu", torch.float64)
-    assert len(ops) == 3
-    assert all(op.col is ops[0].col and op.ptr is ops[0].ptr
-               and op.perm is ops[0].perm for op in ops)
+    layout, val = spmv.build_operators(cols, batch, nx, "cpu", torch.float64)
+    assert val.shape == (3, layout.col.numel()) and layout.diag is None
+    assert layout.val.data_ptr() == val.data_ptr()
+    ops = [dataclasses.replace(
+        layout, val=val[b],
+        diag=None if diag is None else torch.from_numpy(diag[b]))
+        for b in range(3)]
     one = spmv.build_operator(cols, vals, None if diag is None else diag[0],
                               nx, "cpu", torch.float64)
-    for name in ("perm", "ptr", "col", "val"):
+    for name in ("perm", "ptr", "col", "val") + (("diag",) if square else ()):
         assert torch.equal(getattr(one, name), getattr(ops[0], name))
     x = torch.from_numpy(rng.standard_normal((nx, 2)))
     for b, op in enumerate(ops):
