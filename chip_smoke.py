@@ -135,7 +135,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    on the served artifact, and in this process serve.client_solve of
    phase 6's system, then of the same system with its excitation
    doubled; the server shut down.  Checks: the cold and served
-   artifacts within 1e-6 V of phase 6's at residual < 1e-9; the server
+   artifacts' potentials equal to phase 6's bit for bit (the same code,
+   board and card), at residual < 1e-9; the server
    answered all four requests and both client processes report a
    served solve; the first request pays the set-up, the repeats report
    setup_seconds 0; K1' and K2' launched in the server at held shapes
@@ -143,10 +144,27 @@ Phases (any failure exits non-zero; there is no CPU path):
    and within 1e-6 V of spsolve; both HTML pages parse and hold the
    solved meshes.  The wall time of each client process, the server's
    set-up and solve seconds per request and its peak device memory are
-   printed.
+   printed;
+13. repeats ("repeat"): a solve on the card is a function of its inputs.
+   Run inside the phases whose systems and solvers it reuses (no board
+   is meshed for it), each with CG iterations, passes, residual and the
+   SHA-256 of the potentials printed, and all of these and every result
+   array equal across the runs (np.array_equal, no tolerance): phase
+   cli's board from a second set-up, solved 3 times (a solver's first
+   solve also computes A^+ C and later ones reuse it, as in the JAX
+   package, so the first is held against phase cli's solve and the
+   other two against each other); phase 6's board from a second set-up
+   against phase 6's solve; 5 more solves of phase 8's
+   ELL board, each with its set-up, against phase 8's; the 12-spec sweep
+   twice; the sharded DIA solver twice more; batched_sharded_cg's first
+   call against its profiled second.  Beside them, the device time of
+   the DIA route's fixed-order sums (Z^T r, B X, C j, the sharded
+   projector's component sums) and of the ELL route's Z^T r against the
+   atomic scatters they replaced, on the same operands, by CUDA events
+   and graph replay.
 
-Each of the phases cli, sharded, dp_tp, fragmented, sweep and serve
-also prints one JSON line {"phase": ...} with its numbers.
+Each of the phases cli, sharded, dp_tp, fragmented, sweep, serve and
+repeat also prints one JSON line {"phase": ...} with its numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -1005,6 +1023,138 @@ def same_fields(a, b) -> bool:
         x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(xs, ys))
 
 
+def fingerprint(label: str, iterations, passes, residual, *arrays) -> dict:
+    """One run of phase repeat: its CG iterations, refinement passes
+    (None where the path has none), residual (a list where it has one a
+    column or system) and result arrays, the potentials first, with the
+    SHA-256 of the potentials' bytes."""
+    import hashlib
+
+    import numpy as np
+
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    return {"label": label, "cg_iterations": iterations, "passes": passes,
+            "residual": residual,
+            "sha256": hashlib.sha256(arrays[0].tobytes()).hexdigest(),
+            "arrays": arrays}
+
+
+def solution_print(label: str, sol) -> dict:
+    """fingerprint of an ops.schur.BorderedSolution: v, then j."""
+    return fingerprint(label, sol.cg_iterations, sol.refinement_steps + 1,
+                       sol.residual_norm, sol.v, sol.j)
+
+
+def hold_repeats(repeats: dict, name: str, runs: list) -> None:
+    """Phase repeat: `runs` (fingerprints) of one path on the same
+    inputs must be equal bit for bit, iterations, passes, residuals and
+    every array (np.array_equal, no tolerance): a solve on the card is a
+    function of its inputs.  Printed run by run and kept in `repeats`
+    for the phase's JSON line."""
+    import numpy as np
+
+    for r in runs:
+        print(f"[repeat] {name}, {r['label']}: cg_iterations="
+              f"{r['cg_iterations']} passes={r['passes']} residual="
+              f"{r['residual']!r} sha256={r['sha256']}", flush=True)
+    first = runs[0]
+    same = all(
+        r["cg_iterations"] == first["cg_iterations"]
+        and r["passes"] == first["passes"]
+        and np.array_equal(np.asarray(r["residual"]),
+                           np.asarray(first["residual"]))
+        and len(r["arrays"]) == len(first["arrays"])
+        and all(np.array_equal(a, b)
+                for a, b in zip(r["arrays"], first["arrays"]))
+        for r in runs[1:])
+    repeats[name] = [{k: v for k, v in r.items() if k != "arrays"}
+                     for r in runs]
+    check(same, f"phase repeat: the runs of {name} are not bit-equal")
+
+
+def sum_case(name: str, scatter, fixed, tol: float) -> dict:
+    """The device time of one fixed-order sum of the solve (`fixed`)
+    beside the atomic scatter it replaced (`scatter`), on the same
+    inputs: by CUDA events and by CUDA-graph replay.  Both must agree
+    within tol of the largest |result|."""
+    import torch
+
+    a, b = scatter(), fixed()
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    check(err <= tol * max(float(a.abs().max()), 1e-300),
+          f"{name}: the fixed-order sum is {err:.3e} from the scatter")
+    # The fixed-order sums must capture (they stand in the CG body); the
+    # scatter is timed by graph replay where it captures.
+    out = {"scatter_ms": time_ms(scatter), "fixed_ms": time_ms(fixed),
+           "scatter_graph_ms": graph_ms(scatter, library=True),
+           "fixed_graph_ms": graph_ms(fixed), "max_abs_diff": err}
+    print(f"[repeat sums] {name}: atomic scatter {out['scatter_ms']:.4f} ms "
+          f"(graph {fmt_ms(out['scatter_graph_ms'])}), fixed order "
+          f"{out['fixed_ms']:.4f} ms (graph {fmt_ms(out['fixed_graph_ms'])})"
+          f", max|diff| {err:.3e}", flush=True)
+    return out
+
+
+def dia_sum_cases(s) -> dict:
+    """sum_case for the DIA route's sums on a set-up DiaBorderedSolver
+    `s` (its own index arrays, random f64 / f32 operands): the ladder's
+    Z^T r, the border products B X (R = m + 1, R = 1) and C j, and the
+    sharded projector's component sums over SHARDS shards of the card
+    (one-hot products, before this an f32 index_add_ per shard) at
+    R = m + 1 and R = 1."""
+    import torch
+
+    from padne_tpu_torch.ops import cg
+    from padne_tpu_torch.parallel import sharding
+
+    dev, f64 = s.device, torch.float64
+    gen = torch.Generator(device=dev).manual_seed(23)
+    np0, m, p = s.np0, s.m, s.p
+    border = s.system.border
+    comp = s.comp_pad_dev
+    row_idx = torch.as_tensor(border.row_idx, device=dev)
+    col_pos = torch.as_tensor(s.posmap[border.col_node], device=dev)
+    r64 = torch.randn(np0, generator=gen, device=dev, dtype=f64)
+    x = torch.randn(np0, m + 1, generator=gen, device=dev, dtype=f64)
+    j = torch.randn(m, generator=gen, device=dev, dtype=f64)
+
+    def border_scatter(x):
+        g = x[s._row_node_pos] * s._row_val64[:, None]
+        return x.new_zeros(m, x.shape[1]).index_add_(0, row_idx, g)
+
+    out = {
+        f"Z^T r, f64 ({np0},), {p + 1} segments": sum_case(
+            "Z^T r", lambda: r64.new_zeros(p + 1).index_add_(
+                0, comp, r64)[:p], lambda: s._ztr(r64), 1e-12),
+        f"B X, f64 ({np0}, {m + 1})": sum_case(
+            "B X", lambda: border_scatter(x),
+            lambda: s._border_apply(x), 1e-12),
+        f"B x, f64 ({np0}, 1)": sum_case(
+            "B x", lambda: border_scatter(x[:, :1]),
+            lambda: s._border_apply(x[:, :1]), 1e-12),
+        f"C j, f64 ({np0},)": sum_case(
+            "C j", lambda: r64.new_zeros(np0).index_add_(
+                0, col_pos, s._col_val64 * j[s._col_idx]),
+            lambda: s._c_apply(j), 1e-12)}
+    mesh = sharding.Mesh([dev] * SHARDS)
+    rows = np0 - np0 % SHARDS
+    shards = sharding.split(mesh, comp[:rows], dim=0)
+    comps = [cg._Components(c, p + 1, 1) for c in shards]
+    for r in (m + 1, 1):
+        xs = [torch.rand(r, len(c), generator=gen, device=dev)
+              for c in shards]
+        out[f"sharded projector sums, f32 ({r}, {len(shards[0])}) x "
+            f"{SHARDS}"] = sum_case(
+            f"sharded projector R={r}",
+            lambda xs=xs, r=r: sharding.psum(mesh, [
+                x.new_zeros(r, p + 1).index_add_(1, c, x)
+                for x, c in zip(xs, shards)]),
+            lambda xs=xs: sharding.psum(mesh, [
+                cc.sums(x) for x, cc in zip(xs, comps)]), 1e-4)
+    return out
+
+
 def cli_exports(sol, npz: pathlib.Path, tmp: pathlib.Path) -> dict:
     """`info`, `paraview` and `html` of the command-line interface on the
     artifact `npz` that `solve` wrote for `sol`; the checks of phase 5.
@@ -1076,14 +1226,16 @@ def check_html(page: pathlib.Path, sol) -> None:
           f"the payload of {page.name} does not hold the solved meshes")
 
 
-def dia_phases(args, tmp: pathlib.Path):
+def dia_phases(args, tmp: pathlib.Path, repeats: dict):
     """K1' and K2' on the DIA route's operators at --dof, the user path
     through the command-line interface at --dof, then the scipy check at
-    --scipy-dof, each solve's launched shapes held against the cases.
-    Returns (K1' cases, K2' cases, the main solve's launch counts, what
-    later phases take from these: the cli solve's system and
-    BorderedSolution for phase sharded; the scipy check's project, its
-    mesher flags, its potentials and its system for phase serve)."""
+    --scipy-dof, each solve's launched shapes held against the cases;
+    phase repeat's runs of both boards and the device time of the DIA
+    route's sums (into `repeats`).  Returns (K1' cases, K2' cases, the
+    main solve's launch counts, what later phases take from these: the
+    cli solve's system and BorderedSolution for phase sharded; the scipy
+    check's project, its mesher flags, its potentials and its system for
+    phase serve)."""
     import numpy as np
     import torch
 
@@ -1152,19 +1304,46 @@ def dia_phases(args, tmp: pathlib.Path):
                       "cli_solve_s": t_cli, "setup_s": stats["setup_s"],
                       "solve_s": stats["solve_s"], **times}), flush=True)
     del sol, spy
+    # Phase repeat: a second set-up of phase cli's system solves 3 times.
+    # A solver's first solve also computes A^+ C, which its later solves
+    # reuse (as in the JAX package): the first is held against phase
+    # cli's, itself a first solve, the later ones against each other.
+    again = schur.DiaBorderedSolver(bspy.system, device=DEV)
+    hold_repeats(repeats, f"cli board n={stats['n']}, two set-ups", [
+        solution_print("phase cli", bspy.result),
+        solution_print("a second set-up", again.solve(
+            target_residual=1e-10))])
+    hold_repeats(repeats, f"cli board n={stats['n']}, later solves", [
+        solution_print(f"solve {i + 2}", again.solve(
+            target_residual=1e-10)) for i in range(2)])
+    repeats["sums"] = dia_sum_cases(again)
+    del again
+    # The graph captures of the one-hot products left cuBLAS workspaces
+    # on their side streams: free them, or later phases' peak device
+    # memory would count them.
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
 
     prob, cfg = bench_problem(tmp / "scipy", args.scipy_dof)
     scipy_system = solver.build_system(prob, cfg)[0]
     s = schur.DiaBorderedSolver(scipy_system, device=DEV)
     k1s, k2s = dia_cases(s, "scipy-check ", 21)
-    del s
     torch.cuda.empty_cache()
     reset_counts()
     stats2 = {}
-    with DiaShapes() as shapes:
+    with DiaShapes() as shapes, BorderedSpy() as bspy:
         sol = solver.solve(prob, mesher_config=cfg,
                            check_against_scipy=True, stats=stats2)
     check_dia_held("scipy-check", shapes, launch_counts(), k1s, [k2s])
+    # Phase repeat: the first solve of the cases' set-up (not solved
+    # before) against phase 6's, each from its own set-up.
+    hold_repeats(repeats, f"scipy-check board n={scipy_system.n}, two "
+                          "set-ups", [
+                     solution_print("phase 6's set-up", bspy.result),
+                     solution_print("a second set-up", s.solve(
+                         target_residual=1e-10))])
+    del s, bspy
+    torch.cuda.empty_cache()
     dv = stats2["scipy_max_dv"]
     print(f"[scipy] route={stats2['route']} n={stats2['n']} "
           f"solve={stats2['solve_s']:.2f}s "
@@ -1188,14 +1367,17 @@ def dia_phases(args, tmp: pathlib.Path):
     return k1 + k1s, [k2, k2s], launches, ctx
 
 
-def ell_phases(args, tmp: pathlib.Path):
+def ell_phases(args, tmp: pathlib.Path, repeats: dict):
     """K3' at the ELL phase's shapes, the ELL route at --ell-dof, the
-    sweep and the small boards.  Returns (K3' cases, the ELL solve's
-    launch counts, the sweep's numbers, the ELL solve's system and
-    BorderedSolution for phase sharded)."""
+    sweep and the small boards; phase repeat's runs of the ELL solve and
+    the sweep, and the device time of the ELL route's Z^T y (into
+    `repeats`).  Returns (K3' cases, the ELL solve's launch counts, the
+    sweep's numbers, the ELL solve's system and BorderedSolution for
+    phase sharded)."""
     import torch
 
     from padne_tpu_torch import kicad, solver
+    from padne_tpu_torch.ops import schur, segment
 
     t0 = time.perf_counter()
     prob, cfg = bench_problem(tmp / "ell", args.ell_dof)
@@ -1252,7 +1434,23 @@ def ell_phases(args, tmp: pathlib.Path):
     ell_run = {"system": bspy.system, "bordered": bspy.result,
                "setup_s": stats["setup_s"], "solve_s": stats["solve_s"],
                "escalated": stats["escalated"]}
-    sweep = sweep_phase(prob, cfg, sol, timed)
+    # Phase repeat: 5 more solves of phase 8's system in this process,
+    # each with its own set-up, as phase 8's.
+    system = bspy.system
+    hold_repeats(repeats, f"ELL board n={system.n}", [
+        solution_print("phase 8", bspy.result)] + [
+        solution_print(f"solve {i + 2}", schur.solve_bordered(
+            system, inner_dtype=torch.float32, device=DEV))
+        for i in range(5)])
+    comp_id = torch.as_tensor(system.comp_id, device=DEV)
+    p = system.num_components
+    rc = torch.randn(system.n, device=DEV, dtype=torch.float64,
+                     generator=torch.Generator(device=DEV).manual_seed(29))
+    repeats["sums"][f"ELL Z^T r, f64 ({system.n},), {p} segments"] = \
+        sum_case("ELL Z^T r", lambda: rc.new_zeros(p).index_add_(
+            0, comp_id, rc), lambda z=segment.SegmentSum(comp_id, p): z(rc),
+            1e-12)
+    sweep = sweep_phase(prob, cfg, sol, timed, repeats)
     del sol
 
     gen = boardgen()
@@ -1281,10 +1479,11 @@ SWEEP_SPECS = [(s, src) for s in (0.5, 1.0, 2.0, 4.0)
                for src in (1.0, 2.0, 3.3)]
 
 
-def sweep_phase(prob, cfg, single, timed: dict) -> dict:
-    """Phase 11: the design sweep on the ELL phase's board.  single: the
-    Solution of phase 8's single solve; timed: the K3' shapes that phase
-    7 held against the plain version.  Returns the phase's numbers."""
+def sweep_phase(prob, cfg, single, timed: dict, repeats: dict) -> dict:
+    """Phase 11: the design sweep on the ELL phase's board, then phase
+    repeat's second run of it.  single: the Solution of phase 8's single
+    solve; timed: the K3' shapes that phase 7 held against the plain
+    version.  Returns the phase's numbers."""
     import numpy as np
     import torch
 
@@ -1384,6 +1583,20 @@ def sweep_phase(prob, cfg, single, timed: dict) -> dict:
            "recoveries_s": stats["recover_s"], "wall_s": wall,
            "peak_device_memory_gb": peak_gb}
     print(json.dumps(out), flush=True)
+
+    def sweep_print(label, stats, results):
+        return fingerprint(label, stats["cg_iterations"], None,
+                           [r.residual_norm for r in results],
+                           np.concatenate([r.v for r in results]),
+                           np.concatenate([r.j for r in results]))
+
+    stats2 = {}
+    results2 = sweep.solve_sweep(
+        prob, [sweep.SweepSpec(*x) for x in SWEEP_SPECS],
+        mesher_config=cfg, stats=stats2)
+    hold_repeats(repeats, f"sweep n={n}, {len(results)} specs", [
+        sweep_print("run 1", stats, results),
+        sweep_print("run 2", stats2, results2)])
     return out
 
 
@@ -1467,13 +1680,15 @@ def sharded_k3_cases(system, gen):
     return cases
 
 
-def sharded_phase(cli_run: dict, ell_run: dict, k3, project) -> dict:
+def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
+                  repeats: dict) -> dict:
     """Phase sharded: the solve row-sharded over SHARDS shards of the one
     card (parallel.sharding.Mesh naming cuda:0 SHARDS times).  The DIA
     route on phase cli's assembled system, the ELL route on phase 8's,
     each with its kernels held at every shape it launches and its answer
     against the one-device solve; then `--tp` beyond the card count
-    through the command-line interface.  k3: phase 7's K3' cases."""
+    through the command-line interface.  k3: phase 7's K3' cases.  Phase
+    repeat: the sharded DIA solver solves twice more (into `repeats`)."""
     import contextlib
     import io
 
@@ -1540,6 +1755,10 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project) -> dict:
     check(dv <= 1e-6 * max(span, 1.0), f"sharded potentials {dv:.3e} V "
                                         "from phase cli's")
     check(dj <= 1e-6, f"sharded border currents {dj:.3e} from phase cli's")
+    # Phase repeat: two more solves on the cached A^+ C (see dia_phases).
+    hold_repeats(repeats, f"sharded DIA n={system.n} over {SHARDS} shards",
+                 [solution_print(f"solve {i + 2}", s.solve(
+                     target_residual=1e-10)) for i in range(2)])
     out["dia"] = {
         "n": system.n, "m": s.m, "levels": levels,
         "sharded_levels": s.n_sharded, "setup_s": setup_s,
@@ -1699,25 +1918,25 @@ class SyncForbidden:
         torch.cuda.set_sync_debug_mode("default")
 
 
-def device_events(fn) -> tuple[int, float]:
-    """(device events, ms of kernels) of one call of fn under
-    torch.profiler: kernels and copies on the card."""
+def device_events(fn) -> tuple[int, float, object]:
+    """(device events, ms of kernels, fn's result) of one call of fn
+    under torch.profiler: kernels and copies on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     ms = sum(e.time_range.elapsed_us() for e in events
              if not e.name.startswith(("Memcpy", "Memset"))) / 1e3
-    return len(events), ms
+    return len(events), ms, out
 
 
-def dp_tp_solvers(system, k3_shapes) -> dict:
+def dp_tp_solvers(system, k3_shapes, repeats: dict) -> dict:
     """Part A of phase dp_tp: parallel.sharding's standalone solvers at
     the main path's width (phase cli's system): batched_sharded_cg of
     DP_TP_BATCH conductance scales on a dp x tp mesh of the one card and
@@ -1727,7 +1946,9 @@ def dp_tp_solvers(system, k3_shapes) -> dict:
     counter).  Both are held against sharded_cg on one device: x after
     DP_TP_CHECK_ITERS iterations, and |b - A x| / |b| after DP_TP_ITERS
     (within DP_TP_RES_SPREAD), where rounding has parted the x (see
-    DP_TP_CHECK_ITERS) and their distance is printed."""
+    DP_TP_CHECK_ITERS) and their distance is printed.  Phase repeat:
+    the batched solver's first call against its profiled second (into
+    `repeats`)."""
     import contextlib
 
     import numpy as np
@@ -1797,8 +2018,9 @@ def dp_tp_solvers(system, k3_shapes) -> dict:
           "sharded_cg did not launch K3' once per iteration and shard")
     # Device events and kernel time of one whole call each, under the
     # profiler (its set-up and gather are a few events of thousands).
-    events, kernel_ms = device_events(batched)
-    events1, _ = device_events(row)
+    events, kernel_ms, x2 = device_events(batched)
+    x2 = x2.cpu().numpy()   # phase repeat's; off the card before the peak
+    events1, _, _ = device_events(row)
     early = counted(lambda: batched(DP_TP_CHECK_ITERS))
     peak = torch.cuda.max_memory_allocated() / 1e9
     a0 = ell.to_scipy()
@@ -1842,7 +2064,13 @@ def dp_tp_solvers(system, k3_shapes) -> dict:
             f"system {j}: |b - A x| / |b| "
             f"{', '.join(f'{r:.4e}' for r in rel_res[-1])} after {iters} "
             f"iterations, one device {ref_res[-1]:.4e}")
-    del placed, placed1
+    hold_repeats(repeats, f"batched_sharded_cg n={n} B={DP_TP_BATCH} "
+                          f"dp {dp} x tp {tp}", [
+        fingerprint(label, iters, None, [
+            rel_residual(j, xs[j, :n]) for j in range(DP_TP_BATCH)], xs)
+        for label, xs in (("call 1", x.cpu().numpy()),
+                          ("call 2 (profiled)", x2))])
+    del placed, placed1, x2
     torch.cuda.empty_cache()
     missing = sorted(set(k3_shapes) - set(held))
     check(not missing, f"phase dp_tp launched K3' at shapes that were not "
@@ -1968,12 +2196,12 @@ def dp_tp_replicas(system, seed: int = 41) -> dict:
             "launches_by_shape": by_shape, "k1": k1, "k2": k2}
 
 
-def dp_tp_phase(cli_system, scipy_system) -> dict:
+def dp_tp_phase(cli_system, scipy_system, repeats: dict) -> dict:
     """Phase dp_tp: part A (`dp_tp_solvers`) on phase cli's system, part
     B (`dp_tp_replicas`) on phase 6's."""
     out = {"phase": "dp_tp", "card": smi()}
     with K3Shapes() as k3_shapes:
-        part_a = dp_tp_solvers(cli_system, k3_shapes)
+        part_a = dp_tp_solvers(cli_system, k3_shapes, repeats)
     part_b = dp_tp_replicas(scipy_system)
     launches = {k: part_a["launches"][k] + part_b["launches"][k]
                 for k in part_a["launches"]}
@@ -2259,12 +2487,14 @@ def serve_phase(tmp: pathlib.Path, ctx: dict, k1, k2) -> dict:
     by_shape = check_dia_held("serve", shapes, launches, k1, k2)
 
     # The answers.
+    # The same code, board and card: the same bits as phase 6's.
     dv = {}
     for name, path in (("cold", cold), ("served", served)):
         v, solver_info, sol = potentials_of(path)
         dv[name] = float(np.abs(v - ref_v).max())
-        check(dv[name] <= 1e-6, f"the {name} artifact is {dv[name]:.3e} V "
-                                "from phase 6's")
+        check(v.dtype == ref_v.dtype and np.array_equal(v, ref_v),
+              f"the {name} artifact's potentials are not phase 6's bit for "
+              f"bit (max|dV| {dv[name]:.3e} V)")
         check(solver_info.residual_norm < 1e-9, f"the {name} solve's "
               f"residual {solver_info.residual_norm:.3e}")
     # `sol`: the served artifact, whose meshes gui's solve has too.
@@ -2323,21 +2553,29 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        k1, k2, dia_launches, ctx = dia_phases(args, pathlib.Path(tmp))
+        # Phase repeat runs inside the phases whose systems and solvers
+        # it reuses, and prints its line at the end.
+        repeats = {}
+        k1, k2, dia_launches, ctx = dia_phases(args, pathlib.Path(tmp),
+                                               repeats)
         torch.cuda.empty_cache()
-        k3, ell_launches, sweep, ell_run = ell_phases(args,
-                                                      pathlib.Path(tmp))
+        k3, ell_launches, sweep, ell_run = ell_phases(
+            args, pathlib.Path(tmp), repeats)
         torch.cuda.empty_cache()
         cli_run = ctx.pop("cli")
-        sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"])
+        sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"],
+                                repeats)
         del ell_run
         torch.cuda.empty_cache()
-        dp_tp = dp_tp_phase(cli_run.pop("system"), ctx["scipy_system"])
+        dp_tp = dp_tp_phase(cli_run.pop("system"), ctx["scipy_system"],
+                            repeats)
         del cli_run
         torch.cuda.empty_cache()
         frag = fragmented_phase(args)
         torch.cuda.empty_cache()
         served = serve_phase(pathlib.Path(tmp), ctx, k1, k2)
+        print(json.dumps({"phase": "repeat", "card": smi(), **repeats}),
+              flush=True)
 
     def entry(name, source, replaces, launches, cases, main_case):
         # launches: on the first main path that runs the kernel (the cli

@@ -14,7 +14,11 @@ preconditioner application per iteration.
 `make_pcg_sharded` is the same solver over per-shard state on a device
 mesh (padne_tpu.ops.cg's `make_pcg_t_sharded` and `make_pcg(mesh=)`):
 dots are sums of per-shard partials, and the deflation projector sums
-per-shard segment sums across the shards.
+per-shard component sums across the shards.
+
+Every sum adds in a fixed order (no atomic scatter), so a solve on the
+card is a function of its inputs: the same system on the same card
+gives the same bits.
 
 The JAX `while_loop` is a Python loop here: the continue condition is
 read on the host once per iteration (one device sync per iteration).
@@ -29,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import spmv
+from . import segment, spmv
 
 # 2^31 - 2 == stall exit disabled: the counter cannot reach it before
 # maxiter.
@@ -42,54 +46,69 @@ class CGResult(NamedTuple):
     residual_norms: torch.Tensor  # (R,) final ||b - A x|| per column
 
 
+class _Components:
+    """Per-component sums over one block of rows and their spread back
+    to the rows, by the JAX package's rule (padne_tpu.ops.cg.
+    make_projector): dense one-hot products up to 64 components; beyond
+    that the (N, p) one-hot would be accidentally quadratic (eroded
+    boards fragment into thousands of islands), so a fixed-order segment
+    sum (ops.segment) and a gather take over.  Both add in the same
+    order on every call.  dim: the axis of the rows ((N, R) for 0,
+    (R, N) for 1); counts: (p,) f64 rows of each component."""
+
+    def __init__(self, comp_id: torch.Tensor, num_components: int,
+                 dim: int):
+        self.dim, self.comp = dim, comp_id.long()
+        if num_components > 64:
+            self.seg = segment.SegmentSum(self.comp, num_components)
+            self.counts = self.seg(torch.ones(
+                len(self.comp), dtype=torch.float64, device=self.comp.device))
+            return
+        self.seg = None
+        # One-hot held in f32 (exact 0/1 values) and cast to the
+        # iterate's dtype at use: exact for f64 solves, f32 state stays
+        # f32.
+        self.onehot = torch.nn.functional.one_hot(
+            self.comp, num_components).to(torch.float32)         # (N, p)
+        self.counts = self.onehot.sum(dim=0).double()
+
+    def sums(self, x):
+        """(p, R) for dim 0, (R, p) for dim 1."""
+        if self.seg is not None:
+            return self.seg(x, self.dim)
+        oh = self.onehot.to(x.dtype)
+        return oh.T @ x if self.dim == 0 else x @ oh
+
+    def spread(self, means):
+        """Each row's component entry of means: the shape of x."""
+        if self.seg is not None:
+            return means.index_select(self.dim, self.comp)
+        oh = self.onehot.to(means.dtype)
+        return oh @ means if self.dim == 0 else means @ oh.T
+
+
 def make_projector(comp_id: torch.Tensor, num_components: int,
                    dim: int = 0):
     """Orthogonal projector onto the complement of per-component constant
     vectors: x <- x - mean_of_component(x), for arrays whose axis `dim`
     runs over the N unknowns ((N, R) for dim 0, (R, N) for dim 1).
 
-    One component: subtract the means.  Up to 64: dense one-hot
-    matmuls.  Beyond 64 the (N, p) one-hot would be accidentally
-    quadratic (eroded boards fragment into thousands of islands), so a
-    segment sum (index_add_) and a gather take over."""
+    One component: subtract the means.  More: component sums and their
+    spread as _Components computes them."""
     if num_components == 1:
         def project(x):
             return x - x.mean(dim=dim, keepdim=True)
 
         return project
 
-    comp_id = comp_id.long()
-    if num_components > 64:
-        counts = torch.zeros(num_components, dtype=torch.float64,
-                             device=comp_id.device).index_add_(
-            0, comp_id, torch.ones(comp_id.shape[0], dtype=torch.float64,
-                                   device=comp_id.device)).clamp_min(1.0)
-
-        def project(x):
-            shape = list(x.shape)
-            shape[dim] = num_components
-            sums = torch.zeros(shape, dtype=x.dtype,
-                               device=x.device).index_add_(dim, comp_id, x)
-            means = sums / counts.to(x.dtype).unsqueeze(1 - dim)
-            return x - means.index_select(dim, comp_id)
-
-        return project
-
-    # One-hot held in f32 (exact 0/1 values) and cast to the iterate's
-    # dtype at use: exact for f64 solves, f32 state stays f32.  Clamp: an
-    # empty component (e.g. a dummy padding component when the padded
-    # size equals n) must not turn means into NaN.
-    onehot = torch.nn.functional.one_hot(
-        comp_id, num_components).to(torch.float32)             # (N, p)
-    counts = onehot.sum(dim=0).double().clamp_min(1.0)
+    comps = _Components(comp_id, num_components, dim)
+    # Clamp: an empty component (e.g. a dummy padding component when the
+    # padded size equals n) must not turn means into NaN.
+    counts = comps.counts.clamp_min(1.0)
 
     def project(x):
-        oh = onehot.to(x.dtype)
-        if dim == 0:
-            means = (oh.T @ x) / counts[:, None].to(x.dtype)     # (p, R)
-            return x - oh @ means
-        means = (x @ oh) / counts.to(x.dtype)[None, :]           # (R, p)
-        return x - means @ oh.T
+        means = comps.sums(x) / counts.to(x.dtype).unsqueeze(1 - dim)
+        return x - comps.spread(means)
 
     return project
 
@@ -218,6 +237,32 @@ def jacobi_sharded(diags: list, dim: int = 0):
     return apply, minv
 
 
+def make_projector_sharded(mesh, comp_id, num_components: int,
+                           dim: int = 0):
+    """make_projector over per-shard blocks on `mesh` (parallel.sharding.
+    Mesh), the JAX package's make_projector with `gsum`: each shard's
+    component sums (one-hot products up to 64 components, one component
+    included; fixed-order segment sums beyond) added in shard order by
+    sharding.psum, the means broadcast back.  comp_id: (N,) component of
+    each row, N a multiple of the mesh size.  Returns project(xs) on
+    lists of per-shard blocks, shard s's rows [s * N / tp, (s + 1) * N /
+    tp) on mesh.devices[s]."""
+    from ..parallel import sharding
+
+    comps = [_Components(c, num_components, dim) for c in sharding.split(
+        mesh, torch.as_tensor(comp_id).long(), dim=0)]
+    # Clamp: components without rows on any shard.
+    counts = sharding.psum(mesh, [c.counts for c in comps]).clamp_min(1.0)
+
+    def project(xs):
+        sums = sharding.psum(mesh, [c.sums(x) for x, c in zip(xs, comps)])
+        means = sums / counts.to(sums.dtype).unsqueeze(1 - dim)
+        return [x - c.spread(m) for x, m, c in
+                zip(xs, sharding.broadcast(mesh, means), comps)]
+
+    return project
+
+
 def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
                      precond: tuple, stall_window: Optional[int] = None,
                      dim: int = 0):
@@ -233,32 +278,16 @@ def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
     component of each row (N a multiple of the mesh size).
 
     The iteration is make_pcg's: every dot is a psum of per-shard
-    partials, the projector subtracts component means from per-shard
-    segment sums summed across shards, and the continue condition is
-    read on the host once per iteration.  solve(b, tol, maxiter) takes
-    (N, R) on any device and returns CGResult with x (N, R) on the
-    mesh's first device."""
+    partials, the projector is make_projector_sharded's, and the
+    continue condition is read on the host once per iteration.
+    solve(b, tol, maxiter) takes (N, R) on any device and returns
+    CGResult with x (N, R) on the mesh's first device."""
     from ..parallel import sharding
 
     a_apply, a_params = operator
     m_apply, m_params = precond
-    comp = sharding.split(mesh, torch.as_tensor(comp_id).long(), dim=0)
-    counts = sharding.psum(mesh, [
-        torch.zeros(num_components, dtype=torch.float64,
-                    device=c.device).index_add_(
-            0, c, torch.ones(len(c), dtype=torch.float64, device=c.device))
-        for c in comp]).clamp_min(1.0)
+    project = make_projector_sharded(mesh, comp_id, num_components, dim)
     window = _NO_STALL if stall_window is None else stall_window
-
-    def project(xs):
-        shape = list(xs[0].shape)
-        shape[dim] = num_components
-        sums = sharding.psum(mesh, [
-            x.new_zeros(shape).index_add_(dim, c, x)
-            for x, c in zip(xs, comp)])
-        means = sums / counts.to(sums.dtype).unsqueeze(1 - dim)
-        return [x - m.index_select(dim, c) for x, m, c in
-                zip(xs, sharding.broadcast(mesh, means), comp)]
 
     def dot(xs, ys):
         return sharding.psum(mesh, [(x * y).sum(dim=dim)

@@ -24,8 +24,13 @@ solves with f64 residuals and an escalation to f64 on a stall).
 
 The DIA route keeps its one (R, n) layout at any number of copper
 components: up to 63 the CG projects with a dense one-hot, beyond that
-with the segment-sum projector of ops.cg (index_add_ and a gather), so
+with the segment-sum projector of ops.cg (ops.segment and a gather), so
 heavily fragmented boards run the same kernels and the same ladder.
+
+Every sum on the device adds in a fixed order: the border products,
+C j and the per-component sums through ops.segment's layouts, built once
+at set-up; B and C themselves are summed on the host.  A solve on the
+card is therefore a function of its inputs.
 
 With a mesh (parallel.sharding.Mesh) of more than one device both
 routes row-shard the inner solve, as the JAX package's `mesh=` does: the
@@ -51,7 +56,7 @@ import torch
 
 from .. import device as device_mod
 from ..parallel import sharding
-from . import amg, assembly, cg, comp, dia, dia_sharded, spmv
+from . import amg, assembly, cg, comp, dia, dia_sharded, segment, spmv
 
 log = logging.getLogger(__name__)
 
@@ -169,16 +174,14 @@ def _solve_bordered_direct(system: CoreSystem):
 
 def _dense_border(system: CoreSystem, device):
     """B (m, n) rows and C (n, m) columns as dense f64 tensors (m is
-    small: sources + ground)."""
+    small: sources + ground), summed on the host and uploaded."""
     b = system.border
     n, m = system.n, b.m
-    B = torch.zeros(m, n, dtype=torch.float64, device=device)
-    B.index_put_((_index(b.row_idx, device), _index(b.row_node, device)),
-                 _f64(b.row_val, device), accumulate=True)
-    C = torch.zeros(n, m, dtype=torch.float64, device=device)
-    C.index_put_((_index(b.col_node, device), _index(b.col_idx, device)),
-                 _f64(b.col_val, device), accumulate=True)
-    return B, C
+    B = np.zeros((m, n))
+    np.add.at(B, (b.row_idx, b.row_node), b.row_val)
+    C = np.zeros((n, m))
+    np.add.at(C, (b.col_node, b.col_idx), b.col_val)
+    return _f64(B, device), _f64(C, device)
 
 
 class DiaBorderedSolver:
@@ -304,11 +307,15 @@ class DiaBorderedSolver:
         self.m, self.p = m, p
         self.posmap_dev = _index(posmap, dev)
         self._row_node_pos = _index(posmap[b.row_node], dev)
-        self._row_idx = _index(b.row_idx, dev)
         self._row_val64 = _f64(b.row_val, dev)
-        self._col_node_pos = _index(posmap[b.col_node], dev)
         self._col_idx = _index(b.col_idx, dev)
         self._col_val64 = _f64(b.col_val, dev)
+        # The fixed-order sums of the border products and the deflation
+        # (ops.segment): B x over the border rows, C j onto the padded
+        # nodes, Z^T r over the components and the dummy slot.
+        self._row_sum = segment.SegmentSum(b.row_idx, m, dev)
+        self._node_sum = segment.SegmentSum(posmap[b.col_node], np0, dev)
+        self._comp_sum = segment.SegmentSum(comp_pad, p + 1, dev)
         self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
         self._b64[self.posmap_dev] = _f64(system.r_core, dev)
 
@@ -346,28 +353,24 @@ class DiaBorderedSolver:
     # -- device pieces ----------------------------------------------------
 
     def _build_rhs(self, rc_pad):
-        """[C | rc] as a padded (np0, m+1) f32 block."""
-        m = self.m
-        rhs = torch.zeros(self.np0, m + 1, dtype=torch.float32,
-                          device=self.device)
-        rhs.index_put_((self._col_node_pos, self._col_idx),
-                       self._col_val64.float(), accumulate=True)
-        rhs[:, m] = rc_pad
+        """[C | rc] as a padded (np0, m+1) f32 block: C's columns summed
+        on the host in f64 (they depend on the system alone)."""
+        b = self.system.border
+        c = np.zeros((self.np0, self.m + 1))
+        np.add.at(c, (self.posmap[b.col_node], b.col_idx), b.col_val)
+        rhs = torch.from_numpy(c.astype(np.float32)).to(self.device)
+        rhs[:, self.m] = rc_pad
         return rhs
 
     def _border_apply(self, x64):
         """B @ x for padded f64 x of shape (np0,) or (np0, R)."""
         g = x64[self._row_node_pos] * (
             self._row_val64 if x64.ndim == 1 else self._row_val64[:, None])
-        out = torch.zeros((self.m,) + tuple(x64.shape[1:]),
-                          dtype=torch.float64, device=self.device)
-        return out.index_add_(0, self._row_idx, g)
+        return self._row_sum(g)
 
     def _c_apply(self, j64):
         """C @ j as a padded f64 (np0,) vector."""
-        out = torch.zeros(self.np0, dtype=torch.float64, device=self.device)
-        return out.index_add_(0, self._col_node_pos,
-                              self._col_val64 * j64[self._col_idx])
+        return self._node_sum(self._col_val64 * j64[self._col_idx])
 
     def _a64(self, v32):
         """A64 @ v as f64 for padded f32 v (np0,): kernel K2' over the CG
@@ -380,9 +383,7 @@ class DiaBorderedSolver:
 
     def _ztr(self, r64):
         """Z^T r per component (without the dummy padding slot)."""
-        out = torch.zeros(self.p + 1, dtype=torch.float64,
-                          device=self.device)
-        return out.index_add_(0, self.comp_pad_dev, r64)[:self.p]
+        return self._comp_sum(r64)[:self.p]
 
     def _run_cg(self, rhs, tol=None):
         res = self.cg_solver(rhs, self.inner_tol if tol is None else tol,
@@ -646,6 +647,7 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     a64 = system.ell.to_device(dev, f64)
     comp_id = _index(system.comp_id, dev)
     B, C = _dense_border(system, dev)
+    zt = segment.SegmentSum(comp_id, p)   # Z^T y: (p, ...) per component
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
     inner_tol = max(tol, 1e-5) if mixed else tol
@@ -654,12 +656,6 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         # The V-cycle's attainable f64 residual floor sits around 1e-11
         # relative; the outer refinement multiplies the gain per pass.
         inner_tol = max(inner_tol, 1e-9)
-
-    def zt(y):
-        """Z^T y: per-component sums, (p, ...) for y of shape (n, ...)."""
-        out = torch.zeros((p,) + tuple(y.shape[1:]), dtype=y.dtype,
-                          device=dev)
-        return out.index_add_(0, comp_id, y)
 
     r_core = _f64(system.r_core, dev)
     r_border = _f64(system.border.rhs, dev)

@@ -26,7 +26,7 @@ import torch
 
 from . import device as device_mod
 from . import mesh, problem, solver
-from .ops import amg, cg, schur, spmv
+from .ops import amg, cg, schur, segment, spmv
 
 # From this many core unknowns the CG is preconditioned with the ELL AMG
 # cycle, below with Jacobi (the JAX package's sweep threshold).
@@ -105,9 +105,7 @@ def solve_sweep(
         torch.cuda.synchronize(dev)
     t3 = time.perf_counter()
 
-    def zt(y):
-        out = torch.zeros((p,) + tuple(y.shape[1:]), dtype=f64, device=dev)
-        return out.index_add_(0, comp_id, y)
+    zt = segment.SegmentSum(comp_id, p)   # Z^T y, a fixed-order sum
 
     # The spec-independent pieces of the small block, on the host (m + p
     # is small, and the block is rank deficient by construction when a

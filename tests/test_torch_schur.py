@@ -62,6 +62,31 @@ def test_reported_residual_is_exact():
     assert np.abs(again.v - sol.v).max() < 1e-9
 
 
+def test_repeat_solves_are_bit_equal():
+    """A solve is a function of its inputs (the smoke run's phase repeat,
+    on the CPU): two set-ups give the same first solve bit for bit, and
+    the later solves of one instance, which reuse its cached A^+ C,
+    equal each other."""
+    system = convert.core_system_from_numpy(make_system(g=64, seed=7))
+
+    def solver():
+        return schur.DiaBorderedSolver(system, device="cpu",
+                                       cycle_dtype=torch.float32,
+                                       w_levels=0, coarse_size=COARSE)
+
+    def same(a, b):
+        return (a.cg_iterations == b.cg_iterations
+                and a.refinement_steps == b.refinement_steps
+                and a.residual_norm == b.residual_norm
+                and np.array_equal(a.v, b.v) and np.array_equal(a.j, b.j))
+
+    s = solver()
+    first = s.solve(target_residual=1e-10)
+    assert same(first, solver().solve(target_residual=1e-10))
+    second = s.solve(target_residual=1e-10)
+    assert same(second, s.solve(target_residual=1e-10))
+
+
 def test_unported_routes_raise():
     """A system too small for a DIA hierarchy raises the private
     _NoDiaHierarchy, on which solve_bordered(operator="dia") falls

@@ -13,6 +13,7 @@ one (tests/test_dia_sharded.py, tests/test_parallel_solve.py):
 * sharded matvec: rtol 2e-5, atol 1e-5 (f32 sums in another order);
 * sharded K2': 2e-13 of max |A| |x| (exact products, f64 sums);
 * sharded V-cycle: rtol 5e-4, atol 5e-5 of the output scale;
+* sharded projector: 1e-12 (f64) / 1e-5 (f32) of max |x|;
 * bordered DIA solves: v within 1e-7 of max(span, 1), j rtol 1e-6 (two
   independently converged solutions at the 1e-10 target);
 * ELL route: |dV| < 1e-8 V.
@@ -30,7 +31,7 @@ import torch
 from jax.sharding import Mesh as JMesh, PartitionSpec as P
 
 from padne_tpu import kicad as jkicad, solver as jsolver
-from padne_tpu.ops import amg as jamg, dia as jdia
+from padne_tpu.ops import amg as jamg, cg as jcg, dia as jdia
 from padne_tpu.ops import dia_sharded as jdia_sharded, schur as jschur
 from padne_tpu.ops.spmv import shard_map_unchecked
 from padne_tpu_torch import convert, kicad, solver
@@ -344,6 +345,59 @@ def test_sharded_pcg_matches_serial():
         assert torch.allclose(got.x, want.x, rtol=1e-8, atol=1e-10)
         assert torch.allclose(got.residual_norms, want.residual_norms,
                               rtol=1e-4, atol=1e-12)
+
+
+@pytest.mark.parametrize("p", [1, 5, 70])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_sharded_projector_matches_jax(p, dtype, monkeypatch):
+    """cg.make_projector_sharded on Mesh(["cpu"] * 4) against the JAX
+    package's make_projector(comp_id, p, gsum=psum) under shard_map, in
+    both layouts: one-hot products up to 64 components (one component
+    included, as the JAX function takes them with gsum), fixed-order
+    segment sums beyond.  Per entry 1e-12 (f64) / 1e-5 (f32) of the
+    largest |x|; the projected columns have zero component sums; two
+    calls bit-equal."""
+    tp, n, r = 4, 512, 3
+    rng = np.random.default_rng(p)
+    comp_id = rng.integers(0, p, n)
+    comp_id[:n // 2] = 0          # one component holds most rows
+    x = rng.standard_normal((n, r)).astype(dtype)
+
+    def local(c, xl):
+        return jcg.make_projector(
+            c, p, gsum=lambda v: jax.lax.psum(v, "tp"))(xl)
+
+    f = jax.jit(shard_map_unchecked(local, jax_mesh(tp),
+                                    in_specs=(P("tp"), P("tp", None)),
+                                    out_specs=P("tp", None)))
+    want = np.asarray(f(jnp.asarray(comp_id), jnp.asarray(x)))
+
+    segments = []
+    real = cg.segment.SegmentSum
+
+    def recording(*args, **kw):
+        segments.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cg.segment, "SegmentSum", recording)
+    mesh = cpu_mesh(tp)
+    tol = (1e-12 if dtype == np.float64 else 1e-5) * np.abs(x).max()
+    for dim in (0, 1):
+        project = cg.make_projector_sharded(mesh, comp_id, p, dim)
+        xt = torch.from_numpy(x if dim == 0 else x.T.copy())
+        got = project(sharding.split(mesh, xt, dim))
+        again = project(sharding.split(mesh, xt, dim))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        got = torch.cat(got, dim).numpy()
+        got = got if dim == 0 else got.T
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+        sums = np.zeros((p, r))
+        np.add.at(sums, comp_id, got.astype(np.float64))
+        assert np.abs(sums).max() <= n * tol
+    # The JAX rule: the segment sum only beyond 64 components, one
+    # layout a shard.
+    assert len(segments) == (0 if p <= 64 else 2 * tp)
 
 
 # -- ops.schur: the sharded DIA route ---------------------------------------

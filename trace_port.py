@@ -15,7 +15,8 @@ first-call costs), then --warm solves untraced, then one under the
 profiler.  Printed: each solve's wall time with and without its set-up
 (setup_s of the solve's stats: hierarchy build and uploads), CG
 iterations and refinement passes, and the least, median and largest
-wall time without set-up of the untraced warm solves; for the traced
+wall time without set-up of the untraced warm solves with each one's
+wall time, CG iterations and passes beside it; for the traced
 solve, split at the end of its set-up: the route, the summed device time
 of kernels and of memory copies in the solve proper and in the set-up,
 the kernels' share of the solve's wall time (busy share), the device
@@ -313,19 +314,25 @@ def main() -> int:
               f"cg_iterations={sol.cg_iterations} "
               f"refinement_passes={sol.refinement_steps + 1} "
               f"residual_norm={sol.residual_norm:.3e}", flush=True)
-        return wall, sol.cg_iterations, stats
+        return wall, sol, stats
 
     run()
-    warm = sorted((wall - stats["setup_s"]) * 1e3 for wall, _, stats in
-                  (run() for _ in range(args.warm)))
+    # (solve_wall ms, CG iterations, passes) of each untraced warm solve.
+    warm = [((wall - stats["setup_s"]) * 1e3, sol.cg_iterations,
+             sol.refinement_steps + 1)
+            for wall, sol, stats in (run() for _ in range(args.warm))]
     if warm:
+        walls = sorted(w for w, _, _ in warm)
         print(f"[warm] solve_wall over {len(warm)} untraced warm solves: "
-              f"min {warm[0]:.1f} ms, median {warm[len(warm) // 2]:.1f} ms, "
-              f"max {warm[-1]:.1f} ms", flush=True)
+              f"min {walls[0]:.1f} ms, median {walls[len(walls) // 2]:.1f} "
+              f"ms, max {walls[-1]:.1f} ms; each (ms, CG iterations, "
+              f"passes): " + ", ".join(f"({w:.1f}, {k}, {p})"
+                                       for w, k, p in warm), flush=True)
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, iterations, stats = run()
+        wall, sol, stats = run()
+    iterations = sol.cg_iterations
     solve_wall = wall - stats["setup_s"]
     events = list(prof.events())
     start = next(e.time_range.start for e in events if e.name == "solve")
