@@ -83,6 +83,25 @@ Phases (any failure exits non-zero; there is no CPU path):
    device(s)` error.  Set-up and solve seconds beside phase 5's, CG
    iterations, passes, launches, peak device memory and the bytes of
    halo and far exchange per matvec are printed;
+9b'. the solver options ("variants"), on phase 5's assembled system
+   (not meshed again): one schur.DiaBorderedSolver per setting of
+   VARIANTS (the defaults; cheb=3; cheb_deep=3; smooth_steps=2;
+   cycle_lumped=False; coarse="device"; w_levels=0), each solved once to
+   the 1e-10 target: residual <= 1e-9, potentials within 1e-7 x span of
+   phase 5's, every launched K1'/K2' shape held against its plain
+   version (level 0's exact bf16 cycle operator of cycle_lumped=False
+   also timed), where the coarse inverse was built ("host (validation)"
+   only when the device's failed its check); set-up and solve seconds,
+   CG iterations, passes, residual, K1' launches and the device events
+   and kernel ms per CG iteration (the solver's CG run to 10 and to 30
+   iterations under the profiler, the difference over 20) printed per
+   setting.
+   Then solve_bordered(precond="jacobi") on the smallest of the four
+   small boards above 5,000 unknowns at a 0.15 mm mesh (each K3' shape
+   it launched held and timed, within 1e-6 V of spsolve), and
+   solve_bordered(dia_shard_min=512) on phase 6's system over phase
+   9b's mesh (at least 2 sharded levels, every K1'/K2' shape held,
+   within 1e-7 x span of phase 6's solve);
 9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
    entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
    on phase 5's system (not meshed again): batched_sharded_cg of 4
@@ -163,8 +182,9 @@ Phases (any failure exits non-zero; there is no CPU path):
    atomic scatters they replaced, on the same operands, by CUDA events
    and graph replay.
 
-Each of the phases cli, sharded, dp_tp, fragmented, sweep, serve and
-repeat also prints one JSON line {"phase": ...} with its numbers.
+Each of the phases cli, sharded, variants, dp_tp, fragmented, sweep,
+serve and repeat also prints one JSON line {"phase": ...} with its
+numbers.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -550,6 +570,10 @@ def dia_cases(s, label: str, seed: int, timed: bool = True):
         for width in (r, 1):
             k1.append(k1_case(f"{label}l{i} cycle operator", level, width,
                               seed + 2 + 2 * i + (width == 1), timed))
+            if "sm" in level:   # the lumped operator of the transfers
+                k1.append(k1_case(
+                    f"{label}l{i} transfer-smoothing operator", level["sm"],
+                    width, seed + 50 + 2 * i + (width == 1), timed))
     return k1, k2_case(op, seed + 2 * len(cyc), timed=timed)
 
 
@@ -941,6 +965,10 @@ class DiaShapes:
         import collections
 
         self.counts = collections.Counter()
+        # K1''s launches by operator (the id of its params dict) and
+        # width: two operators of one shape (level 0's exact and lumped
+        # cycle operators) share a key of `counts`.
+        self.by_params = collections.Counter()
 
     def __enter__(self):
         from padne_tpu_torch.ops import comp, dia
@@ -949,6 +977,7 @@ class DiaShapes:
 
         def k1(params, xt):
             self.counts[k1_key(params, xt)] += 1
+            self.by_params[id(params), xt.shape[0]] += 1
             return self.real[0](params, xt)
 
         def k2(params, x):
@@ -1342,6 +1371,7 @@ def dia_phases(args, tmp: pathlib.Path, repeats: dict):
                      solution_print("phase 6's set-up", bspy.result),
                      solution_print("a second set-up", s.solve(
                          target_residual=1e-10))])
+    scipy_bordered = bspy.result
     del s, bspy
     torch.cuda.empty_cache()
     dv = stats2["scipy_max_dv"]
@@ -1363,7 +1393,8 @@ def dia_phases(args, tmp: pathlib.Path, repeats: dict):
                      repr(cfg.variable_size_maximum_factor)],
            "ref_v": np.concatenate([pot.values for ls in sol.layer_solutions
                                     for pot in ls.potentials]),
-           "scipy_system": scipy_system, "cli": cli_run}
+           "scipy_system": scipy_system, "scipy_bordered": scipy_bordered,
+           "cli": cli_run}
     return k1 + k1s, [k2, k2s], launches, ctx
 
 
@@ -1857,6 +1888,266 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
     print(json.dumps(out), flush=True)
     return {"k1": k1, "k2": k2, "k3": k3s, "launches": launches,
             "ell_launches": ell_launches}
+
+
+# Phase variants: the JAX package's A/B alternatives of the DIA solve,
+# each a DiaBorderedSolver argument, beside the defaults.
+VARIANTS = (("default", {}), ("cheb=3", {"cheb": 3}),
+            ("cheb_deep=3", {"cheb_deep": 3}),
+            ("smooth_steps=2", {"smooth_steps": 2}),
+            ("cycle_lumped=False", {"cycle_lumped": False}),
+            ("coarse=device", {"coarse": "device"}),
+            ("w_levels=0", {"w_levels": 0}))
+JACOBI_MESH = 0.15   # mm: the small boards meshed to 4,724-7,056 unknowns
+
+
+class SolverSpy:
+    """Keeps every ops.schur.DiaBorderedSolver built while it is entered
+    (solve_bordered gives back none), by standing in for the class."""
+
+    def __enter__(self):
+        from padne_tpu_torch.ops import schur
+
+        self.real = schur.DiaBorderedSolver
+        self.solvers = []
+
+        def recording(*args, **kw):
+            self.solvers.append(self.real(*args, **kw))
+            return self.solvers[-1]
+
+        schur.DiaBorderedSolver = recording
+        return self
+
+    def __exit__(self, *exc):
+        from padne_tpu_torch.ops import schur
+
+        schur.DiaBorderedSolver = self.real
+
+
+def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
+    """Phase variants: each setting of VARIANTS as a DiaBorderedSolver of
+    phase cli's assembled system (not meshed again), solved once to the
+    1e-10 target: residual <= 1e-9, potentials within 1e-7 x span of
+    phase cli's, every launched K1'/K2' shape held against its plain
+    version (cycle_lumped=False's exact level-0 bf16 operator also
+    timed).  Per setting: set-up and solve seconds, CG iterations,
+    passes, residual, K1' launches, device events and kernel ms per CG
+    iteration (profiled apart from the timed solve: the profiler slows
+    what it traces) and where the coarse inverse was built.  Then solve_bordered with
+    precond="jacobi" on the smallest of the four small boards above
+    5,000 unknowns at JACOBI_MESH (its K3' shapes held, within 1e-6 V
+    of spsolve), and solve_bordered(dia_shard_min=512) on phase 6's
+    system over phase sharded's mesh (at least 2 sharded levels, its
+    K1'/K2' shapes held, within 1e-7 x span of phase 6's solve)."""
+    import numpy as np
+    import scipy.sparse.linalg
+    import torch
+
+    from padne_tpu_torch import kicad, mesh, solver
+    from padne_tpu_torch.ops import schur
+    from padne_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    card = smi()
+    system, ref = cli_run["system"], cli_run["bordered"]
+    span = float(ref.v.max() - ref.v.min())
+    out = {"phase": "variants", "card": card, "n": system.n,
+           "settings": {}}
+    k1, k2 = [], []
+    launches = {"dia_sell": 0, "comp_sell": 0, "ell_spmv": 0}
+    for i, (name, kw) in enumerate(VARIANTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = schur.DiaBorderedSolver(system, device=DEV, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        spy = DiaShapes()
+        t0 = time.perf_counter()
+        with spy as shapes:
+            sol = s.solve(target_residual=1e-10)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        got = launch_counts()
+        for key in launches:
+            launches[key] += got[key]
+        cases, case2 = dia_cases(s, f"variants {name} ", 61 + 100 * i,
+                                 timed=False)
+        exact = None
+        if "sm" in s.cycle_params[0]:
+            # The exact level-0 operator in bf16: a K1' instantiation no
+            # other phase launches; timed at both widths.
+            l0 = s.cycle_params[0]
+            exact = []
+            for width in (s.m + 1, 1):
+                exact.append(k1_case(f"variants {name} l0 exact bf16 "
+                                     "cycle operator", l0, width,
+                                     97 + width))
+                exact[-1]["launches"] = spy.by_params[id(l0), width]
+            cases += exact
+        k1 += cases
+        k2.append(case2)
+        check_dia_held(f"variants {name}", shapes, got, cases, [case2])
+        # Device events and kernel ms per CG iteration: the solver's CG
+        # at R = 1 (the refinement passes' width) run to 10 and to 30
+        # iterations (tol 0), each profiled; the difference over 20
+        # leaves out the set-up and the final residual of a call.
+        t0 = time.perf_counter()
+        b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
+            device=torch.device(DEV)).manual_seed(7))
+        runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
+                for k in (10, 30)]
+        check([r[2].iterations for r in runs] == [10, 30],
+              f"variants {name}: the profiled CG stopped early")
+        profile_s = time.perf_counter() - t0
+        dv = float(np.abs(sol.v - ref.v).max())
+        row = {"setup_s": setup_s, "solve_s": solve_s,
+               "cg_iterations": sol.cg_iterations,
+               "refinement_passes": sol.refinement_steps + 1,
+               "residual_norm": sol.residual_norm, "max_dv_vs_cli": dv,
+               "k1_launches": got["dia_sell"],
+               "k2_launches": got["comp_sell"],
+               "events_per_iteration": (runs[1][0] - runs[0][0]) / 20,
+               "kernel_ms_per_iteration": (runs[1][1] - runs[0][1]) / 20,
+               "profile_s": profile_s, "coarse": s.coarse,
+               "levels": [lv.pack.np_ for lv in s.hierarchy.levels]}
+        if exact is not None:
+            row["l0_exact_k1"] = {c["name"]: {
+                k: c[k] for k in ("graph_ms", "bound_ms", "library_ms",
+                                  "library_graph_ms", "launches")}
+                for c in exact}
+        out["settings"][name] = row
+        print(f"[variants] {name}: set-up {setup_s:.2f} s solve "
+              f"{solve_s:.2f} s cg_iterations={sol.cg_iterations} "
+              f"passes={sol.refinement_steps + 1} residual_norm="
+              f"{sol.residual_norm:.3e} max|dV| vs cli {dv:.3e} V "
+              f"K1'={got['dia_sell']} K2'={got['comp_sell']} "
+              f"{row['events_per_iteration']:.1f} device events and "
+              f"{row['kernel_ms_per_iteration']:.3f} ms of kernels per CG "
+              f"iteration coarse={s.coarse}; card {card}", flush=True)
+        check(got["dia_sell"] > 0 and got["comp_sell"] > 0
+              and got["ell_spmv"] == 0,
+              f"variants {name}: not on K1' and K2' alone")
+        check(sol.residual_norm <= 1e-9,
+              f"variants {name}: residual {sol.residual_norm:.3e}")
+        check(dv <= 1e-7 * span, f"variants {name}: potentials {dv:.3e} V "
+                                  "from phase cli's")
+        check(s.coarse == ("device" if kw.get("coarse") == "device"
+                           else "host")
+              or s.coarse == "host (validation)" and "coarse" in kw,
+              f"variants {name}: coarse inverse built on {s.coarse}")
+        del s, sol, runs
+        torch.cuda.empty_cache()
+
+    # precond="jacobi" on the ELL route above the AMG threshold.
+    gen = boardgen()
+    jtmp = tmp / "jacobi"
+    cfg = mesh.Mesher.Config(maximum_size=JACOBI_MESH,
+                             variable_size_maximum_factor=1.0)
+    small = []
+    for name in SMALL_BOARDS:
+        getattr(gen, name)(jtmp)
+        prob = kicad.load_kicad_project(jtmp / name / f"{name}.kicad_pro")
+        small.append((solver.build_system(prob, cfg)[0], name))
+    sizes = {name: sys_.n for sys_, name in small}
+    jsys, jname = min(((s_, n_) for s_, n_ in small if s_.n > 5000),
+                      key=lambda t: t[0].n)
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with K3Shapes() as k3_shapes:
+        sol = schur.solve_bordered(jsys, precond="jacobi",
+                                   inner_dtype=torch.float32, device=DEV,
+                                   stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    for key in launches:
+        launches[key] += got[key]
+    L, r, *_ = schur.bordered_scipy_system(jsys)
+    dv = float(np.abs(sol.v - scipy.sparse.linalg.spsolve(L, r)[:jsys.n])
+               .max())
+    ell = (jsys.ell.cols, jsys.ell.vals, jsys.ell.diag, jsys.n)
+    k3_gen = torch.Generator(device=torch.device(DEV)).manual_seed(71)
+    k3 = []
+    for key, count in sorted(k3_shapes.items(), key=lambda kv: -kv[1]):
+        n_, nx_, r_, kind, form = key
+        check(n_ == nx_ == jsys.n, f"Jacobi solve: K3' on {key}, not A")
+        case = k3_case(f"jacobi A ({jname}) {kind} R={r_}", ell,
+                       getattr(torch, kind), r_, form, k3_gen)
+        check(case["key"] == key, f"Jacobi solve: {key} was not held")
+        case["launches"] = count
+        k3.append(case)
+    print(f"[variants] precond=jacobi on {jname} (n={jsys.n}; the small "
+          f"boards at {JACOBI_MESH} mm: {sizes}): route={stats['route']} "
+          f"levels={stats['levels']} escalated={stats['escalated']} "
+          f"{wall:.2f} s cg_iterations={sol.cg_iterations} passes="
+          f"{sol.refinement_steps + 1} residual_norm={sol.residual_norm:.3e}"
+          f" max|dV| vs spsolve={dv:.3e} V launches={got}", flush=True)
+    check(stats["route"] == "ell" and not stats["levels"],
+          "precond='jacobi' did not take the Jacobi ELL route")
+    check(got["ell_spmv"] > 0 and got["dia_sell"] == got["comp_sell"] == 0,
+          "the Jacobi solve did not run on K3' alone")
+    check(sol.residual_norm < 1e-9 and dv <= 1e-6,
+          f"Jacobi solve: residual {sol.residual_norm:.3e}, |dV| {dv:.3e}")
+    out["jacobi"] = {"board": jname, "n": jsys.n, "mesh_mm": JACOBI_MESH,
+                     "small_board_sizes": sizes, "wall_s": wall,
+                     "cg_iterations": sol.cg_iterations,
+                     "refinement_passes": sol.refinement_steps + 1,
+                     "escalated": stats["escalated"],
+                     "residual_norm": sol.residual_norm,
+                     "max_dv_vs_spsolve": dv, "launches": got,
+                     "k3": {c["name"]: {k: c[k] for k in (
+                         "graph_ms", "bound_ms", "library_ms",
+                         "library_graph_ms", "launches")} for c in k3}}
+
+    # dia_shard_min=512 over phase sharded's mesh.
+    msys = ctx["scipy_system"]
+    mref = ctx["scipy_bordered"]
+    smesh = sharding.Mesh([torch.device(DEV, 0)] * SHARDS)
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with SolverSpy() as built, DiaShapes() as shapes:
+        sol = schur.solve_bordered(msys, inner_dtype=torch.float32,
+                                   mesh=smesh, dia_shard_min=512,
+                                   stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    for key in launches:
+        launches[key] += got[key]
+    s = built.solvers[-1]
+    sk1, sk2 = sharded_dia_cases(s, 81, timed=False)
+    k1 += sk1
+    k2 += sk2
+    check_dia_held("variants dia_shard_min=512", shapes, got, sk1, sk2)
+    mspan = float(mref.v.max() - mref.v.min())
+    dv = float(np.abs(sol.v - mref.v).max())
+    levels = [(lv.pack.np_, lv.shard) for lv in s.hierarchy.levels]
+    print(f"[variants] solve_bordered(dia_shard_min=512) n={msys.n} over "
+          f"{SHARDS} shards: route={stats['route']} levels (rows, sharded) "
+          f"{levels}, {s.n_sharded} sharded in the cycle, {wall:.2f} s "
+          f"cg_iterations={sol.cg_iterations} passes="
+          f"{sol.refinement_steps + 1} residual_norm={sol.residual_norm:.3e}"
+          f" max|dV| vs phase 6 {dv:.3e} V launches={got}", flush=True)
+    check(stats["route"] == "dia" and stats["sharded"] and s.n_sharded >= 2,
+          f"dia_shard_min=512 did not shard 2 levels: {levels}")
+    check(sol.residual_norm <= 1e-9 and dv <= 1e-7 * max(mspan, 1.0),
+          f"dia_shard_min=512: residual {sol.residual_norm:.3e}, "
+          f"|dV| {dv:.3e} V")
+    out["dia_shard_min_512"] = {
+        "n": msys.n, "levels": levels, "sharded_levels": s.n_sharded,
+        "wall_s": wall, "cg_iterations": sol.cg_iterations,
+        "refinement_passes": sol.refinement_steps + 1,
+        "residual_norm": sol.residual_norm, "max_dv_vs_phase_6": dv,
+        "launches": got}
+    del s, built, sol
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return {"k1": k1, "k2": k2, "k3": k3, "launches": launches}
 
 
 DP_TP = (2, 4)       # phase dp_tp: dp rows x tp shards of the one card
@@ -2567,6 +2858,8 @@ def main() -> int:
                                 repeats)
         del ell_run
         torch.cuda.empty_cache()
+        variants = variants_phase(cli_run, ctx, pathlib.Path(tmp))
+        torch.cuda.empty_cache()
         dp_tp = dp_tp_phase(cli_run.pop("system"), ctx["scipy_system"],
                             repeats)
         del cli_run
@@ -2584,6 +2877,7 @@ def main() -> int:
         by_path = {"cli": dia_launches[name], "ell": ell_launches[name],
                    "sharded": sharded["launches"][name],
                    "sharded_ell": sharded["ell_launches"][name],
+                   "variants": variants["launches"][name],
                    "dp_tp": dp_tp["launches"][name],
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
@@ -2599,15 +2893,17 @@ def main() -> int:
     kernels_line = {"kernels": [
         entry("dia_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/dia.py:802", dia_launches["dia_sell"],
-              k1 + sharded["k1"] + dp_tp["k1"] + frag["k1"], k1[0]),
+              k1 + sharded["k1"] + dp_tp["k1"] + frag["k1"]
+              + variants["k1"], k1[0]),
         entry("comp_sell", "padne_tpu_torch/csrc/dia_sell.cu",
               "padne_tpu/ops/comp.py:274", dia_launches["comp_sell"],
-              k2 + sharded["k2"] + dp_tp["k2"] + [frag["k2"]], k2[0]),
+              k2 + sharded["k2"] + dp_tp["k2"] + [frag["k2"]]
+              + variants["k2"], k2[0]),
         entry("ell_spmv", "padne_tpu_torch/csrc/ell_spmv.cu",
               "padne_tpu/ops/spmv_pallas.py:84, "
               "padne_tpu/ops/spmv_pallas.py:172",
-              ell_launches["ell_spmv"], k3 + sharded["k3"] + dp_tp["k3"],
-              k3[1]),
+              ell_launches["ell_spmv"],
+              k3 + sharded["k3"] + dp_tp["k3"] + variants["k3"], k3[1]),
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

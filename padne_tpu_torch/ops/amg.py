@@ -9,7 +9,10 @@ around ops.dia matvecs (kernel K1' on every level, however small) in the
 transposed (R, n) layout; every transfer between levels is a reshape
 plus a child-permutation scatter/gather.  `make_vcycle_dia_sharded` runs
 the sharded prefix row-sharded over a mesh (ops.dia_sharded) and the
-rest as `make_vcycle_dia_t` does.
+rest as `make_vcycle_dia_t` does.  The one-device cycle also takes the
+JAX package's A/B alternatives (Chebyshev smoothing, V(s,s), the exact
+level 0) as arguments, and the coarse inverse may be built on the
+device (`_coarse_inv_on_device`).
 
 ELL half (the generic route): `build_hierarchy` (greedy aggregation,
 smoothed prolongation, Galerkin coarse operators, dense pinv bottom) is
@@ -124,6 +127,12 @@ class AlignedHierarchy:
     # (npL, npL) f32 dense pseudo-inverse of the padded coarsest
     # operator, or a zero-arg callable computing it on first access.
     _coarse: object = None
+    # The coarsest operator (scipy sparse) and its sizes, real and
+    # padded, from which _coarse_inv_on_device builds the inverse on the
+    # device.
+    coarse_sp: object = None
+    coarse_nL: int = 0
+    coarse_npL: int = 0
 
     @property
     def coarse_inv(self) -> np.ndarray:
@@ -221,6 +230,7 @@ def build_hierarchy_dia(
     a_csr=None,
     deep_max_offsets: "int | None" = 24,
     deep_coverage: "float | None" = 0.995,
+    coarse_eigh: bool = False,
 ) -> AlignedHierarchy:
     """Gather-free AMG setup (host).
 
@@ -238,7 +248,11 @@ def build_hierarchy_dia(
     wider one grows the halo past the one-neighbour reach.
 
     a_csr: caller-provided CSR of the same operator (skips a second
-    ELL->CSR conversion)."""
+    ELL->CSR conversion).
+
+    coarse_eigh: the host coarse inverse by the syevd pseudo-inverse
+    alone (_eigh_pinv), without the Cholesky fast path (the JAX
+    package's PADNE_TPU_COARSE_EIGH)."""
     import scipy.sparse
 
     A = ell.to_scipy() if a_csr is None else a_csr
@@ -398,8 +412,9 @@ def build_hierarchy_dia(
     def _compute_coarse_inv():
         ci = np.zeros((npL, npL), np.float32)  # padding rows stay zero
         if nL:
-            ci[:nL, :nL] = _coarse_inv_dense(
-                A_bottom, np.asarray(A_bottom.todense()))
+            Ad = np.asarray(A_bottom.todense())
+            ci[:nL, :nL] = (_eigh_pinv(Ad) if coarse_eigh
+                            else _coarse_inv_dense(A_bottom, Ad))
         return ci
 
     for i, lv in enumerate(levels):
@@ -417,7 +432,8 @@ def build_hierarchy_dia(
         posmap0 = inv0
         np0 = npL
     return AlignedHierarchy(levels=levels, posmap0=posmap0, np0=np0,
-                            _coarse=_compute_coarse_inv)
+                            _coarse=_compute_coarse_inv, coarse_sp=A_bottom,
+                            coarse_nL=nL, coarse_npL=npL)
 
 
 # ---------------------------------------------------------------------------
@@ -450,11 +466,130 @@ def _lumped_level0(pack: dia.DiaPack, lump_strength: float):
     return pack, np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
 
 
-def _coarse_inv_device(h: AlignedHierarchy, device) -> torch.Tensor:
-    """The host coarse inverse, rounded through bf16 (the JAX package's
-    wire format, preconditioner-grade) and held as f32 on the device."""
+def _coarse_inv_on_device(h: AlignedHierarchy, device):
+    """The coarse inverse built on `device` (the JAX package's
+    _device_coarse_inv): the bottom operator's COO scattered into a
+    dense (npL, npL) f32 matrix A0 (scaled to unit |A|_max), the
+    structural nullspace shifted out of the way, M = A0 + Z Z^T (Z the
+    scaled indicators of the connected components; padding rows get a
+    unit diagonal), and 30 Newton-Schulz steps X <- 2X - X (M X) from
+    X0 = I / max row sum of |M|.
+
+    Validation, as the JAX package's: |I - X M|max < 1e-2 and finite,
+    and no near-null junk (the top mode of X by 20 power steps beyond
+    1 / (1e-6 * lambda_max(A0)), lambda_max by 10 power steps).  The
+    products must be true f32 (the JAX build's Precision.HIGHEST): with
+    TF32 the check would judge another matrix, so it raises.
+
+    Returns (the (npL, npL) f32 inverse, padding rows and columns 0, or
+    None, and the reason the validation gave for None)."""
+    import scipy.sparse.csgraph as csgraph
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the coarse inverse's Newton-Schulz products "
+                           "need true f32: TF32 matmuls are on "
+                           "(device.resolve turns them off)")
+    A_sp, nL, npL = h.coarse_sp, h.coarse_nL, h.coarse_npL
+    coo = A_sp.tocoo()
+    coo.sum_duplicates()    # unique (row, col): the scatter adds nothing
+    d_scale = max(float(np.abs(coo.data).max()), 1e-300)
+    ncomp, labels = csgraph.connected_components(A_sp, directed=False)
+    rowsum = np.asarray(abs(A_sp).sum(axis=1)).ravel()
+    lam_g = max(float(rowsum.max()) / d_scale, 1e-300)
+    sizes = np.bincount(labels, minlength=ncomp).astype(np.float64)
+    zcol = np.sqrt(lam_g / sizes[labels]).astype(np.float32)
+
+    f32 = torch.float32
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    A0 = torch.zeros(npL, npL, dtype=f32, device=device)
+    A0[dev(coo.row, np.int64), dev(coo.col, np.int64)] = dev(
+        coo.data / d_scale, np.float32)
+    Z = torch.zeros(npL, ncomp, dtype=f32, device=device)
+    Z[torch.arange(nL, device=device), dev(labels, np.int64)] = dev(
+        zcol, np.float32)
+    real = (torch.arange(npL, device=device) < nL).to(f32)
+    M = A0 + Z @ Z.T
+    M.diagonal().add_(1.0 - real)
+    lam_row = M.abs().sum(dim=1).max().clamp_min(1e-30)
+    eye = torch.eye(npL, dtype=f32, device=device)
+    X = eye / lam_row
+    for _ in range(30):
+        # The stable 2X - X (M X) form: X - X^2 M equals it only while
+        # X and M commute, which f32 rounding breaks.
+        X = 2.0 * X - X @ (M @ X)
+    res = (eye - X @ M).abs().max()
+    X = X * real[:, None] * real[None, :]
+
+    def top(mat, v, steps):
+        for _ in range(steps):
+            v = mat @ v
+            v = v / v.norm().clamp_min(1e-30)
+        return v
+
+    gen = torch.Generator().manual_seed(7)
+    v = top(X, torch.randn(npL, generator=gen).to(device) * real, 20)
+    w = top(A0, torch.randn(npL, generator=gen).to(device) * real, 10)
+    mu_max = float(v @ (X @ v))
+    lam_max = max(float(w @ (A0 @ w)), 1e-30)
+    res = float(res)
+    if not (np.isfinite(res) and res < 1e-2):
+        return None, (f"Newton-Schulz did not converge (|I - XM|max "
+                      f"{res:.2e})")
+    if mu_max > 1.0 / (1e-6 * lam_max):
+        return None, (f"near-null junk beyond the structural nullspace "
+                      f"(1/mu={1.0 / mu_max:.2e} < 1e-6*lam="
+                      f"{1e-6 * lam_max:.2e})")
+    return X * (1.0 / d_scale), None
+
+
+def _coarse_inv_device(h: AlignedHierarchy, device, coarse: str = "host"):
+    """The cycle's coarse inverse on `device` and where it was built.
+
+    coarse="host": the host inverse (AlignedHierarchy.coarse_inv),
+    rounded through bf16 (the JAX package's wire format,
+    preconditioner-grade) and held as f32.  coarse="device": built on
+    the device (_coarse_inv_on_device); when its validation fails, the
+    host inverse as for "host", as the JAX package's algorithm takes it,
+    with the reason logged.  Returns (tensor, "host", "device" or
+    "host (validation)")."""
+    import logging
+
+    if coarse not in ("host", "device"):
+        raise ValueError(f"coarse={coarse!r}: 'host' or 'device'")
+    route = "host"
+    if coarse == "device":
+        inv, why = _coarse_inv_on_device(h, device)
+        if inv is not None:
+            return inv, "device"
+        logging.getLogger(__name__).info(
+            "coarse inverse on the device: %s; using the host "
+            "pseudo-inverse", why)
+        route = "host (validation)"
     ci = torch.from_numpy(h.coarse_inv)
-    return ci.to(torch.bfloat16).to(torch.float32).to(device)
+    return ci.to(torch.bfloat16).to(torch.float32).to(device), route
+
+
+def _cheb_smooth(mv, dinv, lam, deg, b, x0=None, want_r=True):
+    """4th-kind Chebyshev smoother of degree `deg` (the Lottes
+    recurrence, as the JAX package's): its error propagator is a
+    polynomial in D^-1 A with roots on (0, lam], A-self-adjoint, so the
+    same smoother before and after keeps the cycle SPD.  Carries
+    r = b - A x beside x (one product a degree); returns (x, the final
+    residual when want_r, else None)."""
+    r = b if x0 is None else b - mv(x0)
+    d = (4.0 / (3.0 * lam)) * (dinv * r)
+    x = d if x0 is None else x0 + d
+    for k in range(2, deg + 1):
+        r = r - mv(d)
+        d = ((2.0 * k - 3.0) / (2.0 * k + 1.0)) * d \
+            + ((8.0 * k - 4.0) / ((2.0 * k + 1.0) * lam)) * (dinv * r)
+        x = x + d
+    if want_r:
+        return x, r - mv(d)
+    return x, None
 
 
 def _cycle_level(h: AlignedHierarchy, i: int, lump_strength: float):
@@ -466,42 +601,86 @@ def _cycle_level(h: AlignedHierarchy, i: int, lump_strength: float):
     return lv.pack, lv.dinv
 
 
-def _level_entry(h: AlignedHierarchy, i: int, device, dtype,
-                 lump_strength: float) -> dict:
-    """Level i's cycle operator on `device` in the sliced-ELL format with
-    its offset entries in `dtype`, its dinv and child permutation."""
-    pack, dinv = _cycle_level(h, i, lump_strength)
+def _upload(pack: dia.DiaPack, dinv, device, dtype) -> dict:
+    """A cycle operator on `device` in the sliced-ELL format with its
+    offset entries in `dtype`, and its dinv in f32."""
     entry = pack.to_device(device, dtype=dtype)
     entry["dinv"] = torch.from_numpy(dinv.astype(np.float32)).to(device)
-    entry["child_perm"] = torch.from_numpy(
-        h.levels[i].child_perm.astype(np.int64)).to(device)
     return entry
 
 
-def _cycle_t(h: AlignedHierarchy, w_levels: int):
+def _level_entry(h: AlignedHierarchy, i: int, device, dtype,
+                 lump_strength: float, cycle_lumped: bool = True,
+                 lump_smoothing: bool = True) -> dict:
+    """Level i's cycle operator on `device` (_upload) with its child
+    permutation.
+
+    Level 0 with lump_smoothing: the strength-lumped operator
+    (_lumped_level0) smooths the transfers; with cycle_lumped it also
+    smooths and takes the coarse-grid residual (one operator), else
+    those keep the exact operator and the lumped one sits under "sm".
+    Without lump_smoothing level 0 is exact throughout, as it is when
+    lumping folds no entry."""
+    lv = h.levels[i]
+    pack, dinv, sm = lv.pack, lv.dinv, None
+    if i == 0 and lump_smoothing:
+        pack_sm, dinv_sm = _lumped_level0(lv.pack, lump_strength)
+        if cycle_lumped or pack_sm is lv.pack:
+            pack, dinv = pack_sm, dinv_sm
+        else:
+            sm = _upload(pack_sm, dinv_sm, device, dtype)
+    entry = _upload(pack, dinv, device, dtype)
+    if sm is not None:
+        entry["sm"] = sm
+    entry["child_perm"] = torch.from_numpy(
+        lv.child_perm.astype(np.int64)).to(device)
+    return entry
+
+
+def _cycle_t(h: AlignedHierarchy, w_levels: int, cheb: int = 0,
+             cheb_deep: int = 0, smooth_steps: int = 1):
     """cycle_t(level, p, bt): the cycle from `level` down on one device,
     bt and the result (R, np_level); p[i] is level i's entry
-    (_level_entry) for every level visited, p[-1] the coarse inverse."""
+    (_level_entry) for every level visited, p[-1] the coarse inverse.
+
+    Smoothing: damped Jacobi, smooth_steps steps before and after on
+    level 0 and one on the others, or where cheb (level 0) or cheb_deep
+    (the others, the W-cycle's second visits included) is >= 2 the
+    4th-kind Chebyshev polynomial of that degree (_cheb_smooth) on both
+    sides.  A level's entry may carry the operator of its transfer
+    smoothing under "sm" (level 0's lumped one)."""
     metas = [lv.pack.meta for lv in h.levels]
+    lams = [lv.lam if lv.lam else 1.6 / lv.omega_s for lv in h.levels]
     nlev = len(h.levels)
 
     def cycle_t(level: int, p, bt):
         if level == nlev:
             return bt @ p[-1]["coarse_inv"].T
         lv, e, meta = h.levels[level], p[level], metas[level]
+        sm = e.get("sm", e)
         om_p, om_s, cap = lv.omega_p, lv.omega_s, lv.cap
         nc, clen = len(lv.child_perm), lv.child_len
         r_cols, np_l = bt.shape[0], meta[0]
         naggs = np_l // cap
+        deg = cheb if level == 0 else cheb_deep
+        steps = smooth_steps if level == 0 else 1
 
         def mv(xt):
             return dia.dia_matvec_t(meta, e, xt)
 
-        dinv = e["dinv"][None, :]
-        x = om_s * dinv * bt
-        r1 = bt - mv(x)
+        def mv_sm(xt):
+            return dia.dia_matvec_t(meta, sm, xt)
+
+        dinv, dinv_sm = e["dinv"][None, :], sm["dinv"][None, :]
+        if deg >= 2:
+            x, r1 = _cheb_smooth(mv, dinv, lams[level], deg, bt)
+        else:
+            x = om_s * dinv * bt
+            for _ in range(steps - 1):
+                x = x + om_s * dinv * (bt - mv(x))
+            r1 = bt - mv(x)
         # restrict: P^T r1 (om_p == 0 -> plain aggregation, no SpMV)
-        t = r1 - om_p * mv(dinv * r1) if om_p else r1
+        t = r1 - om_p * mv_sm(dinv_sm * r1) if om_p else r1
         rc_t = t.reshape(r_cols, naggs, cap).sum(axis=2)   # (R, naggs)
         bc = torch.zeros(r_cols, clen, dtype=bt.dtype, device=bt.device)
         bc[:, e["child_perm"]] = rc_t[:, :nc]
@@ -516,20 +695,29 @@ def _cycle_t(h: AlignedHierarchy, w_levels: int):
             xct = torch.nn.functional.pad(xct, (0, naggs - nc))
         px = xct[:, :, None].expand(r_cols, naggs, cap).reshape(
             r_cols, np_l)
-        x = x + (px - om_p * dinv * mv(px) if om_p else px)
-        return x + om_s * dinv * (bt - mv(x))
+        x = x + (px - om_p * dinv_sm * mv_sm(px) if om_p else px)
+        if deg >= 2:
+            return _cheb_smooth(mv, dinv, lams[level], deg, bt, x0=x,
+                                want_r=False)[0]
+        for _ in range(steps):
+            x = x + om_s * dinv * (bt - mv(x))
+        return x
 
     return cycle_t
 
 
 def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
-                      w_levels: int = 3, lump_strength: float = 0.05):
+                      w_levels: int = 3, lump_strength: float = 0.05,
+                      cycle_lumped: bool = True, lump_smoothing: bool = True,
+                      smooth_steps: int = 1, cheb: int = 0,
+                      cheb_deep: int = 0, coarse: str = "host"):
     """(apply_t, params): z = apply_t(params, rt) on (R, np0), a
     symmetric V(1,1) cycle with damped-Jacobi smoothing and smoothed
     aggregation transfers, so a valid SPD preconditioner for CG.
 
-    Level 0 runs on the strength-lumped operator (_lumped_level0) for
-    every application — the exact AMG preconditioner of the lumped
+    By default level 0 runs on the strength-lumped operator
+    (_lumped_level0) for every application — the exact AMG
+    preconditioner of the lumped
     operator, consistent smoother/operator pair, no full-remainder pass.
     Every level's operator is uploaded in the sliced-ELL format with its
     offset entries in `dtype` (ops.dia.DiaPack.to_device).
@@ -537,11 +725,28 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
     w_levels: coarse levels 2..w_levels are visited twice (a W-shape on
     the top of the coarse hierarchy; the second visit is a stationary
     re-application B -> 2B - BAB, so the cycle stays SPD).  Values < 2
-    give the plain V-cycle."""
-    params = [_level_entry(h, i, device, dtype, lump_strength)
+    give the plain V-cycle.
+
+    The JAX package's alternatives (its PADNE_TPU_* knobs), each keeping
+    the cycle symmetric: cycle_lumped=False smooths and takes level 0's
+    coarse-grid residual on the exact operator (in `dtype`), the lumped
+    one only smoothing the transfers (PADNE_TPU_CYCLE_LUMPED=0);
+    lump_smoothing=False keeps level 0 exact throughout; smooth_steps=s
+    gives V(s,s) on level 0 (PADNE_TPU_SMOOTH_STEPS); cheb=K >= 2
+    smooths level 0 with a degree-K Chebyshev polynomial
+    (PADNE_TPU_CHEB), cheb_deep=K the levels below it (PADNE_TPU_CHEB_DEEP;
+    0 or 1: damped Jacobi); coarse="device" builds the coarse inverse on
+    the device (_coarse_inv_device).  params[-1]["coarse"] says where it
+    was built."""
+    if smooth_steps < 1 or cheb < 0 or cheb_deep < 0:
+        raise ValueError(f"smooth_steps={smooth_steps} must be >= 1, "
+                         f"cheb={cheb} and cheb_deep={cheb_deep} >= 0")
+    params = [_level_entry(h, i, device, dtype, lump_strength,
+                           cycle_lumped, lump_smoothing)
               for i in range(len(h.levels))]
-    params.append({"coarse_inv": _coarse_inv_device(h, device)})
-    cycle_t = _cycle_t(h, w_levels)
+    inv, route = _coarse_inv_device(h, device, coarse)
+    params.append({"coarse_inv": inv, "coarse": route})
+    cycle_t = _cycle_t(h, w_levels, cheb, cheb_deep, smooth_steps)
 
     def apply_t(p, bt):
         return cycle_t(0, p, bt)
@@ -550,7 +755,8 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
 
 
 def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
-                            w_levels: int = 3, lump_strength: float = 0.05):
+                            w_levels: int = 3, lump_strength: float = 0.05,
+                            coarse: str = "host"):
     """The cycle of make_vcycle_dia_t with the sharded prefix of levels
     (AlignedLevel.shard) row-sharded over `mesh` (a
     parallel.sharding.Mesh; ops.dia_sharded: halo exchange, compressed
@@ -562,7 +768,9 @@ def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
     holds its ops.dia_sharded.ShardedOperator ("op") and per-shard dinv
     and transfer indices, for a deeper level the one-device entry of
     make_vcycle_dia_t on the mesh's first device; n_sharded is how many
-    levels (from the top) are sharded.
+    levels (from the top) are sharded; coarse and params[-1]["coarse"]
+    as in make_vcycle_dia_t.  (The cycle's other variants of
+    make_vcycle_dia_t are single-device only, as in the JAX package.)
 
     Level transfers: within the sharded prefix, restriction all-gathers
     the (R, np_l / cap) aggregate residual and each child shard takes
@@ -617,7 +825,8 @@ def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
         else:
             entry["child_perm"] = torch.from_numpy(perm).to(dev0)
         params.append(entry)
-    params.append({"coarse_inv": _coarse_inv_device(h, dev0)})
+    inv, route = _coarse_inv_device(h, dev0, coarse)
+    params.append({"coarse_inv": inv, "coarse": route})
     tail = _cycle_t(h, w_levels)
     nlev = len(h.levels)
 

@@ -198,6 +198,21 @@ class DiaBorderedSolver:
     place remainder entries in its dense slabs; the sliced-ELL format
     holds every entry, so there is no `slots` setting.)
 
+    The JAX package's A/B knobs (its PADNE_TPU_* environment) are
+    arguments here, with its defaults.  The hierarchy's shape:
+    group=False orders level 0 without the mesh/layer key (NO_GROUP);
+    coverage, deep_max_offsets, deep_coverage, drop_tol, cap, theta and
+    smooth_levels (L0_COVERAGE, DEEP_OFFSETS, DEEP_COVERAGE, DROP_TOL,
+    CAP, THETA, SMOOTH_LEVELS) reach amg.build_hierarchy_dia only when
+    set, so None keeps its own defaults; coarse_eigh (COARSE_EIGH).  The
+    cycle (amg.make_vcycle_dia_t): cycle_lumped (CYCLE_LUMPED),
+    lump_smoothing, smooth_steps (SMOOTH_STEPS), cheb (CHEB), cheb_deep
+    (CHEB_DEEP), and coarse="host" or "device" (HOST_COARSE /
+    DEVICE_COARSE): where the coarse inverse is built; `coarse` says
+    where it was ("host (validation)" when the device's failed its
+    check).  The cycle variants other than coarse are single-device,
+    as in the JAX package: a solve that shards raises on them.
+
     Data flow: the inner CG, the V-cycle, the border products and the
     compensated refinement residuals all stay on the device; the host
     solves the small (m+p) Schur block, and verifies the final residual
@@ -220,7 +235,16 @@ class DiaBorderedSolver:
                  w_levels: "int | None" = None, max_offsets: int = 4,
                  coarse_size: int = 3000, inner_tol: float = 1e-5,
                  comp_inner_tol: float = 3e-4, mesh=None,
-                 shard_min: int = 32768):
+                 shard_min: int = 32768, group: bool = True,
+                 coverage: "float | None" = None,
+                 deep_max_offsets: "int | None" = None,
+                 deep_coverage: "float | None" = None,
+                 drop_tol: "float | None" = None, cap: "int | None" = None,
+                 theta: "float | None" = None,
+                 smooth_levels: "int | None" = None,
+                 coarse_eigh: bool = False, cycle_lumped: bool = True,
+                 lump_smoothing: bool = True, smooth_steps: int = 1,
+                 cheb: int = 0, cheb_deep: int = 0, coarse: str = "host"):
         import scipy.sparse
 
         tp = mesh.size if mesh is not None else 1
@@ -240,10 +264,16 @@ class DiaBorderedSolver:
             raise ValueError("the DIA path needs node coordinates "
                              "(CoreSystem.coords) for the Hilbert ordering")
         self.A_host = system.ell.to_scipy()
+        knobs = {k: v for k, v in (
+            ("coverage", coverage), ("deep_max_offsets", deep_max_offsets),
+            ("deep_coverage", deep_coverage), ("drop_tol", drop_tol),
+            ("cap", cap), ("theta", theta),
+            ("smooth_levels", smooth_levels)) if v is not None}
         hierarchy = amg.build_hierarchy_dia(
             system.ell, system.coords, coarse_size=coarse_size,
-            group=system.group, a_csr=self.A_host, max_offsets=max_offsets,
-            tp=tp, shard_min=shard_min)
+            group=system.group if group else None, a_csr=self.A_host,
+            max_offsets=max_offsets, tp=tp, shard_min=shard_min,
+            coarse_eigh=coarse_eigh, **knobs)
         if not hierarchy.levels:
             raise _NoDiaHierarchy(
                 f"n={n} is too small for a DIA hierarchy at "
@@ -259,6 +289,14 @@ class DiaBorderedSolver:
                      f"{p} deflation components exceed the sharded "
                      "projector's budget (64)", dev)
         self.n_sharded = 0
+        variants = dict(cycle_lumped=cycle_lumped,
+                        lump_smoothing=lump_smoothing,
+                        smooth_steps=smooth_steps, cheb=cheb,
+                        cheb_deep=cheb_deep)
+        if self.sharded and (not cycle_lumped or not lump_smoothing
+                             or smooth_steps != 1 or max(cheb, cheb_deep) > 1):
+            raise ValueError(f"the sharded cycle has none of the cycle "
+                             f"variants {variants}")
 
         posmap = hierarchy.posmap0
         np0 = hierarchy.np0
@@ -275,7 +313,7 @@ class DiaBorderedSolver:
             vcycle_apply, vparams, self.n_sharded = \
                 amg.make_vcycle_dia_sharded(hierarchy, mesh,
                                             dtype=cycle_dtype,
-                                            w_levels=w_levels)
+                                            w_levels=w_levels, coarse=coarse)
             self.cg_solver = cg.make_pcg_sharded(
                 mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
                 comp_pad, p + 1, (vcycle_apply, vparams), stall_window=30,
@@ -283,7 +321,8 @@ class DiaBorderedSolver:
         else:
             op_params = amg.make_dia_cg_operator(hierarchy, dev)
             vcycle_apply, vparams = amg.make_vcycle_dia_t(
-                hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels)
+                hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels,
+                coarse=coarse, **variants)
 
             def a_apply_t(prm, xt):
                 return dia.dia_matvec_t(meta0, prm, xt)
@@ -296,6 +335,7 @@ class DiaBorderedSolver:
         # a dia_sharded.ShardedOperator when sharded), and the cycle's
         # operators level by level.
         self.op_params, self.cycle_params = op_params, vparams
+        self.coarse = vparams[-1]["coarse"]
         self.inner_tol = max(tol, inner_tol)
         self.comp_inner_tol = max(tol, comp_inner_tol)
         # f32 CG gains stall after a few dozen cycles; the outer ladder
@@ -546,13 +586,6 @@ class _NoDiaHierarchy(Exception):
     """No DIA hierarchy could be built (system too small)."""
 
 
-# The JAX package's routing thresholds: mixed-precision solves with
-# coordinates take the DIA route from _DIA_THRESHOLD core unknowns, the
-# ELL route preconditions with AMG from _AMG_THRESHOLD (Jacobi below).
-_DIA_THRESHOLD = 200_000
-_AMG_THRESHOLD = 5000
-
-
 def solve_bordered(
     system: CoreSystem,
     tol: float = 1e-14,
@@ -564,6 +597,11 @@ def solve_bordered(
     device=None,
     stats: Optional[dict] = None,
     mesh=None,
+    precond: str = "auto",
+    amg_threshold: int = 5000,
+    dia_threshold: int = 200_000,
+    dia_shard_min: int = 32768,
+    direct_small: bool = True,
 ) -> BorderedSolution:
     """Solve the full bordered system, routed as the JAX package routes.
 
@@ -572,20 +610,31 @@ def solve_bordered(
     classic mixed-precision iterative refinement: f32 inner solves, f64
     residuals and accumulated solution.
 
-    operator: "auto" sends mixed-precision solves of n >= _DIA_THRESHOLD
+    operator: "auto" sends mixed-precision solves of n >= dia_threshold
     with coordinates to the DIA route and everything else, including
     systems too small for a DIA hierarchy, to the ELL route; "dia" and
-    "ell" force one.  The ELL route preconditions with AMG from
-    _AMG_THRESHOLD core unknowns, with Jacobi below.
+    "ell" force one.
+
+    precond: the ELL route's preconditioner: "auto" (AMG from
+    amg_threshold core unknowns, Jacobi below), "amg" or "jacobi".
+
+    direct_small: with operator "auto", a core of at most 50,000
+    unknowns with a border wider than 16 that touches every component
+    takes the host sparse direct solve; False keeps it iterative (the
+    JAX package's PADNE_TPU_DIRECT_SMALL=0).
 
     mesh: a parallel.sharding.Mesh; with more than one device the inner
     solve row-shards over it (module doc) and `device` is the mesh's
-    first device.
+    first device; dia_shard_min is the fewest padded rows a DIA level
+    shards at (DiaBorderedSolver's shard_min).
 
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
-    uploads), tp and sharded (whether the inner solve sharded) and, on
-    the ELL route, ell_k and escalated."""
+    uploads), tp and sharded (whether the inner solve sharded), on the
+    DIA route coarse (where the coarse inverse was built) and, on the
+    ELL route, ell_k and escalated."""
+    if precond not in ("auto", "amg", "jacobi"):
+        raise ValueError(f"precond={precond!r}: 'auto', 'amg' or 'jacobi'")
     n, m = system.n, system.border.m
     stats = {} if stats is None else stats
     if operator == "dia" and system.coords is None:
@@ -595,7 +644,7 @@ def solve_bordered(
     # of proportion to a system SuperLU factors in milliseconds.  A
     # copper component no border row touches leaves the bordered matrix
     # singular, so such boards keep the iterative route.
-    if (operator == "auto" and m > 16 and n <= 50_000
+    if (operator == "auto" and direct_small and m > 16 and n <= 50_000
             and _border_covers_components(system)):
         direct = _solve_bordered_direct(system)
         if direct is not None:
@@ -609,33 +658,39 @@ def solve_bordered(
     dev = device_mod.resolve(device)
     use_dia = operator == "dia" or (
         operator == "auto" and inner_dtype is not None
-        and system.coords is not None and n >= _DIA_THRESHOLD)
+        and system.coords is not None and n >= dia_threshold)
     if use_dia:
         t0 = time.perf_counter()
         try:
             solver = DiaBorderedSolver(system, device=dev, tol=tol,
-                                       maxiter=maxiter, mesh=mesh)
+                                       maxiter=maxiter, mesh=mesh,
+                                       shard_min=dia_shard_min)
         except _NoDiaHierarchy:
             solver = None   # fall through to the ELL route
         if solver is not None:
             stats.update(route="dia", setup_s=time.perf_counter() - t0,
                          levels=[lv.pack.np_
                                  for lv in solver.hierarchy.levels],
-                         tp=solver.tp, sharded=solver.sharded)
+                         tp=solver.tp, sharded=solver.sharded,
+                         coarse=solver.coarse)
             return solver.solve(target_residual=target_residual,
                                 max_refinements=max_refinements)
     return _solve_bordered_ell(
         system, dev, tol=tol, maxiter=maxiter,
         max_refinements=max_refinements, target_residual=target_residual,
-        inner_dtype=inner_dtype, stats=stats, mesh=mesh)
+        inner_dtype=inner_dtype, stats=stats,
+        use_amg=precond == "amg" or (precond == "auto"
+                                     and n >= amg_threshold), mesh=mesh)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                         max_refinements, target_residual, inner_dtype,
-                        stats, mesh=None) -> BorderedSolution:
+                        stats, use_amg: bool,
+                        mesh=None) -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
     PCG per Schur pass over the ELL operator (kernel K3'), the small
-    dense block by host lstsq, f64 full-system refinement.  With a mesh
+    dense block by host lstsq, f64 full-system refinement; AMG or
+    (use_amg=False) Jacobi preconditioning.  With a mesh
     the PCG and the cycle row-shard over its first row of devices
     (_sharded_ell_cg); the rest stays on `dev`."""
     t0 = time.perf_counter()
@@ -651,7 +706,6 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
     inner_tol = max(tol, 1e-5) if mixed else tol
-    use_amg = n >= _AMG_THRESHOLD
     if use_amg and not mixed:
         # The V-cycle's attainable f64 residual floor sits around 1e-11
         # relative; the outer refinement multiplies the gain per pass.

@@ -506,15 +506,13 @@ def strip(boards_dir):
 
 
 @pytest.mark.parametrize("precond", ["jacobi", "amg"])
-def test_ell_route_matches_jax_and_serial(strip, precond, monkeypatch):
+def test_ell_route_matches_jax_and_serial(strip, precond):
     jsys, system = strip
-    if precond == "amg":
-        monkeypatch.setattr(schur, "_AMG_THRESHOLD", 0)
     want = jschur.solve_bordered(jsys, precond=precond, mesh=jax_mesh(4))
-    serial = schur.solve_bordered(system, device="cpu")
+    serial = schur.solve_bordered(system, device="cpu", precond=precond)
     stats = {}
     got = schur.solve_bordered(system, device="cpu", mesh=cpu_mesh(4),
-                               stats=stats)
+                               stats=stats, precond=precond)
     assert stats["route"] == "ell" and stats["sharded"] and stats["tp"] == 4
     assert bool(stats["levels"]) == (precond == "amg")
     assert got.residual_norm < 1e-9
@@ -529,14 +527,14 @@ def test_ell_route_sharded_levels(strip, inner_dtype, monkeypatch):
     (restriction, prolongation and the coarse solve across shards), in
     f64 and mixed precision."""
     _, system = strip
-    monkeypatch.setattr(schur, "_AMG_THRESHOLD", 0)
     monkeypatch.setattr(schur.amg, "build_hierarchy", functools.partial(
         amg.build_hierarchy, coarse_size=40))
     serial = schur.solve_bordered(system, device="cpu",
-                                  inner_dtype=inner_dtype)
+                                  inner_dtype=inner_dtype, precond="amg")
     stats = {}
     got = schur.solve_bordered(system, device="cpu", mesh=cpu_mesh(4),
-                               inner_dtype=inner_dtype, stats=stats)
+                               inner_dtype=inner_dtype, stats=stats,
+                               precond="amg")
     assert len(stats["levels"]) == 3
     assert all(n % 4 for n in stats["levels"])
     assert got.residual_norm < 1e-9
