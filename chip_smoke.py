@@ -93,15 +93,31 @@ Phases (any failure exits non-zero; there is no CPU path):
    also timed), where the coarse inverse was built ("host (validation)"
    only when the device's failed its check); set-up and solve seconds,
    CG iterations, passes, residual, K1' launches and the device events
-   and kernel ms per CG iteration (the solver's CG run to 10 and to 30
-   iterations under the profiler, the difference over 20) printed per
-   setting.
+   and kernel ms per CG iteration run (the solver's CG run to one and
+   to two whole dispatches under the profiler, the difference over the
+   iterations run between) printed per setting.
    Then solve_bordered(precond="jacobi") on the smallest of the four
    small boards above 5,000 unknowns at a 0.15 mm mesh (each K3' shape
    it launched held and timed, within 1e-6 V of spsolve), and
    solve_bordered(dia_shard_min=512) on phase 6's system over phase
    9b's mesh (at least 2 sharded levels, every K1'/K2' shape held,
    within 1e-7 x span of phase 6's solve);
+9b''. the CG loop ("loop"): the CG as CUDA-graph chunks (dispatch_cap
+   "auto": the JAX package's size rule, each dispatch one graph replay
+   of gated iterations, the continue test read once a dispatch) against
+   the host loop (dispatch_cap None, read once an iteration), in turns,
+   on phase 5's system (one DiaBorderedSolver: a cold solve and
+   LOOP_WARM warm ones), phase 8's ELL system (solve_bordered, which
+   captures in every call), the 12-spec sweep on phase 8's board and
+   phase 5's system over SHARDS shards of the card: iterations, passes
+   and the SHA-256 of the potentials equal solve for solve, fewer host
+   reads with the graphs; printed per path and loop: the resolved cap,
+   capture s, cold and warm-median solve s, host reads a solve, the
+   nodes of each graph the first solve captured (by the driver), device
+   events and kernel ms a CG iteration of one more solve under the
+   profiler and its kernel time over the warm-median wall (busy share),
+   and peak device memory.  Then a chunked solve whose
+   iteration reads a value on the host must raise;
 9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
    entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
    on phase 5's system (not meshed again): batched_sharded_cg of 4
@@ -182,9 +198,12 @@ Phases (any failure exits non-zero; there is no CPU path):
    atomic scatters they replaced, on the same operands, by CUDA events
    and graph replay.
 
-Each of the phases cli, sharded, variants, dp_tp, fragmented, sweep,
-serve and repeat also prints one JSON line {"phase": ...} with its
-numbers.
+Each of the phases cli, sharded, loop, variants, dp_tp, fragmented,
+sweep, serve and repeat also prints one JSON line {"phase": ...} with
+its numbers.  Every solve runs the CG as graph chunks (the default
+dispatch_cap "auto") but phase loop's host-loop runs; a kernel's
+launches count the calls of its wrapper, once per launch a capture
+records (a replay launches the recorded kernels again uncounted).
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -1464,7 +1483,7 @@ def ell_phases(args, tmp: pathlib.Path, repeats: dict):
     check_fields(sol, stats["n"])
     ell_run = {"system": bspy.system, "bordered": bspy.result,
                "setup_s": stats["setup_s"], "solve_s": stats["solve_s"],
-               "escalated": stats["escalated"]}
+               "escalated": stats["escalated"], "prob": prob, "cfg": cfg}
     # Phase repeat: 5 more solves of phase 8's system in this process,
     # each with its own set-up, as phase 8's.
     system = bspy.system
@@ -1890,6 +1909,251 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
             "ell_launches": ell_launches}
 
 
+LOOP_WARM = 3    # phase loop: warm solves of each path and loop
+LOOP_CAP = "auto"   # phase loop: the chunked loop's dispatch_cap
+
+
+class GraphNodes:
+    """Within the block, counts the nodes of every CUDA graph that ops.cg
+    captures: a stand-in for ops.cg._chunk that, when it runs under a
+    capture, asks the driver (libcuda's cuStreamGetCaptureInfo_v2 and
+    cuGraphGetNodes) for the nodes of the graph being captured and their
+    types.  `graphs` lists (cap, nodes, kernel nodes) a capture."""
+
+    def __enter__(self):
+        import ctypes
+
+        import torch
+
+        from padne_tpu_torch.ops import cg
+
+        cuda = ctypes.CDLL("libcuda.so.1")
+        vp = ctypes.c_void_p
+        self.cg, self.real, self.graphs = cg, cg._chunk, []
+
+        def counted(body, s, c, cap):
+            out = self.real(body, s, c, cap)
+            if torch.cuda.is_current_stream_capturing():
+                status, cid = ctypes.c_int(), ctypes.c_uint64()
+                graph, deps, ndeps = vp(), vp(), ctypes.c_size_t()
+                rc = cuda.cuStreamGetCaptureInfo_v2(
+                    vp(torch.cuda.current_stream().cuda_stream),
+                    ctypes.byref(status), ctypes.byref(cid),
+                    ctypes.byref(graph), ctypes.byref(deps),
+                    ctypes.byref(ndeps))
+                n = ctypes.c_size_t()
+                rc = rc or cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+                nodes = (vp * n.value)()
+                rc = rc or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+                kinds = []
+                for node in nodes:
+                    kind = ctypes.c_int()
+                    rc = rc or cuda.cuGraphNodeGetType(vp(node),
+                                                       ctypes.byref(kind))
+                    kinds.append(kind.value)
+                check(rc == 0, f"the driver could not list the graph's "
+                               f"nodes (CUresult {rc})")
+                # CU_GRAPH_NODE_TYPE_KERNEL is 0.
+                self.graphs.append({"cap": cap, "nodes": n.value,
+                                    "kernel_nodes": kinds.count(0)})
+            return out
+
+        cg._chunk = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cg._chunk = self.real
+
+
+def loop_phase(cli_run: dict, ell_run: dict) -> dict:
+    """Phase loop: the CG as CUDA-graph chunks (dispatch_cap "auto")
+    against the host loop (None) on four paths, in turns on one card:
+    phase cli's DIA system (one DiaBorderedSolver, a cold solve and
+    LOOP_WARM warm ones on its cached A^+ C), phase 8's ELL system
+    (solve_bordered, which builds its solver, so every call captures),
+    the 12-spec sweep on phase 8's board, and phase cli's system over
+    SHARDS shards of the card.  Each loop's iterations, passes and the
+    SHA-256 of the potentials must be equal, solve for solve; the graphs
+    read the continue test once a dispatch, the host loop once an
+    iteration.  Printed per path and loop: the resolved cap, capture s,
+    cold and warm-median solve s, host reads a solve, the nodes of the
+    graphs the first solve captured, device events and kernel ms a CG
+    iteration of one more solve under the profiler and its kernel time
+    over the warm-median wall (busy share), and peak device memory.  Then
+    a chunked solve whose iteration reads a value on the host must
+    raise (its capture fails; no host loop takes over)."""
+    import numpy as np
+    import torch
+
+    from padne_tpu_torch import sweep
+    from padne_tpu_torch.ops import cg, schur, spmv
+    from padne_tpu_torch.parallel import sharding
+
+    card = smi()
+    print(f"[loop] torch {torch.__version__} CUDA {torch.version.cuda}; "
+          f"card {card}", flush=True)
+    mesh = sharding.Mesh([torch.device(DEV, 0)] * SHARDS)
+    dia_sys, ell_sys = cli_run["system"], ell_run["system"]
+    specs = [sweep.SweepSpec(*x) for x in SWEEP_SPECS]
+
+    def solver_path(make):
+        # One solver; its solves, and the loop that holds its graphs.
+        s = make()
+
+        def solve():
+            sol = s.solve(target_residual=1e-10)
+            return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
+                    s.host_reads)
+        return solve, lambda: s.cg_solver.loop, lambda: s.dispatch_cap
+
+    def ell_path(cap):
+        last = {}
+
+        def solve():
+            st = {}
+            sol = schur.solve_bordered(ell_sys, inner_dtype=torch.float32,
+                                       device=DEV, dispatch_cap=cap,
+                                       stats=st)
+            last.update(st)
+            return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
+                    st["host_reads"])
+        return solve, lambda: last, lambda: last.get("dispatch_cap")
+
+    def sweep_path(cap):
+        last = {}
+
+        def solve():
+            st = {}
+            res = sweep.solve_sweep(ell_run["prob"], specs,
+                                    mesher_config=ell_run["cfg"],
+                                    dispatch_cap=cap, stats=st)
+            last.update(st)
+            return (st["cg_iterations"], None,
+                    np.concatenate([r.v for r in res]), st["host_reads"])
+        return solve, lambda: last, lambda: last.get("dispatch_cap")
+
+    paths = {
+        "dia": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
+            dia_sys, device=DEV, dispatch_cap=cap)),
+        "ell": ell_path,
+        "sweep": sweep_path,
+        "sharded": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
+            dia_sys, mesh=mesh, dispatch_cap=cap)),
+    }
+    out = {"phase": "loop", "card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda}
+    reset_counts()
+    for name, make in paths.items():
+        res = {}
+        for label, cap in (("none", None), ("auto", LOOP_CAP)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            runs = []
+            with GraphNodes() as nodes:
+                solve, loop_of, cap_of = make(cap)
+                for _ in range(1 + LOOP_WARM):
+                    t0 = time.perf_counter()
+                    it, passes, v, reads = solve()
+                    torch.cuda.synchronize()
+                    runs.append({"s": time.perf_counter() - t0,
+                                 "iterations": it, "passes": passes,
+                                 "sha256": fingerprint("", 0, 0, 0, v)
+                                 ["sha256"], "host_reads": reads})
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            # Above what was in use before this path's solver existed.
+            peak_above = peak - base / 1e9
+            t0 = time.perf_counter()
+            events, kernel_ms, (it, passes, v, reads) = device_events(solve)
+            traced = time.perf_counter() - t0
+            loop = loop_of()
+            # The solver's own (dia, sharded) or the last call's stats.
+            capture_s = (loop.capture_s if name in ("dia", "sharded")
+                         else loop.get("capture_s", 0.0))
+            # The graphs of the first solve (a solve_bordered or sweep
+            # call captures anew in every call).
+            graphs = nodes.graphs[:len(nodes.graphs) // (1 + LOOP_WARM)
+                                  if name in ("ell", "sweep")
+                                  else None]
+            warm = sorted(r["s"] for r in runs[1:])
+            warm_s = warm[len(warm) // 2] if warm else None
+            res[label] = {
+                "dispatch_cap": cap_of(), "capture_s": capture_s,
+                "cold_s": runs[0]["s"], "warm_median_s": warm_s,
+                "warm_s": [r["s"] for r in runs[1:]],
+                "iterations": [r["iterations"] for r in runs],
+                "passes": [r["passes"] for r in runs],
+                "host_reads": [r["host_reads"] for r in runs],
+                "sha256": [r["sha256"][:16] for r in runs],
+                "graphs": graphs, "traced_s": traced,
+                "device_events_per_cg_iteration": events / max(it, 1),
+                "kernel_ms_per_cg_iteration": kernel_ms / max(it, 1),
+                "kernel_ms": kernel_ms,
+                # The profiled solve's kernel time over an untraced warm
+                # solve's wall time (the profiler's own start would
+                # count as idle).
+                "busy_share": kernel_ms / (warm_s * 1e3),
+                "peak_device_memory_gb": peak,
+                "peak_above_base_gb": peak_above}
+            r = res[label]
+            print(f"[loop] {name} {label}: cap={r['dispatch_cap']} "
+                  f"capture {capture_s:.3f} s, cold {r['cold_s']:.3f} s, "
+                  f"warm median {r['warm_median_s']:.3f} s "
+                  f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}), "
+                  f"iterations {r['iterations']} passes {r['passes']} "
+                  f"host reads {r['host_reads']} sha256 {r['sha256']}, "
+                  f"graphs {graphs}, traced {traced:.3f} s: "
+                  f"{r['device_events_per_cg_iteration']:.1f} device events "
+                  f"and {r['kernel_ms_per_cg_iteration']:.3f} kernel ms a CG "
+                  f"iteration, busy share {r['busy_share']:.3f}, peak "
+                  f"{peak:.3f} GB ({peak_above:.3f} GB above the memory "
+                  f"in use before)", flush=True)
+            del solve, loop_of, cap_of, loop
+        a, b = res["none"], res["auto"]
+        for key in ("iterations", "passes", "sha256"):
+            check(a[key] == b[key], f"phase loop {name}: the graphs' {key} "
+                                    f"{b[key]} differ from the host loop's "
+                                    f"{a[key]}")
+        # One read a dispatch: below the host loop's one an iteration.
+        check(all(rb < ra for ra, rb in zip(a["host_reads"],
+                                            b["host_reads"])),
+              f"phase loop {name}: the graphs read the host "
+              f"{b['host_reads']} times, the host loop {a['host_reads']}")
+        check(b["graphs"] and not a["graphs"],
+              f"phase loop {name}: the graphs {b['graphs']}, the host "
+              f"loop's {a['graphs']}")
+        out[name] = res
+    out["launches"] = launch_counts()
+
+    # A host read inside the iteration: the capture fails and raises.
+    a = ell_sys.ell.to_device(DEV, torch.float64)
+
+    def reading(prm, x):
+        y = spmv.ell_spmv(prm["a"], x)
+        float(y.sum())
+        return y
+
+    bad = cg.make_pcg(None, torch.as_tensor(ell_sys.comp_id, device=DEV),
+                      ell_sys.num_components,
+                      operator=(reading, {"a": a, "diag": a.diag}),
+                      dispatch_cap=5)
+    try:
+        bad(torch.ones(ell_sys.n, 1, dtype=torch.float64, device=DEV),
+            1e-10, 50)
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc).splitlines()[0][:160]
+    torch.cuda.synchronize()
+    print(f"[loop] a host read in the body: {raised!r}", flush=True)
+    check(raised is not None, "a chunked solve with a host read in its "
+                              "iteration did not raise")
+    out["host_read_raises"] = raised
+    del a, bad
+    print(json.dumps(out), flush=True)
+    return out
+
+
 # Phase variants: the JAX package's A/B alternatives of the DIA solve,
 # each a DiaBorderedSolver argument, beside the defaults.
 VARIANTS = (("default", {}), ("cheb=3", {"cheb": 3}),
@@ -1990,14 +2254,19 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
         check_dia_held(f"variants {name}", shapes, got, cases, [case2])
         # Device events and kernel ms per CG iteration: the solver's CG
         # at R = 1 (the refinement passes' width) run to 10 and to 30
-        # iterations (tol 0), each profiled; the difference over 20
-        # leaves out the set-up and the final residual of a call.
+        # iterations (tol 0) in the host loop, or, in dispatches of c
+        # gated iterations (each runs all of them), to c and to c + 1:
+        # one dispatch and two.  Each call profiled; the difference over
+        # the iterations run between leaves out the set-up and the final
+        # residual of a call.
         t0 = time.perf_counter()
         b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
             device=torch.device(DEV)).manual_seed(7))
+        c = s.dispatch_cap
+        ks, ran = ([10, 30], 20) if c is None else ([c, c + 1], c)
         runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
-                for k in (10, 30)]
-        check([r[2].iterations for r in runs] == [10, 30],
+                for k in ks]
+        check([r[2].iterations for r in runs] == ks,
               f"variants {name}: the profiled CG stopped early")
         profile_s = time.perf_counter() - t0
         dv = float(np.abs(sol.v - ref.v).max())
@@ -2007,8 +2276,8 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
                "residual_norm": sol.residual_norm, "max_dv_vs_cli": dv,
                "k1_launches": got["dia_sell"],
                "k2_launches": got["comp_sell"],
-               "events_per_iteration": (runs[1][0] - runs[0][0]) / 20,
-               "kernel_ms_per_iteration": (runs[1][1] - runs[0][1]) / 20,
+               "events_per_iteration": (runs[1][0] - runs[0][0]) / ran,
+               "kernel_ms_per_iteration": (runs[1][1] - runs[0][1]) / ran,
                "profile_s": profile_s, "coarse": s.coarse,
                "levels": [lv.pack.np_ for lv in s.hierarchy.levels]}
         if exact is not None:
@@ -2856,6 +3125,8 @@ def main() -> int:
         cli_run = ctx.pop("cli")
         sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"],
                                 repeats)
+        torch.cuda.empty_cache()
+        loop = loop_phase(cli_run, ell_run)
         del ell_run
         torch.cuda.empty_cache()
         variants = variants_phase(cli_run, ctx, pathlib.Path(tmp))
@@ -2881,7 +3152,8 @@ def main() -> int:
                    "dp_tp": dp_tp["launches"][name],
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
-                   "serve": served["launches"][name]}
+                   "serve": served["launches"][name],
+                   "loop": loop["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path,

@@ -8,8 +8,9 @@ own copy of the native core (..native).  The device cycle is plain torch
 around ops.dia matvecs (kernel K1' on every level, however small) in the
 transposed (R, n) layout; every transfer between levels is a reshape
 plus a child-permutation scatter/gather.  `make_vcycle_dia_sharded` runs
-the sharded prefix row-sharded over a mesh (ops.dia_sharded) and the
-rest as `make_vcycle_dia_t` does.  The one-device cycle also takes the
+the sharded prefix row-sharded over a mesh (ops.dia_sharded), with level
+0 the exact CG operator as in the JAX package, and the rest as
+`make_vcycle_dia_t` does.  The one-device cycle also takes the
 JAX package's A/B alternatives (Chebyshev smoothing, V(s,s), the exact
 level 0) as arguments, and the coarse inverse may be built on the
 device (`_coarse_inv_on_device`).
@@ -592,15 +593,6 @@ def _cheb_smooth(mv, dinv, lam, deg, b, x0=None, want_r=True):
     return x, None
 
 
-def _cycle_level(h: AlignedHierarchy, i: int, lump_strength: float):
-    """(pack, dinv) of level i's cycle operator: level 0 strength-lumped
-    (_lumped_level0), the others as built."""
-    lv = h.levels[i]
-    if i == 0:
-        return _lumped_level0(lv.pack, lump_strength)
-    return lv.pack, lv.dinv
-
-
 def _upload(pack: dia.DiaPack, dinv, device, dtype) -> dict:
     """A cycle operator on `device` in the sliced-ELL format with its
     offset entries in `dtype`, and its dinv in f32."""
@@ -755,13 +747,21 @@ def make_vcycle_dia_t(h: AlignedHierarchy, device, dtype=torch.float32,
 
 
 def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
-                            w_levels: int = 3, lump_strength: float = 0.05,
-                            coarse: str = "host"):
+                            w_levels: int = 3, coarse: str = "host",
+                            op0=None):
     """The cycle of make_vcycle_dia_t with the sharded prefix of levels
     (AlignedLevel.shard) row-sharded over `mesh` (a
     parallel.sharding.Mesh; ops.dia_sharded: halo exchange, compressed
     far exchange, one K1' launch per shard and product).  The same
-    levels, lumping, types and W-shape, so the same preconditioner.
+    levels and W-shape as make_vcycle_dia_t, but level 0 is the exact
+    operator, as in the JAX package's sharded cycle
+    (padne_tpu/ops/schur.py:748, "no lumping in the sharded cycle"): no
+    strength lumping, its exact dinv, its values in f32, so it is the
+    CG operator itself.  op0: that operator, already uploaded
+    (dia_sharded.upload_sharded of level 0's pack; the solver's CG
+    operator, compensated for K2'), shared instead of uploaded again;
+    None uploads it here.  The deeper sharded levels hold their offset
+    entries in `dtype`.
 
     Returns (apply, params, n_sharded): zs = apply(params, rts) on lists
     of per-shard (R, np0 / tp) blocks; params[i] for a sharded level
@@ -795,16 +795,22 @@ def make_vcycle_dia_sharded(h: AlignedHierarchy, mesh, dtype=torch.float32,
     params = []
     for i, lv in enumerate(h.levels):
         if i >= n_sh:
-            params.append(_level_entry(h, i, dev0, dtype, lump_strength))
+            # Below level 0 nothing is lumped: lump_strength is unused.
+            params.append(_level_entry(h, i, dev0, dtype, 0.0))
             continue
-        pack, dinv = _cycle_level(h, i, lump_strength)
+        pack = lv.pack
         nl = pack.np_ // tp
         al = nl // lv.cap                   # aggregates of one shard
         perm = lv.child_perm.astype(np.int64)
-        dinv32 = torch.from_numpy(dinv.astype(np.float32))
+        dinv32 = torch.from_numpy(lv.dinv.astype(np.float32))
+        if i == 0 and op0 is not None:
+            op = op0
+        else:
+            op = dia_sharded.upload_sharded(
+                pack, dia_sharded.plan_shards(pack, tp), mesh,
+                dtype=torch.float32 if i == 0 else dtype)
         entry = {
-            "op": dia_sharded.upload_sharded(
-                pack, dia_sharded.plan_shards(pack, tp), mesh, dtype=dtype),
+            "op": op,
             "dinv": [dinv32[s * nl:(s + 1) * nl].to(dev)
                      for s, dev in enumerate(mesh.devices)],
             # Prolongation: the child positions of each shard's

@@ -191,7 +191,9 @@ class DiaBorderedSolver:
     Defaults are the JAX package's settings: 4 level-0 offsets
     (`max_offsets`), a 3000-row dense bottom (`coarse_size`), inner CG
     tolerances 1e-5 (first pass / host passes) and 3e-4 (compensated
-    ladder passes).  `cycle_dtype` and `w_levels` follow the device as
+    ladder passes; a sharded solve's ladder runs at inner_tol, as the
+    JAX package's sharded refinement does).  `cycle_dtype` and
+    `w_levels` follow the device as
     in the JAX package (accelerator vs CPU): bf16 values for the cycle's
     offset entries and a W-cycle on coarse levels 2..3 on CUDA; f32 and
     the plain V-cycle on the CPU.  (The JAX package's ExtraSlots only
@@ -225,9 +227,19 @@ class DiaBorderedSolver:
     at most 64 components, as the JAX package decides: the CG operator
     and the ladder's K2' per shard over its halo window
     (ops.dia_sharded), the cycle's sharded prefix as
-    amg.make_vcycle_dia_sharded, the CG as cg.make_pcg_sharded.  Else
+    amg.make_vcycle_dia_sharded (its level 0 the CG operator, unlumped,
+    as in the JAX package), the CG as cg.make_pcg_sharded.  Else
     it logs the decline and solves on the mesh's first device.  `device`
     is then that device.
+
+    dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc):
+    "auto" is the JAX package's rule on the card (np0 * 5 row updates
+    an iteration against ~60M a dispatch, 30 to 4000 iterations, one
+    CUDA graph a dispatch) and the host loop on the CPU; an int chunks
+    on either device; None is the host loop.  The resolved value is
+    `dispatch_cap`; the solver keeps its graphs for every later solve
+    (`cg_solver.loop`), and `host_reads` counts the continue tests the
+    last solve read on the host.
     """
 
     def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
@@ -244,7 +256,8 @@ class DiaBorderedSolver:
                  smooth_levels: "int | None" = None,
                  coarse_eigh: bool = False, cycle_lumped: bool = True,
                  lump_smoothing: bool = True, smooth_steps: int = 1,
-                 cheb: int = 0, cheb_deep: int = 0, coarse: str = "host"):
+                 cheb: int = 0, cheb_deep: int = 0, coarse: str = "host",
+                 dispatch_cap="auto"):
         import scipy.sparse
 
         tp = mesh.size if mesh is not None else 1
@@ -304,20 +317,27 @@ class DiaBorderedSolver:
         comp_pad = np.full(np0, p, dtype=np.int64)
         comp_pad[posmap] = system.comp_id
         self.comp_pad_dev = _index(comp_pad, dev)
+        # The JAX rule (schur.py:808-815): ~60M row updates a dispatch
+        # at np0 * 5 a cycled iteration; the host loop on the CPU.
+        self.dispatch_cap = cg.resolve_dispatch_cap(
+            dispatch_cap, mesh.devices if self.sharded else [dev], np0)
 
         if self.sharded:
             lv0 = hierarchy.levels[0]
             op_params = dia_sharded.upload_sharded(
                 lv0.pack, dia_sharded.plan_shards(lv0.pack, tp), mesh,
                 compensated=True)
+            # The sharded cycle's level 0 is the exact CG operator (the
+            # JAX rule, schur.py:748-749): it shares op_params.
             vcycle_apply, vparams, self.n_sharded = \
                 amg.make_vcycle_dia_sharded(hierarchy, mesh,
                                             dtype=cycle_dtype,
-                                            w_levels=w_levels, coarse=coarse)
+                                            w_levels=w_levels, coarse=coarse,
+                                            op0=op_params)
             self.cg_solver = cg.make_pcg_sharded(
                 mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
                 comp_pad, p + 1, (vcycle_apply, vparams), stall_window=30,
-                dim=1)
+                dim=1, dispatch_cap=self.dispatch_cap)
         else:
             op_params = amg.make_dia_cg_operator(hierarchy, dev)
             vcycle_apply, vparams = amg.make_vcycle_dia_t(
@@ -330,14 +350,19 @@ class DiaBorderedSolver:
             self.cg_solver = cg.make_pcg(
                 None, self.comp_pad_dev, p + 1,
                 operator=(a_apply_t, op_params),
-                precond=(vcycle_apply, vparams), stall_window=30, dim=1)
+                precond=(vcycle_apply, vparams), stall_window=30, dim=1,
+                dispatch_cap=self.dispatch_cap)
         # The device operands of K1': the CG operator (shared with K2';
         # a dia_sharded.ShardedOperator when sharded), and the cycle's
         # operators level by level.
         self.op_params, self.cycle_params = op_params, vparams
         self.coarse = vparams[-1]["coarse"]
         self.inner_tol = max(tol, inner_tol)
-        self.comp_inner_tol = max(tol, comp_inner_tol)
+        # The JAX package's sharded solve refines with its device passes
+        # at inner_tol (schur.py:1717-1718, `_device_refine`); the 3e-4
+        # knee of comp_inner_tol belongs to its one-device comp ladder.
+        self.comp_inner_tol = (self.inner_tol if self.sharded
+                               else max(tol, comp_inner_tol))
         # f32 CG gains stall after a few dozen cycles; the outer ladder
         # multiplies per-pass gains, so cap the inner solve.
         self.maxiter = min(maxiter, 300)
@@ -371,6 +396,7 @@ class DiaBorderedSolver:
         self.B_host = scipy.sparse.coo_matrix(
             (b.row_val, (b.row_idx, b.row_node)), shape=(m, n)).tocsr()
         self._cg_iters = 0
+        self.host_reads = 0
         self._BXc_host = None
         # A^+ C: the m border columns never change across passes or
         # solves (only the residual column does), so they solve once.
@@ -429,6 +455,7 @@ class DiaBorderedSolver:
         res = self.cg_solver(rhs, self.inner_tol if tol is None else tol,
                              self.maxiter)
         self._cg_iters += res.iterations
+        self.host_reads += res.host_reads
         return res.x
 
     def _solve_once(self, rc, rb, tol=None):
@@ -542,7 +569,7 @@ class DiaBorderedSolver:
     def solve(self, target_residual: float = 1e-10,
               max_refinements: int = 8) -> BorderedSolution:
         system, b = self.system, self.system.border
-        self._cg_iters = 0
+        self._cg_iters = self.host_reads = 0
         v1_pad, j = self._solve_once(system.r_core, b.rhs)
         (v, j, res_core, res_border, res_norm,
          refinements) = self._comp_refine(v1_pad, j, target_residual,
@@ -602,6 +629,7 @@ def solve_bordered(
     dia_threshold: int = 200_000,
     dia_shard_min: int = 32768,
     direct_small: bool = True,
+    dispatch_cap="auto",
 ) -> BorderedSolution:
     """Solve the full bordered system, routed as the JAX package routes.
 
@@ -628,11 +656,20 @@ def solve_bordered(
     first device; dia_shard_min is the fewest padded rows a DIA level
     shards at (DiaBorderedSolver's shard_min).
 
+    dispatch_cap: the inner CG's iterations a dispatch, as the JAX
+    package's (ops.cg's module doc): "auto" is its rule on the card (n
+    row updates an iteration, 5 n with AMG, against ~60M a dispatch, 30
+    to 4000 iterations; one CUDA graph a dispatch) and the host loop on
+    the CPU, an int chunks on either device, None is the host loop; an
+    escalation to f64 takes max(30, cap // 8).
+
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
     uploads), tp and sharded (whether the inner solve sharded), on the
     DIA route coarse (where the coarse inverse was built) and, on the
-    ELL route, ell_k and escalated."""
+    ELL route, ell_k and escalated; dispatch_cap (the first inner
+    solve's, resolved), host_reads (the CG's continue tests read on the
+    host) and capture_s (its CUDA graphs' capture, 0 without one)."""
     if precond not in ("auto", "amg", "jacobi"):
         raise ValueError(f"precond={precond!r}: 'auto', 'amg' or 'jacobi'")
     n, m = system.n, system.border.m
@@ -664,7 +701,8 @@ def solve_bordered(
         try:
             solver = DiaBorderedSolver(system, device=dev, tol=tol,
                                        maxiter=maxiter, mesh=mesh,
-                                       shard_min=dia_shard_min)
+                                       shard_min=dia_shard_min,
+                                       dispatch_cap=dispatch_cap)
         except _NoDiaHierarchy:
             solver = None   # fall through to the ELL route
         if solver is not None:
@@ -672,21 +710,26 @@ def solve_bordered(
                          levels=[lv.pack.np_
                                  for lv in solver.hierarchy.levels],
                          tp=solver.tp, sharded=solver.sharded,
-                         coarse=solver.coarse)
-            return solver.solve(target_residual=target_residual,
-                                max_refinements=max_refinements)
+                         coarse=solver.coarse,
+                         dispatch_cap=solver.dispatch_cap)
+            sol = solver.solve(target_residual=target_residual,
+                               max_refinements=max_refinements)
+            stats.update(host_reads=solver.host_reads,
+                         capture_s=solver.cg_solver.loop.capture_s)
+            return sol
     return _solve_bordered_ell(
         system, dev, tol=tol, maxiter=maxiter,
         max_refinements=max_refinements, target_residual=target_residual,
         inner_dtype=inner_dtype, stats=stats,
         use_amg=precond == "amg" or (precond == "auto"
-                                     and n >= amg_threshold), mesh=mesh)
+                                     and n >= amg_threshold), mesh=mesh,
+        dispatch_cap=dispatch_cap)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                         max_refinements, target_residual, inner_dtype,
-                        stats, use_amg: bool,
-                        mesh=None) -> BorderedSolution:
+                        stats, use_amg: bool, mesh=None,
+                        dispatch_cap="auto") -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
     PCG per Schur pass over the ELL operator (kernel K3'), the small
     dense block by host lstsq, f64 full-system refinement; AMG or
@@ -716,6 +759,11 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     row_mesh = None if mesh is None else sharding.Mesh(mesh.grid[0])
     tp = 1 if row_mesh is None else row_mesh.size
     n_pad = n + (-n) % tp
+    # The JAX rule (schur.py:352-364): n row updates an iteration, 5 n
+    # with the cycle, against ~60M a dispatch.
+    cap = cg.resolve_dispatch_cap(
+        dispatch_cap, [dev] if row_mesh is None else row_mesh.devices, n,
+        use_amg)
     hierarchy = vcycle = vcycle64 = None
     if use_amg:
         # One layout of the cycle's operators, in f64 (what an escalation
@@ -725,12 +773,17 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64, mesh=row_mesh)
         vcycle = amg.vcycle_as(vcycle64, inner) if mixed else vcycle64
 
+    solvers = []
+
     def make_solver(dtype, precond, stall_window):
         if row_mesh is None:
-            return cg.make_pcg(a64.to(dtype), comp_id, p, precond=precond,
-                               stall_window=stall_window)
-        return _sharded_ell_cg(system, row_mesh, n_pad, dtype, precond,
-                               stall_window)
+            solvers.append(cg.make_pcg(
+                a64.to(dtype), comp_id, p, precond=precond,
+                stall_window=stall_window, dispatch_cap=cap))
+        else:
+            solvers.append(_sharded_ell_cg(system, row_mesh, n_pad, dtype,
+                                           precond, stall_window, cap))
+        return solvers[-1]
 
     # Stall exit only with a mixed-precision inner solve (see make_pcg).
     cg_solver = make_solver(inner, vcycle, 30 if mixed else None)
@@ -739,19 +792,21 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     stats.update(route="ell", ell_k=int(system.ell.cols.shape[1]),
                  levels=([len(lv.a_diag) for lv in hierarchy.levels]
                          if hierarchy is not None else []),
-                 setup_s=time.perf_counter() - t0, tp=tp, sharded=tp > 1)
-    total_cg_iters = 0
+                 setup_s=time.perf_counter() - t0, tp=tp, sharded=tp > 1,
+                 dispatch_cap=cap)
+    total_cg_iters = host_reads = 0
 
     def solve_once(rc, rb, tol_pass=None):
         """One Schur pass for core rhs rc and border rhs rb (f64 device
         tensors); tol_pass: inner CG tolerance (default inner_tol)."""
-        nonlocal total_cg_iters
+        nonlocal total_cg_iters, host_reads
         rhs = torch.cat([C, rc[:, None]], dim=1)              # (n, m+1)
         rhs = torch.nn.functional.pad(rhs, (0, 0, 0, n_pad - n))
         res = cg_solver(rhs.to(inner),
                         inner_tol if tol_pass is None else tol_pass,
                         maxiter)
         total_cg_iters += res.iterations
+        host_reads += res.host_reads
         X = res.x[:n].to(f64)              # [A^+ C | A^+ rc]
         Xc, xr = X[:, :m], X[:, m]
         BXc = (B @ Xc).cpu().numpy()                          # (m, m)
@@ -788,8 +843,10 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         """Swap the inner solve to f64 after a mixed-precision stall: an
         f32 inner operator contracts per pass by ~kappa(A)*eps32, and
         boards mixing milliohm couplings with thin-sliver cotan weights
-        push kappa past 1e7, above the target."""
-        nonlocal cg_solver, inner_tol, inner
+        push kappa past 1e7, above the target.  An f64 iteration costs
+        more: the dispatch cap drops to max(30, cap // 8)."""
+        nonlocal cg_solver, inner_tol, inner, cap
+        cap = cg.escalated_cap(cap)
         cg_solver = make_solver(f64, vcycle64, None)
         inner = f64
         inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)
@@ -828,7 +885,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         res_core, res_border = rc_new, rb_new
         res_norm = new_norm
 
-    stats["escalated"] = escalated
+    stats.update(escalated=escalated, host_reads=host_reads,
+                 capture_s=sum(s.loop.capture_s for s in solvers))
     j = j.cpu().numpy()
     gc = float(j[system.ground_var]) if m > 0 else 0.0
     return BorderedSolution(
@@ -837,14 +895,15 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
 
 
 def _sharded_ell_cg(system: CoreSystem, mesh, n_pad: int, dtype, precond,
-                    stall_window):
+                    stall_window, dispatch_cap="auto"):
     """The ELL route's deflated PCG row-sharded over `mesh`, the JAX
     package's make_pcg(mesh=): rows padded to n_pad (a multiple of the
     mesh size; padding rows form their own deflation component, so they
     carry exactly zero), each shard's rows a rectangular K3' operator
     over the all-gathered x with the diagonal as one more entry a row
     (amg.shard_ell_rows), Jacobi from the padded diagonal when no cycle
-    is given.  Solves (n_pad, R) right-hand sides."""
+    is given; dispatch_cap as make_pcg_sharded's.  Solves (n_pad, R)
+    right-hand sides."""
     ell, n, p = system.ell, system.n, system.num_components
     ops = amg.shard_ell_rows(ell.cols, ell.vals, ell.diag, n_pad, n_pad,
                              mesh, dtype)
@@ -861,4 +920,5 @@ def _sharded_ell_cg(system: CoreSystem, mesh, n_pad: int, dtype, precond,
         precond = cg.jacobi_sharded(sharding.split(mesh, diag, dim=0))
     return cg.make_pcg_sharded(mesh, (matvec, ops), comp_cg,
                                p + (n_pad > n), precond,
-                               stall_window=stall_window)
+                               stall_window=stall_window,
+                               dispatch_cap=dispatch_cap)

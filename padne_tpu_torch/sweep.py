@@ -57,6 +57,7 @@ def solve_sweep(
     maxiter: int = 40000,
     device=None,
     stats: Optional[dict] = None,
+    dispatch_cap="auto",
 ) -> list[SweepResult]:
     """Solve the board once per spec, sharing mesh + structure, on
     `device` (None: the CUDA card; see padne_tpu_torch.device).
@@ -67,12 +68,20 @@ def solve_sweep(
     rescaling inside the small dense border system.  Source scaling
     enters only through the right-hand sides.
 
+    dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc).
+    The JAX sweep runs its CG as one while_loop to maxiter in one
+    dispatch; a CUDA graph cannot hold maxiter iterations, so "auto" is
+    the nearest counterpart: the solve path's size rule on the card (one
+    graph a dispatch), the host loop on the CPU.
+
     stats: optional dict that receives n, m, p, cg_iterations, the wall
     times mesh_assemble_s, setup_s (hierarchy and uploads), cg_s (the one
     multi-RHS solve) and recover_s (all per-spec recoveries), the CG's
     final true residual norm per column (cg_residual_norms), and the
     norms of the unit-scale right-hand side (rhs_core_norm,
-    rhs_border_norm)."""
+    rhs_border_norm), dispatch_cap (resolved), host_reads (the CG's
+    continue tests read on the host) and capture_s (the CUDA graph
+    capture, 0 without one)."""
     dev = device_mod.resolve(device)
     f64 = torch.float64
     t0 = time.perf_counter()
@@ -92,7 +101,10 @@ def solve_sweep(
     precond = None
     if n >= _AMG_THRESHOLD:
         precond = amg.make_vcycle(amg.build_hierarchy(system.ell), dev, a0=a)
-    cg_solver = cg.make_pcg(a, comp_id, p, precond=precond)
+    cap = cg.resolve_dispatch_cap(dispatch_cap, [dev], n,
+                                  precond is not None)
+    cg_solver = cg.make_pcg(a, comp_id, p, precond=precond,
+                            dispatch_cap=cap)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
@@ -154,6 +166,8 @@ def solve_sweep(
     if stats is not None:
         stats.update(
             n=n, m=m, p=p, cg_iterations=res.iterations,
+            dispatch_cap=cap, host_reads=res.host_reads,
+            capture_s=cg_solver.loop.capture_s,
             cg_residual_norms=res.residual_norms.cpu().numpy().tolist(),
             rhs_core_norm=float(np.linalg.norm(system.r_core)),
             rhs_border_norm=float(np.linalg.norm(system.border.rhs)),

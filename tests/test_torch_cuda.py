@@ -16,10 +16,12 @@ operator; K3' at every lanes-per-row setting, f32 and f64, R in {1, 2,
 4, 5}, each epilogue, square and rectangular with empty rows, rows off
 the 16-byte grid; K1' and K2' over a window (x0 > 0, columns in the
 halos and past them), and the sharded products of ops.dia_sharded on
-four shards of the card against the one-device ones; and the launch
-counters.  Tolerances: f32 sums in another order
-(1e-5 of max|y|), f64 likewise (1e-12); K2' against the f64 bound
-2e-13 * max(|A| |x|).
+four shards of the card against the one-device ones; the launch
+counters; and the CG loop as CUDA-graph chunks (ops.cg): bit-equal to
+the host loop at caps 1, 7 and 30, one host read a dispatch, and a host
+read inside an iteration raising at capture.  Tolerances: f32 sums in
+another order (1e-5 of max|y|), f64 likewise (1e-12); K2' against the
+f64 bound 2e-13 * max(|A| |x|).
 """
 
 import dataclasses
@@ -320,3 +322,73 @@ def test_solver_needs_no_cpu_fallback(cuda):
                                    coarse_size=200)
     assert sol.residual_norm < 1e-10
     assert dia.sell_matvec.launches > k1 and comp.comp_sell.launches > k2
+
+
+# -- the CG loop as CUDA-graph chunks (ops.cg) --------------------------------
+
+
+def _islands(side=24, p=2, seed=2):
+    """p triangulated side x side grid islands: (EllMatrix, comp_id)."""
+    from padne_tpu_torch.ops import assembly
+
+    idx = np.arange(side * side).reshape(side, side)
+    e0 = np.concatenate([
+        np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1),
+        np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], 1),
+        np.stack([idx[:-1, :-1].ravel(), idx[1:, 1:].ravel()], 1)])
+    edges = np.concatenate([e0 + i * side * side for i in range(p)])
+    w = 0.5 + np.random.default_rng(seed).random(len(edges))
+    comp_id = np.repeat(np.arange(p), side * side)
+    return assembly.build_ell(p * side * side, edges, w), comp_id
+
+
+def _loop_solver(cuda, cap):
+    from padne_tpu_torch.ops import amg, cg
+
+    ell, comp_id = _islands()
+    a = ell.to_device(cuda, torch.float64)
+    vc = amg.make_vcycle(amg.build_hierarchy(ell), cuda, a0=a)
+    return cg.make_pcg(a, torch.from_numpy(comp_id).to(cuda), 2,
+                       precond=vc, dispatch_cap=cap)
+
+
+def test_graph_chunks_are_bit_equal_to_the_host_loop(cuda):
+    """Chunks of 1, 7 and 30 iterations, each a replayed CUDA graph with
+    every iteration in an IF node: the host loop's bits and iterations,
+    one host read a dispatch; the second solve replays the first's
+    graph."""
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2 * 24 * 24, 3))).to(cuda)
+    want = _loop_solver(cuda, None)(b, 1e-10, 500)
+    assert want.iterations > 7
+    for cap in (1, 7, 30):
+        solve = _loop_solver(cuda, cap)
+        for _ in range(2):
+            got = solve(b, 1e-10, 500)
+            assert got.iterations == want.iterations
+            assert torch.equal(got.x, want.x)
+            assert torch.equal(got.residual_norms, want.residual_norms)
+            assert got.host_reads == max(1, -(-want.iterations // cap))
+        assert len(solve.loop.graphs) == 1
+
+
+def test_a_host_read_in_the_body_raises(cuda):
+    """A chunked CUDA solve whose iteration reads a value on the host
+    fails its capture and raises: it does not run the host loop."""
+    from padne_tpu_torch.ops import cg
+
+    ell, comp_id = _islands(side=16, p=1)
+    a = ell.to_device(cuda, torch.float64)
+
+    def reading(prm, x):
+        y = spmv.ell_spmv(prm["a"], x)
+        float(y.sum())
+        return y
+
+    solve = cg.make_pcg(None, torch.from_numpy(comp_id).to(cuda), 1,
+                        operator=(reading, {"a": a, "diag": a.diag}),
+                        dispatch_cap=5)
+    b = torch.ones(len(ell.diag), 2, dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError):
+        solve(b, 1e-10, 100)
+    torch.cuda.synchronize()

@@ -292,22 +292,23 @@ def test_sharded_vcycle_matches_jax_and_serial():
                                     out_specs=P(None, "tp")))
     want = np.asarray(f(jparams, jnp.asarray(rt)))
 
-    # The JAX sharded cycle runs level 0 unlumped and, on the CPU, as a
-    # V-cycle; the port's default lumps and takes a W-shape on the card.
+    # Both sharded cycles run level 0 unlumped (the exact CG operator);
+    # the JAX one on the CPU as a V-cycle, the port's default takes a
+    # W-shape on the card.
     mesh = cpu_mesh(4)
-    apply, params, n_sh = amg.make_vcycle_dia_sharded(
-        h, mesh, w_levels=0, lump_strength=0.0)
+    apply, params, n_sh = amg.make_vcycle_dia_sharded(h, mesh, w_levels=0)
     assert n_sh == jn_sh >= 2
     got = torch.cat(apply(params, sharding.split(
         mesh, torch.from_numpy(rt), dim=1)), dim=1).numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-5 * scale)
-    for w_levels, lump in ((0, 0.0), (3, 0.05)):
+    # Against the one-device cycle with level 0 exact throughout.
+    for w_levels in (0, 3):
         apply_t, params_t = amg.make_vcycle_dia_t(
-            h, "cpu", w_levels=w_levels, lump_strength=lump)
+            h, "cpu", w_levels=w_levels, lump_smoothing=False)
         serial = apply_t(params_t, torch.from_numpy(rt)).numpy()
         apply, params, _ = amg.make_vcycle_dia_sharded(
-            h, mesh, w_levels=w_levels, lump_strength=lump)
+            h, mesh, w_levels=w_levels)
         got = torch.cat(apply(params, sharding.split(
             mesh, torch.from_numpy(rt), dim=1)), dim=1).numpy()
         np.testing.assert_allclose(got, serial, rtol=5e-4,

@@ -436,14 +436,13 @@ def test_dia_routing_arguments():
 @pytest.mark.slow
 def test_dia_shard_min_matches_jax():
     """dia_shard_min=512 shards a level of 4,096 rows over 4 devices,
-    which the default 32,768 leaves on one; the potentials against the
-    JAX function on its virtual CPU devices.  The iterations are held
-    against the port's own one-device solve (as in
-    tests/test_torch_sharded.py), not the JAX package's: its sharded
-    cycle runs level 0 on the exact operator, the port's on the lumped
-    one as its one-device cycle does, and on this grid, whose lumping
-    folds entries, the JAX solve takes 36 iterations and 2 passes, the
-    port's 52 and 3."""
+    which the default 32,768 leaves on one; the potentials and the
+    counts against the JAX function on its virtual CPU devices.  Both
+    sharded cycles run level 0 on the exact CG operator (the JAX rule,
+    padne_tpu/ops/schur.py:748-749; the one-device cycles lump it), so
+    on this grid, whose lumping folds entries, the sharded solves take
+    the same iterations and passes (36 and 2), not the one-device
+    port's."""
     jsys = weak_system(64, seed=7)
     jmesh = JMesh(np.asarray(jax.devices()[:4]), axis_names=("tp",))
     want = jschur.solve_bordered(jsys, operator="dia",
@@ -456,13 +455,45 @@ def test_dia_shard_min_matches_jax():
     stats = {}
     got = schur.solve_bordered(system, dia_shard_min=512, stats=stats, **kw)
     assert stats["route"] == "dia" and stats["sharded"]
-    default = {}
-    serial = schur.solve_bordered(system, stats=default, **kw)
-    assert not default["sharded"]
     assert got.residual_norm < 1e-9
     assert np.abs(got.v - want.v).max() < 1e-9
-    assert abs(got.cg_iterations - serial.cg_iterations) <= max(
-        1, 0.1 * serial.cg_iterations)
+    assert got.cg_iterations == want.cg_iterations
+    assert got.refinement_steps == want.refinement_steps
+
+
+def test_sharded_cycle_level0_is_the_cg_operator():
+    """The sharded DIA cycle's level 0 is the CG operator itself, as in
+    the JAX package (its DiaBorderedSolver hands the cycle's level-0
+    params to the CG): the same ShardedOperator object, the exact
+    level's dinv, f32 values, and its product the exact A x of the
+    padded system on a grid whose one-device cycle lumps level 0."""
+    system = convert.core_system_from_numpy(weak_system(64, seed=7))
+    s = schur.DiaBorderedSolver(system, mesh=sharding.Mesh(["cpu"] * 4),
+                                shard_min=512, coarse_size=COARSE,
+                                device="cpu")
+    assert s.sharded and s.n_sharded >= 1
+    lv0 = s.hierarchy.levels[0]
+    e0 = s.cycle_params[0]
+    assert e0["op"] is s.op_params
+    np.testing.assert_array_equal(
+        torch.cat(e0["dinv"]).numpy(), lv0.dinv.astype(np.float32))
+    assert all(p["a_val"].dtype == torch.float32 for p in e0["op"].params)
+    # The one-device cycle folds weak entries into level 0 here.
+    lumped, _ = amg._lumped_level0(lv0.pack, 0.05)
+    assert len(lumped.rem_rows) < len(lv0.pack.rem_rows)
+    from padne_tpu_torch.ops import dia_sharded
+
+    rng = np.random.default_rng(3)
+    xt = rng.standard_normal((2, s.np0)).astype(np.float32)
+    got = torch.cat(dia_sharded.dia_matvec_t_sharded(
+        e0["op"], sharding.split(s.mesh, torch.from_numpy(xt), dim=1)),
+        dim=1).numpy()
+    a = scipy.sparse.csr_matrix(system.ell.to_scipy())
+    want = np.zeros_like(xt, dtype=np.float64)
+    pm = s.posmap
+    want[:, pm] = (a @ xt[:, pm].T.astype(np.float64)).T
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 # -- one DiaBorderedSolver solve per variant ---------------------------------

@@ -8,6 +8,7 @@ Run from the repository root:
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
                           [--startup] [--tp N [--dp D]]
+                          [--dispatch-cap auto|none|K]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -55,6 +56,14 @@ host us per kernel and the busy share.
 --tree names a directory holding another version of padne_tpu_torch (an
 unpacked earlier commit) to trace instead of this repository's, so that
 two versions can be run in turns in one go on one card.
+
+--dispatch-cap passes dispatch_cap to the solve (and the sweep): "auto"
+(CUDA-graph chunks of the JAX size rule's iterations), "none" (the host
+loop, one read of the continue test an iteration) or an int; without
+it the package's default runs, so a tree from before the option traces
+as it is.  Each solve line then also prints the CG's host reads and the
+graphs' capture seconds (a solve_bordered call builds its solver, so
+every run captures anew).
 """
 
 from __future__ import annotations
@@ -91,6 +100,16 @@ def device_ms(prof):
     return kernels, copies, ms_by_name, calls
 
 
+def cap_kw(args) -> dict:
+    """The solve's dispatch_cap argument, when --dispatch-cap names one."""
+    cap = args.dispatch_cap
+    if cap is None:
+        return {}
+    if cap == "none":
+        return {"dispatch_cap": None}
+    return {"dispatch_cap": cap if cap == "auto" else int(cap)}
+
+
 def trace_sweep(args, prob, cfg, specs) -> int:
     """The --sweep mode: see the module docstring."""
     import torch
@@ -103,7 +122,7 @@ def trace_sweep(args, prob, cfg, specs) -> int:
         t0 = time.perf_counter()
         results = sweep.solve_sweep(
             prob, [sweep.SweepSpec(*x) for x in specs], mesher_config=cfg,
-            stats=stats)
+            stats=stats, **cap_kw(args))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         worst = max(r.residual_norm for r in results)
@@ -259,6 +278,8 @@ def main() -> int:
                          "the batched solve traced after it")
     ap.add_argument("--dp", type=int, default=1, choices=(1, 2, 4),
                     help="dp rows of the batched solve (with --tp)")
+    ap.add_argument("--dispatch-cap", default=None,
+                    help="the CG's dispatch_cap: auto, none or an int")
     args = ap.parse_args()
 
     import torch
@@ -305,7 +326,8 @@ def main() -> int:
         stats = Stats()
         t0 = time.perf_counter()
         sol = schur.solve_bordered(system, inner_dtype=torch.float32,
-                                   device="cuda", mesh=mesh, stats=stats)
+                                   device="cuda", mesh=mesh, stats=stats,
+                                   **cap_kw(args))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats.mark.__exit__(None, None, None)
@@ -313,7 +335,11 @@ def main() -> int:
               f"solve_wall={(wall - stats['setup_s']) * 1e3:.1f}ms "
               f"cg_iterations={sol.cg_iterations} "
               f"refinement_passes={sol.refinement_steps + 1} "
-              f"residual_norm={sol.residual_norm:.3e}", flush=True)
+              f"residual_norm={sol.residual_norm:.3e}"
+              + (f" dispatch_cap={stats.get('dispatch_cap')} "
+                 f"host_reads={stats.get('host_reads')} "
+                 f"capture_s={stats.get('capture_s', 0.0):.3f}"
+                 if "host_reads" in stats else ""), flush=True)
         return wall, sol, stats
 
     run()
