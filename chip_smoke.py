@@ -93,31 +93,39 @@ Phases (any failure exits non-zero; there is no CPU path):
    also timed), where the coarse inverse was built ("host (validation)"
    only when the device's failed its check); set-up and solve seconds,
    CG iterations, passes, residual, K1' launches and the device events
-   and kernel ms per CG iteration run (the solver's CG run to one and
-   to two whole dispatches under the profiler, the difference over the
-   iterations run between) printed per setting.
+   and kernel ms per CG iteration run (the solver's CG run to 10 and 30
+   iterations, or to one and two whole dispatches of more than one
+   iteration, under the profiler, the difference over the iterations
+   run between) printed per setting; the Jacobi solve below is also run
+   on the host loop (same bits, its wall beside the default's).
    Then solve_bordered(precond="jacobi") on the smallest of the four
    small boards above 5,000 unknowns at a 0.15 mm mesh (each K3' shape
    it launched held and timed, within 1e-6 V of spsolve), and
    solve_bordered(dia_shard_min=512) on phase 6's system over phase
    9b's mesh (at least 2 sharded levels, every K1'/K2' shape held,
    within 1e-7 x span of phase 6's solve);
-9b''. the CG loop ("loop"): the CG as CUDA-graph chunks (dispatch_cap
-   "auto": the JAX package's size rule, each dispatch one graph replay
-   of gated iterations, the continue test read once a dispatch) against
-   the host loop (dispatch_cap None, read once an iteration), in turns,
-   on phase 5's system (one DiaBorderedSolver: a cold solve and
-   LOOP_WARM warm ones), phase 8's ELL system (solve_bordered, which
-   captures in every call), the 12-spec sweep on phase 8's board and
-   phase 5's system over SHARDS shards of the card: iterations, passes
-   and the SHA-256 of the potentials equal solve for solve, fewer host
-   reads with the graphs; printed per path and loop: the resolved cap,
-   capture s, cold and warm-median solve s, host reads a solve, the
-   nodes of each graph the first solve captured (by the driver), device
-   events and kernel ms a CG iteration of one more solve under the
-   profiler and its kernel time over the warm-median wall (busy share),
-   and peak device memory.  Then a chunked solve whose
-   iteration reads a value on the host must raise;
+9b''. the CG loop ("loop"): the host loop (dispatch_cap None, the
+   continue test read once an iteration), the default ("auto": one
+   iteration a dispatch, each one CUDA-graph replay) and chunks of
+   LOOP_CAP gated iterations a replay, in turns, on phase 5's system
+   (one DiaBorderedSolver: a cold solve and LOOP_WARM warm ones), phase
+   8's ELL system (solve_bordered, which captures in every call), the
+   12-spec sweep on phase 8's board and phase 5's system over SHARDS
+   shards of the card: iterations, passes and the SHA-256 of the
+   potentials equal solve for solve, fewer host reads with the graphs,
+   launches (from 0 for each path and loop) at least the host loop's;
+   printed per path and loop: the resolved cap, capture s, cold and
+   warm-median solve s (and without set-up or meshing), host reads a
+   solve, launches, the nodes of each graph the first solve captured
+   (by libcuda), device events and kernel ms a CG iteration of one
+   more solve under the profiler and its kernel time over the
+   warm-median wall (busy share), and peak device memory.  Then a
+   chunked solve whose iteration reads a value on the host must raise.
+   Per path, LOOP_PAIRS pairs of a host-loop and a default solve,
+   alternating which runs first, give each side's median, the host
+   loop's spread and a verdict (pair_verdict).
+   Phase fragmented also holds one R = 146 solve on both loops: the same
+   bits, peak memory allocated and reserved printed;
 9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
    entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
    on phase 5's system (not meshed again): batched_sharded_cg of 4
@@ -201,9 +209,10 @@ Phases (any failure exits non-zero; there is no CPU path):
 Each of the phases cli, sharded, loop, variants, dp_tp, fragmented,
 sweep, serve and repeat also prints one JSON line {"phase": ...} with
 its numbers.  Every solve runs the CG as graph chunks (the default
-dispatch_cap "auto") but phase loop's host-loop runs; a kernel's
-launches count the calls of its wrapper, once per launch a capture
-records (a replay launches the recorded kernels again uncounted).
+dispatch_cap "auto": one iteration a dispatch, each a CUDA-graph
+replay) but phase loop's host-loop and chunked runs; a kernel's launches
+are the ones the card ran: a capture counts none of what it records,
+and each replay counts them once.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -948,9 +957,9 @@ def k3_cases(system):
 
 
 class K3Shapes:
-    """Counts K3''s launches by shape and form while it is entered, by
-    standing in for ops.spmv's launch function (the wrapper's own count
-    is untouched)."""
+    """Counts K3''s launches by shape and form while it is entered, by a
+    hook on the wrapper's count (padne_tpu_torch.kernels.HOOKS): the
+    launches the card ran, a CUDA graph's at each replay."""
 
     def __init__(self):
         import collections
@@ -958,27 +967,27 @@ class K3Shapes:
         self.counts = collections.Counter()
 
     def __enter__(self):
+        from padne_tpu_torch import kernels
         from padne_tpu_torch.ops import spmv
 
-        self.real = spmv._launch
+        def hook(wrapper, op, x, b, w, x0):
+            if wrapper is spmv.ell_spmv:
+                self.counts[k3_key(op, x, b, w, x0)] += 1
 
-        def recording(op, x, b, w, x0):
-            self.counts[k3_key(op, x, b, w, x0)] += 1
-            return self.real(op, x, b, w, x0)
-
-        spmv._launch = recording
+        self.hook = hook
+        kernels.HOOKS.append(hook)
         return self.counts
 
     def __exit__(self, *exc):
-        from padne_tpu_torch.ops import spmv
+        from padne_tpu_torch import kernels
 
-        spmv._launch = self.real
+        kernels.HOOKS.remove(self.hook)
 
 
 class DiaShapes:
-    """Counts K1''s and K2''s launches by shape while it is entered, by
-    standing in for the launch functions of ops.dia and ops.comp (the
-    wrappers' own counts are untouched)."""
+    """Counts K1''s and K2''s launches by shape while it is entered, by a
+    hook on the wrappers' counts (padne_tpu_torch.kernels.HOOKS): the
+    launches the card ran, a CUDA graph's at each replay."""
 
     def __init__(self):
         import collections
@@ -990,26 +999,24 @@ class DiaShapes:
         self.by_params = collections.Counter()
 
     def __enter__(self):
+        from padne_tpu_torch import kernels
         from padne_tpu_torch.ops import comp, dia
 
-        self.real = dia._launch, comp._launch
+        def hook(wrapper, params, x):
+            if wrapper is dia.sell_matvec:
+                self.counts[k1_key(params, x)] += 1
+                self.by_params[id(params), x.shape[0]] += 1
+            elif wrapper is comp.comp_sell:
+                self.counts[k2_key(params, x)] += 1
 
-        def k1(params, xt):
-            self.counts[k1_key(params, xt)] += 1
-            self.by_params[id(params), xt.shape[0]] += 1
-            return self.real[0](params, xt)
-
-        def k2(params, x):
-            self.counts[k2_key(params, x)] += 1
-            return self.real[1](params, x)
-
-        dia._launch, comp._launch = k1, k2
+        self.hook = hook
+        kernels.HOOKS.append(hook)
         return self.counts
 
     def __exit__(self, *exc):
-        from padne_tpu_torch.ops import comp, dia
+        from padne_tpu_torch import kernels
 
-        dia._launch, comp._launch = self.real
+        kernels.HOOKS.remove(self.hook)
 
 
 def check_dia_held(path: str, shapes, launches: dict, k1, k2) -> dict:
@@ -1910,7 +1917,38 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
 
 
 LOOP_WARM = 3    # phase loop: warm solves of each path and loop
-LOOP_CAP = "auto"   # phase loop: the chunked loop's dispatch_cap
+# Phase loop's loops: the host loop, the default (one iteration a
+# dispatch on the card) and chunks of LOOP_CAP gated iterations.
+LOOP_CAP = 10
+LOOPS = (("none", None), ("auto", "auto"), ("chunks", LOOP_CAP))
+# Phase loop: pairs of a host-loop and a default solve on each path,
+# alternating which runs first.
+LOOP_PAIRS = 10
+
+
+def pair_verdict(host: list, graph: list) -> dict:
+    """The host loop's and the graphs' times of LOOP_PAIRS alternating
+    pairs: medians, the host loop's spread (the distance between its
+    quartiles), the pairs each side won and a verdict: "faster" or
+    "slower" when one side won at least nine tenths of the pairs and the
+    medians differ by more than that spread, else "unresolved"."""
+    import numpy as np
+
+    mh, mg = float(np.median(host)), float(np.median(graph))
+    q1, q3 = np.percentile(host, [25, 75])
+    spread = float(q3 - q1)
+    wins = sum(g < h for h, g in zip(host, graph))
+    losses = sum(g > h for h, g in zip(host, graph))
+    verdict = "unresolved"
+    if abs(mg - mh) > spread:
+        if wins >= 0.9 * len(host):
+            verdict = "faster"
+        elif losses >= 0.9 * len(host):
+            verdict = "slower"
+    return {"host_median_s": mh, "graph_median_s": mg,
+            "host_spread_s": spread, "graph_wins": wins,
+            "host_wins": losses, "pairs": len(host), "verdict": verdict,
+            "host_s": host, "graph_s": graph}
 
 
 class GraphNodes:
@@ -1966,22 +2004,26 @@ class GraphNodes:
 
 
 def loop_phase(cli_run: dict, ell_run: dict) -> dict:
-    """Phase loop: the CG as CUDA-graph chunks (dispatch_cap "auto")
-    against the host loop (None) on four paths, in turns on one card:
-    phase cli's DIA system (one DiaBorderedSolver, a cold solve and
-    LOOP_WARM warm ones on its cached A^+ C), phase 8's ELL system
-    (solve_bordered, which builds its solver, so every call captures),
-    the 12-spec sweep on phase 8's board, and phase cli's system over
-    SHARDS shards of the card.  Each loop's iterations, passes and the
-    SHA-256 of the potentials must be equal, solve for solve; the graphs
-    read the continue test once a dispatch, the host loop once an
-    iteration.  Printed per path and loop: the resolved cap, capture s,
-    cold and warm-median solve s, host reads a solve, the nodes of the
-    graphs the first solve captured, device events and kernel ms a CG
-    iteration of one more solve under the profiler and its kernel time
-    over the warm-median wall (busy share), and peak device memory.  Then
-    a chunked solve whose iteration reads a value on the host must
-    raise (its capture fails; no host loop takes over)."""
+    """Phase loop: the CG loops of LOOPS (the host loop, dispatch_cap
+    None; the default "auto", one iteration a dispatch, each a CUDA-graph
+    replay; chunks of LOOP_CAP gated iterations, each one replay) on
+    four paths, in turns on one card: phase cli's DIA system (one
+    DiaBorderedSolver, a cold solve and LOOP_WARM warm ones on its cached
+    A^+ C), phase 8's ELL system (solve_bordered, which builds its
+    solver, so every call captures), the 12-spec sweep on phase 8's board,
+    and phase cli's system over SHARDS shards of the card.  Each loop's
+    iterations, passes and the SHA-256 of the potentials must be equal,
+    solve for solve; the graphs read the continue test once a dispatch,
+    the host loop once an iteration; every kernel's launches, counted
+    from 0 for each path and loop, are the card's (a graph's at every
+    replay: at least the host loop's).  Printed per path and loop: the
+    resolved cap, capture s, cold and warm-median solve s, host reads a
+    solve, launches, the nodes of the graphs the first solve captured,
+    device events and kernel ms a CG iteration of one more solve under
+    the profiler and its kernel time over the warm-median wall (busy
+    share), and peak device memory, allocated and reserved.  Then a
+    chunked solve whose iteration reads a value on the host must raise
+    (its capture fails; no host loop takes over)."""
     import numpy as np
     import torch
 
@@ -2003,7 +2045,7 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
         def solve():
             sol = s.solve(target_residual=1e-10)
             return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
-                    s.host_reads)
+                    s.host_reads, None)
         return solve, lambda: s.cg_solver.loop, lambda: s.dispatch_cap
 
     def ell_path(cap):
@@ -2011,12 +2053,15 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
 
         def solve():
             st = {}
+            t0 = time.perf_counter()
             sol = schur.solve_bordered(ell_sys, inner_dtype=torch.float32,
                                        device=DEV, dispatch_cap=cap,
                                        stats=st)
             last.update(st)
+            # The passes, after the set-up.
             return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
-                    st["host_reads"])
+                    st["host_reads"],
+                    time.perf_counter() - t0 - st["setup_s"])
         return solve, lambda: last, lambda: last.get("dispatch_cap")
 
     def sweep_path(cap):
@@ -2029,7 +2074,8 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
                                     dispatch_cap=cap, stats=st)
             last.update(st)
             return (st["cg_iterations"], None,
-                    np.concatenate([r.v for r in res]), st["host_reads"])
+                    np.concatenate([r.v for r in res]), st["host_reads"],
+                    st["cg_s"])
         return solve, lambda: last, lambda: last.get("dispatch_cap")
 
     paths = {
@@ -2041,31 +2087,38 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
             dia_sys, mesh=mesh, dispatch_cap=cap)),
     }
     out = {"phase": "loop", "card": card, "torch": torch.__version__,
-           "cuda": torch.version.cuda}
-    reset_counts()
+           "cuda": torch.version.cuda, "launches": {}}
     for name, make in paths.items():
         res = {}
-        for label, cap in (("none", None), ("auto", LOOP_CAP)):
+        for label, cap in LOOPS:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
+            reset_counts()
             runs = []
             with GraphNodes() as nodes:
                 solve, loop_of, cap_of = make(cap)
                 for _ in range(1 + LOOP_WARM):
                     t0 = time.perf_counter()
-                    it, passes, v, reads = solve()
+                    it, passes, v, reads, part = solve()
                     torch.cuda.synchronize()
-                    runs.append({"s": time.perf_counter() - t0,
+                    wall = time.perf_counter() - t0
+                    runs.append({"s": wall, "solve_s": part or wall,
                                  "iterations": it, "passes": passes,
                                  "sha256": fingerprint("", 0, 0, 0, v)
                                  ["sha256"], "host_reads": reads})
+            launches = launch_counts()
             peak = torch.cuda.max_memory_allocated() / 1e9
             # Above what was in use before this path's solver existed.
             peak_above = peak - base / 1e9
+            # The caching allocator's reserve, a graph's private pool in.
+            reserved_above = (torch.cuda.max_memory_reserved()
+                              - base_reserved) / 1e9
             t0 = time.perf_counter()
-            events, kernel_ms, (it, passes, v, reads) = device_events(solve)
+            events, kernel_ms, (it, passes, v, reads, _) = device_events(
+                solve)
             traced = time.perf_counter() - t0
             loop = loop_of()
             # The solver's own (dia, sharded) or the last call's stats.
@@ -2078,13 +2131,19 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
                                   else None]
             warm = sorted(r["s"] for r in runs[1:])
             warm_s = warm[len(warm) // 2] if warm else None
+            # The solve without its set-up (ELL) or meshing (sweep: its
+            # cg_s): where the loop's time shows.
+            parts = sorted(r["solve_s"] for r in runs[1:])
             res[label] = {
                 "dispatch_cap": cap_of(), "capture_s": capture_s,
                 "cold_s": runs[0]["s"], "warm_median_s": warm_s,
                 "warm_s": [r["s"] for r in runs[1:]],
+                "solve_part_s": [r["solve_s"] for r in runs],
+                "warm_median_solve_part_s": parts[len(parts) // 2],
                 "iterations": [r["iterations"] for r in runs],
                 "passes": [r["passes"] for r in runs],
                 "host_reads": [r["host_reads"] for r in runs],
+                "launches": launches,
                 "sha256": [r["sha256"][:16] for r in runs],
                 "graphs": graphs, "traced_s": traced,
                 "device_events_per_cg_iteration": events / max(it, 1),
@@ -2095,36 +2154,84 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
                 # count as idle).
                 "busy_share": kernel_ms / (warm_s * 1e3),
                 "peak_device_memory_gb": peak,
-                "peak_above_base_gb": peak_above}
+                "peak_above_base_gb": peak_above,
+                "peak_reserved_above_base_gb": reserved_above}
             r = res[label]
             print(f"[loop] {name} {label}: cap={r['dispatch_cap']} "
                   f"capture {capture_s:.3f} s, cold {r['cold_s']:.3f} s, "
                   f"warm median {r['warm_median_s']:.3f} s "
-                  f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}), "
+                  f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}; "
+                  f"without set-up or meshing: cold "
+                  f"{r['solve_part_s'][0]:.3f}, warm "
+                  f"{', '.join(f'{x:.3f}' for x in r['solve_part_s'][1:])})"
+                  f", "
                   f"iterations {r['iterations']} passes {r['passes']} "
                   f"host reads {r['host_reads']} sha256 {r['sha256']}, "
+                  f"launches {launches} in {1 + LOOP_WARM} solves, "
                   f"graphs {graphs}, traced {traced:.3f} s: "
                   f"{r['device_events_per_cg_iteration']:.1f} device events "
                   f"and {r['kernel_ms_per_cg_iteration']:.3f} kernel ms a CG "
                   f"iteration, busy share {r['busy_share']:.3f}, peak "
                   f"{peak:.3f} GB ({peak_above:.3f} GB above the memory "
-                  f"in use before)", flush=True)
+                  f"in use before; reserved {reserved_above:.3f} GB above)",
+                  flush=True)
             del solve, loop_of, cap_of, loop
-        a, b = res["none"], res["auto"]
-        for key in ("iterations", "passes", "sha256"):
-            check(a[key] == b[key], f"phase loop {name}: the graphs' {key} "
-                                    f"{b[key]} differ from the host loop's "
-                                    f"{a[key]}")
-        # One read a dispatch: below the host loop's one an iteration.
-        check(all(rb < ra for ra, rb in zip(a["host_reads"],
-                                            b["host_reads"])),
-              f"phase loop {name}: the graphs read the host "
-              f"{b['host_reads']} times, the host loop {a['host_reads']}")
-        check(b["graphs"] and not a["graphs"],
-              f"phase loop {name}: the graphs {b['graphs']}, the host "
-              f"loop's {a['graphs']}")
+        host = res["none"]
+        for label, _ in LOOPS[1:]:
+            got = res[label]
+            for key in ("iterations", "passes", "sha256"):
+                check(host[key] == got[key],
+                      f"phase loop {name} {label}: {key} {got[key]} differ "
+                      f"from the host loop's {host[key]}")
+            # One read a dispatch: below the host loop's one an iteration
+            # (and one more a pass).
+            check(all(rg < rh for rh, rg in zip(host["host_reads"],
+                                                got["host_reads"])),
+                  f"phase loop {name} {label}: {got['host_reads']} host "
+                  f"reads, the host loop {host['host_reads']}")
+            check(got["graphs"] and not host["graphs"],
+                  f"phase loop {name} {label}: the graphs "
+                  f"{got['graphs']}, the host loop's {host['graphs']}")
+            # A replay counts what it runs: at least the host loop's.
+            check(all(got["launches"][k] >= host["launches"][k]
+                      for k in host["launches"]),
+                  f"phase loop {name} {label}: launches {got['launches']} "
+                  f"below the host loop's {host['launches']}")
+        chunks = res["chunks"]
+        passes = [x or 1 for x in host["passes"]]
+        check(all(r <= it // LOOP_CAP + q for r, it, q in zip(
+            chunks["host_reads"], host["iterations"], passes)),
+              f"phase loop {name}: chunks of {LOOP_CAP} read the host "
+              f"{chunks['host_reads']} times for {host['iterations']} "
+              "iterations")
+        # Pairs: the host loop against the default on solvers of their
+        # own (a DiaBorderedSolver warmed by one solve first), alternating
+        # which runs first; the time without set-up or meshing.
+        pair = {label: make(cap)[0] for label, cap in LOOPS[:2]}
+        if name in ("dia", "sharded"):
+            for solve in pair.values():
+                solve()
+        times = {label: [] for label in pair}
+        for i in range(LOOP_PAIRS):
+            for label in (("none", "auto") if i % 2 == 0
+                          else ("auto", "none")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                part = pair[label]()[4]
+                torch.cuda.synchronize()
+                times[label].append(part or time.perf_counter() - t0)
+        del pair
+        res["pairs"] = pair_verdict(times["none"], times["auto"])
+        pv = res["pairs"]
+        print(f"[loop] {name} pairs: host loop median "
+              f"{pv['host_median_s']:.4f} s (spread "
+              f"{pv['host_spread_s']:.4f}), default median "
+              f"{pv['graph_median_s']:.4f} s, the default won "
+              f"{pv['graph_wins']} of {pv['pairs']}: {pv['verdict']}; host "
+              f"{[round(x, 4) for x in pv['host_s']]}, default "
+              f"{[round(x, 4) for x in pv['graph_s']]}", flush=True)
         out[name] = res
-    out["launches"] = launch_counts()
+        out["launches"][name] = res["auto"]["launches"]
 
     # A host read inside the iteration: the capture fails and raises.
     a = ell_sys.ell.to_device(DEV, torch.float64)
@@ -2254,16 +2361,16 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
         check_dia_held(f"variants {name}", shapes, got, cases, [case2])
         # Device events and kernel ms per CG iteration: the solver's CG
         # at R = 1 (the refinement passes' width) run to 10 and to 30
-        # iterations (tol 0) in the host loop, or, in dispatches of c
-        # gated iterations (each runs all of them), to c and to c + 1:
-        # one dispatch and two.  Each call profiled; the difference over
+        # iterations (tol 0) in the host loop or one iteration a
+        # dispatch, or, in dispatches of c > 1 gated iterations (each
+        # runs all of them), to c and to c + 1: one dispatch and two.  Each call profiled; the difference over
         # the iterations run between leaves out the set-up and the final
         # residual of a call.
         t0 = time.perf_counter()
         b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
             device=torch.device(DEV)).manual_seed(7))
         c = s.dispatch_cap
-        ks, ran = ([10, 30], 20) if c is None else ([c, c + 1], c)
+        ks, ran = ([10, 30], 20) if c in (None, 1) else ([c, c + 1], c)
         runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
                 for k in ks]
         check([r[2].iterations for r in runs] == ks,
@@ -2359,8 +2466,24 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
           "the Jacobi solve did not run on K3' alone")
     check(sol.residual_norm < 1e-9 and dv <= 1e-6,
           f"Jacobi solve: residual {sol.residual_norm:.3e}, |dV| {dv:.3e}")
+    # The same solve on the host loop (dispatch_cap None), after the
+    # default's (one iteration a dispatch, its capture included): the
+    # same bits, the wall beside it.
+    t0 = time.perf_counter()
+    hsol = schur.solve_bordered(jsys, precond="jacobi",
+                                inner_dtype=torch.float32, device=DEV,
+                                dispatch_cap=None)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    print(f"[variants] precond=jacobi on the host loop: {host_wall:.2f} s "
+          f"(the default: {wall:.2f} s), cg_iterations="
+          f"{hsol.cg_iterations}", flush=True)
+    check(hsol.cg_iterations == sol.cg_iterations
+          and np.array_equal(hsol.v, sol.v),
+          "Jacobi solve: the host loop's iterations or bits differ")
     out["jacobi"] = {"board": jname, "n": jsys.n, "mesh_mm": JACOBI_MESH,
                      "small_board_sizes": sizes, "wall_s": wall,
+                     "host_loop_wall_s": host_wall,
                      "cg_iterations": sol.cg_iterations,
                      "refinement_passes": sol.refinement_steps + 1,
                      "escalated": stats["escalated"],
@@ -2789,7 +2912,39 @@ def fragmented_phase(args) -> dict:
     check(p >= 100 and p + 1 > 64, f"only {p} copper components")
     s = schur.DiaBorderedSolver(system, device=DEV)
     k1, k2 = dia_cases(s, "fragmented ", 11)
-    del s, system
+    del s
+    torch.cuda.empty_cache()
+    # Peak device memory of one solve at R = 146 on the host loop and on
+    # the default (a CUDA graph a dispatch), each with a solver of its
+    # own, counted from what was in use before the solver was built.
+    peaks = {}
+    for label, cap in (("none", None), ("auto", "auto")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        s = schur.DiaBorderedSolver(system, device=DEV, dispatch_cap=cap)
+        fsol = s.solve(target_residual=1e-10)
+        torch.cuda.synchronize()
+        peaks[label] = {
+            "peak_above_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            # All the caching allocator holds, a graph's pool included.
+            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "iterations": fsol.cg_iterations,
+            "passes": fsol.refinement_steps + 1,
+            "sha256": fingerprint("", 0, 0, 0, fsol.v)["sha256"][:16]}
+        del s, fsol
+    print(f"[fragmented] one solve's peak allocated above the memory in "
+          f"use before the solver / peak reserved: host loop "
+          f"{peaks['none']['peak_above_gb']:.3f} / "
+          f"{peaks['none']['reserved_gb']:.3f} GB, graphs "
+          f"{peaks['auto']['peak_above_gb']:.3f} / "
+          f"{peaks['auto']['reserved_gb']:.3f} GB; {peaks}", flush=True)
+    check(all(peaks["none"][k] == peaks["auto"][k]
+              for k in ("iterations", "passes", "sha256")),
+          f"fragmented: the graphs' solve differs from the host loop's "
+          f"{peaks}")
+    del system
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -2836,7 +2991,8 @@ def fragmented_phase(args) -> dict:
                      for c in k1},
            "k1_graph_ms": {c["name"].removeprefix("fragmented "):
                            c["graph_ms"] for c in k1},
-           "k2_ms": k2["ms"], "k2_graph_ms": k2["graph_ms"]}
+           "k2_ms": k2["ms"], "k2_graph_ms": k2["graph_ms"],
+           "loop_peaks": peaks}
     print(json.dumps(out), flush=True)
     return {"k1": k1, "k2": k2, "launches": launches}
 
@@ -3153,7 +3309,8 @@ def main() -> int:
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
                    "serve": served["launches"][name],
-                   "loop": loop["launches"][name]}
+                   "loop": {path: counts[name] for path, counts
+                            in loop["launches"].items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path,

@@ -5,6 +5,14 @@ with a plain C interface, bound with ctypes — no PyTorch headers, so the
 build takes seconds.  The library lands in padne_tpu_torch/_build/,
 keyed by a hash of the sources and flags (stale builds are replaced),
 as padne_tpu_torch/native does for its C++ core.  Nothing here runs at import.
+
+Launch accounting: each kernel wrapper (ops.dia.sell_matvec,
+ops.comp.comp_sell, ops.spmv.ell_spmv) calls `count` once per launch it
+makes: its `launches` attribute goes up by one and every hook in HOOKS
+sees the launch's operands.  Under `recording` (a CUDA-graph capture in
+ops.cg) a launch is recorded into the graph, not run: `count` keeps it on
+a tape instead, and `recount(tape)` counts the tape once per replay, so
+the counts are the launches the card ran.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 _SRC_DIR = pathlib.Path(__file__).parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).parent / "_build"
@@ -90,3 +99,49 @@ def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {rc})")
+
+
+# fn(wrapper, *operands), called at every launch a wrapper counts.
+HOOKS: list = []
+_local = threading.local()
+
+
+def _meta(t):
+    """A tensor operand as a meta tensor (shape and type, no storage), so
+    a tape does not hold device memory; anything else as it is."""
+    import torch
+
+    return torch.empty_like(t, device="meta") if isinstance(
+        t, torch.Tensor) else t
+
+
+def count(wrapper, *operands) -> None:
+    """One launch of `wrapper`'s kernel with these operands: counted, or
+    kept on the tape of the `recording` this thread is in."""
+    tape = getattr(_local, "tape", None)
+    if tape is not None:
+        tape.append((wrapper, tuple(_meta(o) for o in operands)))
+        return
+    wrapper.launches += 1
+    for hook in list(HOOKS):
+        hook(wrapper, *operands)
+
+
+class recording:
+    """Within the block, this thread's counted launches go on a tape (the
+    list it returns) and count nothing: the capture of a CUDA graph."""
+
+    def __enter__(self) -> list:
+        if getattr(_local, "tape", None) is not None:
+            raise RuntimeError("a recording is already open")
+        _local.tape = []
+        return _local.tape
+
+    def __exit__(self, *exc):
+        _local.tape = None
+
+
+def recount(tape: list) -> None:
+    """Counts the launches of a tape again, as a graph replay runs them."""
+    for wrapper, operands in tape:
+        count(wrapper, *operands)

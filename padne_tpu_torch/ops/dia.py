@@ -545,7 +545,7 @@ def sell_matvec(params, xt) -> torch.Tensor:
     if xt.device.type == "cpu":
         return sell_matvec_plain(params, xt)
     y = _launch(params, xt)
-    sell_matvec.launches += 1
+    kernels.count(sell_matvec, params, xt)
     return y
 
 

@@ -233,10 +233,9 @@ class DiaBorderedSolver:
     is then that device.
 
     dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc):
-    "auto" is the JAX package's rule on the card (np0 * 5 row updates
-    an iteration against ~60M a dispatch, 30 to 4000 iterations, one
-    CUDA graph a dispatch) and the host loop on the CPU; an int chunks
-    on either device; None is the host loop.  The resolved value is
+    "auto" is one iteration a dispatch on the card (one CUDA-graph
+    replay an iteration) and the host loop on the CPU; an int chunks on
+    either device; None is the host loop.  The resolved value is
     `dispatch_cap`; the solver keeps its graphs for every later solve
     (`cg_solver.loop`), and `host_reads` counts the continue tests the
     last solve read on the host.
@@ -317,10 +316,8 @@ class DiaBorderedSolver:
         comp_pad = np.full(np0, p, dtype=np.int64)
         comp_pad[posmap] = system.comp_id
         self.comp_pad_dev = _index(comp_pad, dev)
-        # The JAX rule (schur.py:808-815): ~60M row updates a dispatch
-        # at np0 * 5 a cycled iteration; the host loop on the CPU.
         self.dispatch_cap = cg.resolve_dispatch_cap(
-            dispatch_cap, mesh.devices if self.sharded else [dev], np0)
+            dispatch_cap, mesh.devices if self.sharded else [dev])
 
         if self.sharded:
             lv0 = hierarchy.levels[0]
@@ -657,11 +654,10 @@ def solve_bordered(
     shards at (DiaBorderedSolver's shard_min).
 
     dispatch_cap: the inner CG's iterations a dispatch, as the JAX
-    package's (ops.cg's module doc): "auto" is its rule on the card (n
-    row updates an iteration, 5 n with AMG, against ~60M a dispatch, 30
-    to 4000 iterations; one CUDA graph a dispatch) and the host loop on
-    the CPU, an int chunks on either device, None is the host loop; an
-    escalation to f64 takes max(30, cap // 8).
+    package's (ops.cg's module doc): "auto" is one iteration a dispatch
+    on the card (one CUDA-graph replay an iteration) and the host loop
+    on the CPU, an int chunks on either device, None is the host loop;
+    an escalation to f64 takes max(30, cap // 8) of an int cap.
 
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
@@ -759,11 +755,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     row_mesh = None if mesh is None else sharding.Mesh(mesh.grid[0])
     tp = 1 if row_mesh is None else row_mesh.size
     n_pad = n + (-n) % tp
-    # The JAX rule (schur.py:352-364): n row updates an iteration, 5 n
-    # with the cycle, against ~60M a dispatch.
-    cap = cg.resolve_dispatch_cap(
-        dispatch_cap, [dev] if row_mesh is None else row_mesh.devices, n,
-        use_amg)
+    devices = [dev] if row_mesh is None else row_mesh.devices
+    cap = cg.resolve_dispatch_cap(dispatch_cap, devices)
     hierarchy = vcycle = vcycle64 = None
     if use_amg:
         # One layout of the cycle's operators, in f64 (what an escalation
@@ -844,9 +837,10 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         f32 inner operator contracts per pass by ~kappa(A)*eps32, and
         boards mixing milliohm couplings with thin-sliver cotan weights
         push kappa past 1e7, above the target.  An f64 iteration costs
-        more: the dispatch cap drops to max(30, cap // 8)."""
+        more: an int dispatch cap drops to max(30, cap // 8)."""
         nonlocal cg_solver, inner_tol, inner, cap
-        cap = cg.escalated_cap(cap)
+        cap = cg.resolve_dispatch_cap(cg.escalated_cap(dispatch_cap),
+                                      devices)
         cg_solver = make_solver(f64, vcycle64, None)
         inner = f64
         inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)

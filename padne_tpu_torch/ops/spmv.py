@@ -260,8 +260,9 @@ def ell_spmv(op: EllOperator, x, b=None, w=None, x0=None) -> torch.Tensor:
     tensors.  x is (nx, R); b, w and x0 must be contiguous."""
     if x.device.type == "cpu":
         return ell_spmv_plain(op, x, b, w, x0)
-    y = _launch(op, x.contiguous(), b, w, x0)
-    ell_spmv.launches += 1
+    x = x.contiguous()
+    y = _launch(op, x, b, w, x0)
+    kernels.count(ell_spmv, op, x, b, w, x0)
     return y
 
 

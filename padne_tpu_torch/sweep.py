@@ -71,8 +71,9 @@ def solve_sweep(
     dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc).
     The JAX sweep runs its CG as one while_loop to maxiter in one
     dispatch; a CUDA graph cannot hold maxiter iterations, so "auto" is
-    the nearest counterpart: the solve path's size rule on the card (one
-    graph a dispatch), the host loop on the CPU.
+    the solve path's: one iteration a dispatch on the card (a CUDA-graph
+    replay each, the continue test read after it), the host loop on the
+    CPU.
 
     stats: optional dict that receives n, m, p, cg_iterations, the wall
     times mesh_assemble_s, setup_s (hierarchy and uploads), cg_s (the one
@@ -101,8 +102,7 @@ def solve_sweep(
     precond = None
     if n >= _AMG_THRESHOLD:
         precond = amg.make_vcycle(amg.build_hierarchy(system.ell), dev, a0=a)
-    cap = cg.resolve_dispatch_cap(dispatch_cap, [dev], n,
-                                  precond is not None)
+    cap = cg.resolve_dispatch_cap(dispatch_cap, [dev])
     cg_solver = cg.make_pcg(a, comp_id, p, precond=precond,
                             dispatch_cap=cap)
     if dev.type == "cuda":

@@ -353,10 +353,10 @@ def _loop_solver(cuda, cap):
 
 
 def test_graph_chunks_are_bit_equal_to_the_host_loop(cuda):
-    """Chunks of 1, 7 and 30 iterations, each a replayed CUDA graph with
-    every iteration in an IF node: the host loop's bits and iterations,
-    one host read a dispatch; the second solve replays the first's
-    graph."""
+    """Chunks of 1, 7 and 30 iterations, each dispatch one replayed CUDA
+    graph of that many iterations gated by the device flag go: the host
+    loop's bits and iterations, one host read a dispatch; the second
+    solve replays the first's graph."""
     b = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
     want = _loop_solver(cuda, None)(b, 1e-10, 500)
@@ -370,6 +370,25 @@ def test_graph_chunks_are_bit_equal_to_the_host_loop(cuda):
             assert torch.equal(got.residual_norms, want.residual_norms)
             assert got.host_reads == max(1, -(-want.iterations // cap))
         assert len(solve.loop.graphs) == 1
+
+
+def test_graph_replays_count_their_launches(cuda):
+    """K3''s count is the launches the card ran: a capture counts none,
+    each replay counts the iteration's.  At one iteration a dispatch
+    ("auto") a solve that replays a graph runs what the host loop runs,
+    launch for launch."""
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2 * 24 * 24, 3))).to(cuda)
+    host, auto = _loop_solver(cuda, None), _loop_solver(cuda, "auto")
+    counts = []
+    for solve in (host, auto, auto):
+        before = spmv.ell_spmv.launches
+        res = solve(b, 1e-10, 500)
+        counts.append(spmv.ell_spmv.launches - before)
+    assert res.host_reads == res.iterations
+    # The first graph solve adds the warm-up iteration before capture.
+    assert counts[2] == counts[0] < counts[1]
+    assert len(auto.loop.graphs) == 1
 
 
 def test_a_host_read_in_the_body_raises(cuda):

@@ -19,16 +19,20 @@ Gates:
   k % 50 == 49 inside chunks and across their boundaries): bit-equal;
 * one host read a dispatch: max(1, ceil(iterations / cap)); the host
   loop reads once an iteration and once more;
-* "auto" is the host loop on the CPU; the escalation's cap is
-  max(30, cap // 8), and the ELL route's f64 solver is built with it;
+* "auto" is one iteration a dispatch on one card and the host loop on
+  the CPU; the escalation's cap is max(30, cap // 8) of an int cap, and
+  the ELL route's f64 solver is built with it;
 * DiaBorderedSolver and solve_bordered at dispatch_cap=10 against the
   JAX package's at dispatch_cap=10 (its chunked `stateful` path): the
   same CG iterations and passes, potentials within 1e-9 V (the JAX
   path counts k from 0 in each dispatch, so it re-projects at no cap
   below 50; no pass on these grids reaches 50 iterations, so the two
   runs are the same sequence);
-* a dispatch gates every carried value on go: once it is false, more
-  iterations change nothing; the re-projection follows the device k;
+* a dispatch gates every carried value on go, in place: once it is
+  false, more iterations change nothing; the re-projection follows the
+  device k;
+* the launch accounting a graph uses: launches counted under a
+  recording (a capture) count nothing until each recount (a replay);
 * a source guard: no host read (bool, int, float, .item(), .cpu(),
   .tolist(), .numpy()) inside the body functions of ops/cg.py and the
   gates a dispatch runs.
@@ -219,24 +223,23 @@ def test_sweep_chunks_are_bit_equal():
 
 
 def test_dispatch_cap_rules():
-    # "auto": the JAX rule on one card, the host loop on the CPU and on
-    # several cards.
-    assert cg.resolve_dispatch_cap("auto", ["cpu"], 10_000) is None
-    assert cg.resolve_dispatch_cap("auto", ["cuda:0"] * 4, 10_000) == 1200
-    assert cg.resolve_dispatch_cap("auto", ["cuda:0", "cuda:1"],
-                                   10_000) is None
-    assert cg.auto_dispatch_cap(1_087_536) == 30
-    assert cg.auto_dispatch_cap(154_257, amg=False) == 388
-    assert cg.auto_dispatch_cap(100) == 4000
-    assert cg.resolve_dispatch_cap(None, ["cuda:0"], 10) is None
-    assert cg.resolve_dispatch_cap(7, ["cpu"] * 4, 10) == 7
+    # "auto": one iteration a dispatch on one card (a mesh of that card
+    # included), the host loop on the CPU and on several cards.
+    assert cg.resolve_dispatch_cap("auto", ["cpu"]) is None
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0"]) == 1
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0"] * 4) == 1
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0", "cuda:1"]) is None
+    assert cg.resolve_dispatch_cap(None, ["cuda:0"]) is None
+    assert cg.resolve_dispatch_cap(7, ["cpu"] * 4) == 7
     for bad in (0, -3, 2.5, True, "8"):
         with pytest.raises(ValueError):
-            cg.resolve_dispatch_cap(bad, ["cpu"], 10)
+            cg.resolve_dispatch_cap(bad, ["cpu"])
     with pytest.raises(ValueError):
-        cg.resolve_dispatch_cap(7, ["cuda:0", "cuda:1"], 10)
-    # The escalation to f64 (padne_tpu/ops/schur.py:472-475).
+        cg.resolve_dispatch_cap(7, ["cuda:0", "cuda:1"])
+    # The escalation to f64 (padne_tpu/ops/schur.py:472-475) of an int
+    # cap; "auto" stays one iteration a dispatch.
     assert cg.escalated_cap(None) is None
+    assert cg.escalated_cap("auto") == "auto"
     assert cg.escalated_cap(10) == 30
     assert cg.escalated_cap(400) == 50
 
@@ -386,14 +389,56 @@ def _toy_body(s, c, periodic):
 
 
 def test_a_chunk_gates_every_value_on_go():
-    """Iterations after go turns false change nothing (x, k, go); the
-    periodic step runs where the device count is 49 mod 50."""
+    """A chunk writes over the state in place; iterations after go turns
+    false change nothing (x, k, go); the periodic step runs where the
+    device count is 49 mod 50; the chunk returns (go, k)."""
     s, c = _toy(0.0, 3)
-    out = cg._chunk(_toy_body, s, c, 5)
-    assert (float(out.x), int(out.k), bool(out.go)) == (3.0, 3, False)
-    again = cg._chunk(_toy_body, out, c, 4)
-    assert all(torch.equal(a, b) for a, b in zip(again, out))
+    flag = cg._chunk(_toy_body, s, c, 5)
+    assert (float(s.x), int(s.k), bool(s.go)) == (3.0, 3, False)
+    assert flag.tolist() == [0, 3]
+    before = [t.clone() for t in s]
+    flag = cg._chunk(_toy_body, s, c, 4)
+    assert all(torch.equal(a, b) for a, b in zip(s, before))
+    assert flag.tolist() == [0, 3]
     s, c = _toy(0.0, 100)
-    out = cg._chunk(_toy_body, s, c, 60)
+    flag = cg._chunk(_toy_body, s, c, 60)
     # 49 steps, then (49 + 1) * 10, then 10 more.
-    assert (float(out.x), int(out.k), bool(out.go)) == (510.0, 60, True)
+    assert (float(s.x), int(s.k), bool(s.go)) == (510.0, 60, True)
+    assert flag.tolist() == [1, 60]
+
+
+def test_a_recording_counts_at_each_recount():
+    """The accounting of a CUDA graph (ops.cg._Graph): the launches a
+    capture records count nothing; every replay counts them once, with
+    their operands' shapes (as meta tensors) passed to the hooks."""
+    from padne_tpu_torch import kernels
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    seen = []
+
+    def hook(w, x, extra):
+        if w is wrapper:
+            seen.append((tuple(x.shape), x.device.type, extra))
+
+    kernels.HOOKS.append(hook)
+    try:
+        kernels.count(wrapper, torch.ones(2, 3), "eager")
+        with kernels.recording() as tape:
+            kernels.count(wrapper, torch.ones(4, 1), "captured")
+            kernels.count(wrapper, torch.ones(5, 1), "captured")
+            with pytest.raises(RuntimeError):
+                with kernels.recording():
+                    pass
+        assert wrapper.launches == 1 and len(tape) == 2
+        for _ in range(3):
+            kernels.recount(tape)
+    finally:
+        kernels.HOOKS.remove(hook)
+    assert wrapper.launches == 7
+    assert seen == [((2, 3), "cpu", "eager")] + 3 * [
+        ((4, 1), "meta", "captured"), ((5, 1), "meta", "captured")]
+    kernels.count(wrapper, torch.ones(1), None)
+    assert wrapper.launches == 8 and len(seen) == 7

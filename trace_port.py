@@ -8,7 +8,7 @@ Run from the repository root:
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
                           [--startup] [--tp N [--dp D]]
-                          [--dispatch-cap auto|none|K]
+                          [--dispatch-cap auto|none|K] [--pairs N]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -58,12 +58,20 @@ unpacked earlier commit) to trace instead of this repository's, so that
 two versions can be run in turns in one go on one card.
 
 --dispatch-cap passes dispatch_cap to the solve (and the sweep): "auto"
-(CUDA-graph chunks of the JAX size rule's iterations), "none" (the host
+(one iteration a dispatch, a CUDA-graph replay each), "none" (the host
 loop, one read of the continue test an iteration) or an int; without
 it the package's default runs, so a tree from before the option traces
 as it is.  Each solve line then also prints the CG's host reads and the
 graphs' capture seconds (a solve_bordered call builds its solver, so
 every run captures anew).
+
+--pairs N runs, after one solve of each loop, N pairs of a host-loop
+(dispatch_cap None) and a default ("auto") solve_bordered call (or
+sweep, with --sweep) of the board, alternating which runs first, and
+prints for each call the time without set-up (the sweep: its CG), the
+graphs' capture seconds and the Python garbage collector's pauses
+inside the call, then each loop's least, median and largest time; no
+profiler runs.
 """
 
 from __future__ import annotations
@@ -108,6 +116,53 @@ def cap_kw(args) -> dict:
     if cap == "none":
         return {"dispatch_cap": None}
     return {"dispatch_cap": cap if cap == "auto" else int(cap)}
+
+
+def trace_pairs(args, one) -> int:
+    """The --pairs mode: one(cap) runs a call and returns (seconds
+    without set-up, capture seconds); see the module docstring."""
+    import torch
+
+    pauses = []
+
+    def gc_pause(phase, info):
+        # The collector's pauses, as (start, end) on the host's clock.
+        if phase == "start":
+            pauses.append([time.perf_counter(), None])
+        else:
+            pauses[-1][1] = time.perf_counter()
+
+    def timed(label, cap):
+        torch.cuda.synchronize()
+        before = len(pauses)
+        t0 = time.perf_counter()
+        part, capture = one(cap)
+        torch.cuda.synchronize()
+        gc_s = sum(b - a for a, b in pauses[before:])
+        print(f"[pairs] {label}: {part * 1e3:.1f} ms without set-up, "
+              f"capture {capture * 1e3:.1f} ms, gc {gc_s * 1e3:.1f} ms "
+              f"in the call ({(time.perf_counter() - t0) * 1e3:.1f} ms "
+              "in all)", flush=True)
+        return part
+
+    loops = {"none": None, "auto": "auto"}
+    gc.callbacks.append(gc_pause)
+    try:
+        for label, cap in loops.items():
+            timed(label + " (first)", cap)
+        times = {label: [] for label in loops}
+        for i in range(args.pairs):
+            for label in (("none", "auto") if i % 2 == 0
+                          else ("auto", "none")):
+                times[label].append(timed(label, loops[label]))
+    finally:
+        gc.callbacks.remove(gc_pause)
+    for label, ts in times.items():
+        ts = sorted(ts)
+        print(f"[pairs] {label}: least {ts[0] * 1e3:.1f} ms, median "
+              f"{ts[len(ts) // 2] * 1e3:.1f} ms, largest "
+              f"{ts[-1] * 1e3:.1f} ms over {len(ts)} calls", flush=True)
+    return 0
 
 
 def trace_sweep(args, prob, cfg, specs) -> int:
@@ -280,6 +335,9 @@ def main() -> int:
                     help="dp rows of the batched solve (with --tp)")
     ap.add_argument("--dispatch-cap", default=None,
                     help="the CG's dispatch_cap: auto, none or an int")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="alternating host-loop / default calls instead "
+                         "of a trace")
     args = ap.parse_args()
 
     import torch
@@ -305,9 +363,34 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         prob, cfg = chip_smoke.bench_problem(pathlib.Path(tmp), args.dof)
+        if args.sweep and args.pairs:
+            from padne_tpu_torch import sweep
+
+            specs = [sweep.SweepSpec(*x) for x in chip_smoke.SWEEP_SPECS]
+
+            def one_sweep(cap):
+                stats = {}
+                sweep.solve_sweep(prob, specs, mesher_config=cfg,
+                                  stats=stats, dispatch_cap=cap)
+                return stats["cg_s"], stats["capture_s"]
+
+            return trace_pairs(args, one_sweep)
         if args.sweep:
             return trace_sweep(args, prob, cfg, chip_smoke.SWEEP_SPECS)
         system = solver.build_system(prob, cfg)[0]
+
+    if args.pairs:
+        def one_solve(cap):
+            stats = {}
+            t0 = time.perf_counter()
+            schur.solve_bordered(system, inner_dtype=torch.float32,
+                                 device="cuda", mesh=mesh, stats=stats,
+                                 dispatch_cap=cap)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0 - stats["setup_s"],
+                    stats["capture_s"])
+
+        return trace_pairs(args, one_solve)
 
     class Stats(dict):
         """The solve's stats dict; opens the profiler range "solve" when
