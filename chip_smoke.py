@@ -94,9 +94,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    only when the device's failed its check); set-up and solve seconds,
    CG iterations, passes, residual, K1' launches and the device events
    and kernel ms per CG iteration run (the solver's CG run to 10 and 30
-   iterations, or to one and two whole dispatches of more than one
-   iteration, under the profiler, the difference over the iterations
-   run between) printed per setting; the Jacobi solve below is also run
+   iterations on the host loop under the profiler, the difference over
+   the iterations run between) printed per setting; the Jacobi solve below is also run
    on the host loop (same bits, its wall beside the default's).
    Then solve_bordered(precond="jacobi") on the smallest of the four
    small boards above 5,000 unknowns at a 0.15 mm mesh (each K3' shape
@@ -104,28 +103,37 @@ Phases (any failure exits non-zero; there is no CPU path):
    solve_bordered(dia_shard_min=512) on phase 6's system over phase
    9b's mesh (at least 2 sharded levels, every K1'/K2' shape held,
    within 1e-7 x span of phase 6's solve);
-9b''. the CG loop ("loop"): the host loop (dispatch_cap None, the
-   continue test read once an iteration), the default ("auto": one
-   iteration a dispatch, each one CUDA-graph replay) and chunks of
-   LOOP_CAP gated iterations a replay, in turns, on phase 5's system
-   (one DiaBorderedSolver: a cold solve and LOOP_WARM warm ones), phase
-   8's ELL system (solve_bordered, which captures in every call), the
-   12-spec sweep on phase 8's board and phase 5's system over SHARDS
-   shards of the card: iterations, passes and the SHA-256 of the
-   potentials equal solve for solve, fewer host reads with the graphs,
-   launches (from 0 for each path and loop) at least the host loop's;
-   printed per path and loop: the resolved cap, capture s, cold and
-   warm-median solve s (and without set-up or meshing), host reads a
-   solve, launches, the nodes of each graph the first solve captured
-   (by libcuda), device events and kernel ms a CG iteration of one
-   more solve under the profiler and its kernel time over the
-   warm-median wall (busy share), and peak device memory.  Then a
-   chunked solve whose iteration reads a value on the host must raise.
-   Per path, LOOP_PAIRS pairs of a host-loop and a default solve,
-   alternating which runs first, give each side's median, the host
-   loop's spread and a verdict (pair_verdict).
-   Phase fragmented also holds one R = 146 solve on both loops: the same
-   bits, peak memory allocated and reserved printed;
+9b''. the CG loop ("loop"): the host loop (ops.cg's private hook, the
+   continue test read once an iteration), one iteration a dispatch, the
+   whole loop in one dispatch (dispatch_cap None) and dispatches of at
+   most LOOP_CAP, each dispatch on the card one launch of the WHILE
+   graph of csrc/graph_loop.cu (L1) around one captured CG iteration,
+   in turns, on phase 5's system (one DiaBorderedSolver: a cold solve
+   and LOOP_WARM warm ones), phase 8's ELL system (solve_bordered, which
+   captures in every call), the 12-spec sweep on phase 8's board, phase
+   5's system over SHARDS shards of the card and the Jacobi board
+   (below): iterations, passes and the SHA-256 of the potentials equal
+   solve for solve, the iterations the card ran (L1's device counter)
+   equal to the iterations counted, one host read a CG call for the
+   whole loop and one a dispatch otherwise, launches (from 0 for each
+   path and loop) at least the host loop's; printed per path and loop:
+   the resolved cap, capture and instantiate s, cold and warm-median
+   solve s (and without set-up or meshing), host reads beside passes,
+   launches (L1 included), the node types of each iteration the first
+   solve captured (by libcuda, before instantiation), device events and
+   kernel ms a CG iteration of one more solve under the profiler and
+   its kernel time over the warm-median wall (busy share), on the DIA
+   and sharded solvers the ms a CG iteration of their CG alone at R = 1
+   by CUDA events, and peak device memory.  Then a solve whose
+   iteration reads a value on the
+   host must raise.  Per path, LOOP_PAIRS pairs of a cap-1 and a
+   whole-loop solve, alternating which runs first, give each side's
+   median, the cap-1 spread and a verdict (pair_verdict), which decides
+   dispatch_cap="auto".
+   Phase fragmented also solves its R = 146 system twice on the host
+   loop and on the default: the same bits, peak memory allocated and
+   the memory reserved after each solve printed, and no R = m + 1 graph
+   left on the solver once A^+ C is cached;
 9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
    entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
    on phase 5's system (not meshed again): batched_sharded_cg of 4
@@ -208,11 +216,14 @@ Phases (any failure exits non-zero; there is no CPU path):
 
 Each of the phases cli, sharded, loop, variants, dp_tp, fragmented,
 sweep, serve and repeat also prints one JSON line {"phase": ...} with
-its numbers.  Every solve runs the CG as graph chunks (the default
-dispatch_cap "auto": one iteration a dispatch, each a CUDA-graph
-replay) but phase loop's host-loop and chunked runs; a kernel's launches
+its numbers.  Every solve runs the CG as WHILE graphs (the default
+dispatch_cap "auto") but phase loop's other loops; a kernel's launches
 are the ones the card ran: a capture counts none of what it records,
-and each replay counts them once.
+and each dispatch counts them once an iteration it ran.  L1 (the loop's
+begin and cond kernels) is held against its plain version, the same
+dispatch driven from the host (ops.cg._dispatch_plain), on a toy
+iteration right after the build: no iteration on a start with go false,
+a stop at convergence, at kstop and at kmax.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -236,6 +247,8 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
+import inspect
 import json
 import pathlib
 import subprocess
@@ -1046,18 +1059,21 @@ def check_dia_held(path: str, shapes, launches: dict, k1, k2) -> dict:
 
 
 def launch_counts() -> dict:
-    from padne_tpu_torch.ops import comp, dia, spmv
+    """The kernels' launch counts; graph_loop: L1's (one begin a
+    dispatch, one cond an iteration the dispatch ran)."""
+    from padne_tpu_torch.ops import cg, comp, dia, spmv
 
     return {"dia_sell": dia.sell_matvec.launches,
             "comp_sell": comp.comp_sell.launches,
-            "ell_spmv": spmv.ell_spmv.launches}
+            "ell_spmv": spmv.ell_spmv.launches,
+            "graph_loop": cg.loop_launch.launches}
 
 
 def reset_counts() -> None:
-    from padne_tpu_torch.ops import comp, dia, spmv
+    from padne_tpu_torch.ops import cg, comp, dia, spmv
 
     dia.sell_matvec.launches = comp.comp_sell.launches = 0
-    spmv.ell_spmv.launches = 0
+    spmv.ell_spmv.launches = cg.loop_launch.launches = 0
 
 
 def same_fields(a, b) -> bool:
@@ -1331,7 +1347,7 @@ def dia_phases(args, tmp: pathlib.Path, repeats: dict):
           f"peak_device_memory={peak_gb:.3f} GB "
           f"launches={launches}", flush=True)
     check(stats["route"] == "dia", f"route {stats['route']} is not dia")
-    for k in ("dia_sell", "comp_sell"):
+    for k in ("dia_sell", "comp_sell", "graph_loop"):
         check(launches[k] > 0, f"the slice never launched {k}")
     by_shape = check_dia_held("cli", shapes, launches, k1, [k2])
     check(info.residual_norm < 1e-9,
@@ -1468,6 +1484,7 @@ def ell_phases(args, tmp: pathlib.Path, repeats: dict):
           f"max|dV| vs spsolve={dv:.3e} V launches={launches}", flush=True)
     check(stats["route"] == "ell", f"route {stats['route']} is not ell")
     check(launches["ell_spmv"] > 0, "the ELL route never launched K3'")
+    check(launches["graph_loop"] > 0, "the ELL route never launched L1")
     check(sum(shapes.values()) == launches["ell_spmv"],
           "the per-shape launches of K3' do not add up to its count")
     timed = {c["key"]: c["name"] for c in k3}
@@ -1916,49 +1933,60 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
             "ell_launches": ell_launches}
 
 
-LOOP_WARM = 3    # phase loop: warm solves of each path and loop
-# Phase loop's loops: the host loop, the default (one iteration a
-# dispatch on the card) and chunks of LOOP_CAP gated iterations.
+LOOP_WARM = 2    # phase loop: warm solves of each path and loop
+# Phase loop's loops: the host loop (ops.cg's private hook, go read once
+# an iteration), one iteration a dispatch, the whole loop in one dispatch
+# (None: a WHILE graph to maxiter) and dispatches of at most LOOP_CAP.
 LOOP_CAP = 10
-LOOPS = (("none", None), ("auto", "auto"), ("chunks", LOOP_CAP))
-# Phase loop: pairs of a host-loop and a default solve on each path,
-# alternating which runs first.
+LOOPS = (("host", "host loop"), ("cap1", 1), ("whole", None),
+         ("chunks", LOOP_CAP))
+# Phase loop: pairs of a cap-1 and a whole-loop solve on each path,
+# alternating which runs first; they decide dispatch_cap="auto".
 LOOP_PAIRS = 10
+# cuGraphNodeGetType's CUgraphNodeType values.
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
 
 
-def pair_verdict(host: list, graph: list) -> dict:
-    """The host loop's and the graphs' times of LOOP_PAIRS alternating
-    pairs: medians, the host loop's spread (the distance between its
+def pair_verdict(base: list, new: list) -> dict:
+    """The times of LOOP_PAIRS alternating pairs of a base loop and a new
+    one: medians, the base's spread (the distance between its
     quartiles), the pairs each side won and a verdict: "faster" or
-    "slower" when one side won at least nine tenths of the pairs and the
-    medians differ by more than that spread, else "unresolved"."""
+    "slower" (the new one) when one side won at least nine tenths of the
+    pairs and the medians differ by more than that spread, else
+    "unresolved"."""
     import numpy as np
 
-    mh, mg = float(np.median(host)), float(np.median(graph))
-    q1, q3 = np.percentile(host, [25, 75])
+    mb, mn = float(np.median(base)), float(np.median(new))
+    q1, q3 = np.percentile(base, [25, 75])
     spread = float(q3 - q1)
-    wins = sum(g < h for h, g in zip(host, graph))
-    losses = sum(g > h for h, g in zip(host, graph))
+    wins = sum(g < h for h, g in zip(base, new))
+    losses = sum(g > h for h, g in zip(base, new))
     verdict = "unresolved"
-    if abs(mg - mh) > spread:
-        if wins >= 0.9 * len(host):
+    if abs(mn - mb) > spread:
+        if wins >= 0.9 * len(base):
             verdict = "faster"
-        elif losses >= 0.9 * len(host):
+        elif losses >= 0.9 * len(base):
             verdict = "slower"
-    return {"host_median_s": mh, "graph_median_s": mg,
-            "host_spread_s": spread, "graph_wins": wins,
-            "host_wins": losses, "pairs": len(host), "verdict": verdict,
-            "host_s": host, "graph_s": graph}
+    return {"base_median_s": mb, "new_median_s": mn,
+            "base_spread_s": spread, "new_wins": wins,
+            "base_wins": losses, "pairs": len(base), "verdict": verdict,
+            "base_s": base, "new_s": new}
 
 
 class GraphNodes:
-    """Within the block, counts the nodes of every CUDA graph that ops.cg
-    captures: a stand-in for ops.cg._chunk that, when it runs under a
-    capture, asks the driver (libcuda's cuStreamGetCaptureInfo_v2 and
+    """Within the block, lists the nodes of every CG iteration that
+    ops.cg captures, before the WHILE graph around it is instantiated: a
+    stand-in for ops.cg._iteration that, when it runs under a capture,
+    asks the driver (libcuda's cuStreamGetCaptureInfo_v2 and
     cuGraphGetNodes) for the nodes of the graph being captured and their
-    types.  `graphs` lists (cap, nodes, kernel nodes) a capture."""
+    types.  `graphs` lists {"nodes": n, "types": {type: count}} a
+    capture."""
 
     def __enter__(self):
+        import collections
         import ctypes
 
         import torch
@@ -1967,63 +1995,95 @@ class GraphNodes:
 
         cuda = ctypes.CDLL("libcuda.so.1")
         vp = ctypes.c_void_p
-        self.cg, self.real, self.graphs = cg, cg._chunk, []
+        self.cg, self.real, self.graphs = cg, cg._iteration, []
 
-        def counted(body, s, c, cap):
-            out = self.real(body, s, c, cap)
-            if torch.cuda.is_current_stream_capturing():
-                status, cid = ctypes.c_int(), ctypes.c_uint64()
-                graph, deps, ndeps = vp(), vp(), ctypes.c_size_t()
-                rc = cuda.cuStreamGetCaptureInfo_v2(
-                    vp(torch.cuda.current_stream().cuda_stream),
-                    ctypes.byref(status), ctypes.byref(cid),
-                    ctypes.byref(graph), ctypes.byref(deps),
-                    ctypes.byref(ndeps))
-                n = ctypes.c_size_t()
-                rc = rc or cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
-                nodes = (vp * n.value)()
-                rc = rc or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-                kinds = []
-                for node in nodes:
-                    kind = ctypes.c_int()
-                    rc = rc or cuda.cuGraphNodeGetType(vp(node),
-                                                       ctypes.byref(kind))
-                    kinds.append(kind.value)
-                check(rc == 0, f"the driver could not list the graph's "
-                               f"nodes (CUresult {rc})")
-                # CU_GRAPH_NODE_TYPE_KERNEL is 0.
-                self.graphs.append({"cap": cap, "nodes": n.value,
-                                    "kernel_nodes": kinds.count(0)})
-            return out
+        def listed(body, s, c):
+            self.real(body, s, c)
+            if not torch.cuda.is_current_stream_capturing():
+                return
+            status, cid = ctypes.c_int(), ctypes.c_uint64()
+            graph, deps, ndeps = vp(), vp(), ctypes.c_size_t()
+            rc = cuda.cuStreamGetCaptureInfo_v2(
+                vp(torch.cuda.current_stream().cuda_stream),
+                ctypes.byref(status), ctypes.byref(cid),
+                ctypes.byref(graph), ctypes.byref(deps),
+                ctypes.byref(ndeps))
+            n = ctypes.c_size_t()
+            rc = rc or cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+            nodes = (vp * n.value)()
+            rc = rc or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+            kinds = collections.Counter()
+            for node in nodes:
+                kind = ctypes.c_int()
+                rc = rc or cuda.cuGraphNodeGetType(vp(node),
+                                                   ctypes.byref(kind))
+                kinds[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
+                      else str(kind.value)] += 1
+            check(rc == 0, f"the driver could not list the graph's "
+                           f"nodes (CUresult {rc})")
+            self.graphs.append({"nodes": n.value, "types": dict(kinds)})
 
-        cg._chunk = counted
+        cg._iteration = listed
         return self
 
     def __exit__(self, *exc):
-        self.cg._chunk = self.real
+        self.cg._iteration = self.real
 
 
-def loop_phase(cli_run: dict, ell_run: dict) -> dict:
-    """Phase loop: the CG loops of LOOPS (the host loop, dispatch_cap
-    None; the default "auto", one iteration a dispatch, each a CUDA-graph
-    replay; chunks of LOOP_CAP gated iterations, each one replay) on
-    four paths, in turns on one card: phase cli's DIA system (one
-    DiaBorderedSolver, a cold solve and LOOP_WARM warm ones on its cached
-    A^+ C), phase 8's ELL system (solve_bordered, which builds its
-    solver, so every call captures), the 12-spec sweep on phase 8's board,
-    and phase cli's system over SHARDS shards of the card.  Each loop's
-    iterations, passes and the SHA-256 of the potentials must be equal,
-    solve for solve; the graphs read the continue test once a dispatch,
-    the host loop once an iteration; every kernel's launches, counted
-    from 0 for each path and loop, are the card's (a graph's at every
-    replay: at least the host loop's).  Printed per path and loop: the
-    resolved cap, capture s, cold and warm-median solve s, host reads a
-    solve, launches, the nodes of the graphs the first solve captured,
-    device events and kernel ms a CG iteration of one more solve under
-    the profiler and its kernel time over the warm-median wall (busy
-    share), and peak device memory, allocated and reserved.  Then a
-    chunked solve whose iteration reads a value on the host must raise
-    (its capture fails; no host loop takes over)."""
+@functools.cache
+def jacobi_board(tmp: pathlib.Path):
+    """The smallest of the four small boards above 5,000 unknowns at
+    JACOBI_MESH (the ELL route's Jacobi preconditioner above the AMG
+    threshold): (system, name, the sizes of all four)."""
+    from padne_tpu_torch import kicad, mesh, solver
+
+    gen = boardgen()
+    jtmp = tmp / "jacobi"
+    cfg = mesh.Mesher.Config(maximum_size=JACOBI_MESH,
+                             variable_size_maximum_factor=1.0)
+    small = []
+    for name in SMALL_BOARDS:
+        getattr(gen, name)(jtmp)
+        prob = kicad.load_kicad_project(jtmp / name / f"{name}.kicad_pro")
+        small.append((solver.build_system(prob, cfg)[0], name))
+    sizes = {name: sys_.n for sys_, name in small}
+    jsys, jname = min(((s_, n_) for s_, n_ in small if s_.n > 5000),
+                      key=lambda t: t[0].n)
+    return jsys, jname, sizes
+
+
+def loop_phase(cli_run: dict, ell_run: dict, tmp: pathlib.Path) -> dict:
+    """Phase loop: the CG loops of LOOPS (the host loop; one iteration a
+    dispatch; the whole loop in one dispatch, dispatch_cap None; at most
+    LOOP_CAP iterations a dispatch; each dispatch on the card one launch
+    of the WHILE graph of csrc/graph_loop.cu around one captured CG
+    iteration) on five paths, in turns on one card: phase cli's DIA
+    system (one DiaBorderedSolver, a cold solve and LOOP_WARM warm ones
+    on its cached A^+ C), phase 8's ELL system (solve_bordered, which
+    builds its solver, so every call captures), the 12-spec sweep on
+    phase 8's board, phase cli's system over SHARDS shards of the card,
+    and the Jacobi board (solve_bordered, precond="jacobi").  Each loop's
+    iterations, passes and the SHA-256 of the potentials must be the
+    host loop's, solve for solve; the iterations the card ran (L1's
+    device counter, through its launch count: one begin a dispatch and
+    one cond an iteration) must equal the iterations counted (k); the
+    whole loop reads the host once a CG call (a pass), the others once a
+    dispatch; every kernel's launches, counted from 0 for each path and
+    loop, are the card's (a graph's once an iteration it ran: at least
+    the host loop's).  Printed per path and loop: the resolved cap,
+    capture and instantiate s, cold and warm-median solve s, host reads
+    beside passes, launches (L1 included), the node types of each
+    iteration the first solve captured (by libcuda), device events and
+    kernel ms a CG iteration of one more solve under the profiler and
+    its kernel time over the warm-median wall (busy share), on the DIA
+    and sharded solvers the ms a CG iteration of their CG alone
+    (cg_ms), and peak device memory, allocated and reserved.  Then a
+    solve whose
+    iteration reads a value on the host must raise (its capture fails;
+    no host loop takes over).  Per path, LOOP_PAIRS pairs of a cap-1 and
+    a whole-loop solve, alternating which runs first, give each side's
+    median, the cap-1 spread and a verdict (pair_verdict): the whole
+    loop is "auto" only where no path finds it slower."""
     import numpy as np
     import torch
 
@@ -2034,8 +2094,10 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
     card = smi()
     print(f"[loop] torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"card {card}", flush=True)
+    check(LOOPS[0][1] == cg._HOST_LOOP, "phase loop: the host loop's hook")
     mesh = sharding.Mesh([torch.device(DEV, 0)] * SHARDS)
     dia_sys, ell_sys = cli_run["system"], ell_run["system"]
+    jsys = jacobi_board(tmp)[0]
     specs = [sweep.SweepSpec(*x) for x in SWEEP_SPECS]
 
     def solver_path(make):
@@ -2046,17 +2108,42 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
             sol = s.solve(target_residual=1e-10)
             return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
                     s.host_reads, None)
+        solve.solver = s
         return solve, lambda: s.cg_solver.loop, lambda: s.dispatch_cap
 
-    def ell_path(cap):
+    def cg_ms(s) -> float:
+        """ms a CG iteration of solver s's CG alone at R = 1 (a ladder
+        pass's width), by CUDA events: runs to 10 and to 30 iterations
+        (tol 0), each warmed once, the difference over the 20 between
+        (init and finish cancel).  The host loop's and cap 1's include
+        their host reads and launches; the whole loop's is the card's
+        alone."""
+        b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
+            device=torch.device(DEV)).manual_seed(7))
+        ms = []
+        for k in (10, 30):
+            s.cg_solver(b1, 0.0, k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            res = s.cg_solver(b1, 0.0, k)
+            end.record()
+            torch.cuda.synchronize()
+            check(res.iterations == k, f"phase loop: the CG ran "
+                                       f"{res.iterations} of {k}")
+            ms.append(start.elapsed_time(end))
+        return (ms[1] - ms[0]) / 20
+
+    def bordered_path(system, cap, **kw):
         last = {}
 
         def solve():
             st = {}
             t0 = time.perf_counter()
-            sol = schur.solve_bordered(ell_sys, inner_dtype=torch.float32,
+            sol = schur.solve_bordered(system, inner_dtype=torch.float32,
                                        device=DEV, dispatch_cap=cap,
-                                       stats=st)
+                                       stats=st, **kw)
             last.update(st)
             # The passes, after the set-up.
             return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
@@ -2073,7 +2160,8 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
                                     mesher_config=ell_run["cfg"],
                                     dispatch_cap=cap, stats=st)
             last.update(st)
-            return (st["cg_iterations"], None,
+            # One CG call.
+            return (st["cg_iterations"], 1,
                     np.concatenate([r.v for r in res]), st["host_reads"],
                     st["cg_s"])
         return solve, lambda: last, lambda: last.get("dispatch_cap")
@@ -2081,10 +2169,11 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
     paths = {
         "dia": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
             dia_sys, device=DEV, dispatch_cap=cap)),
-        "ell": ell_path,
+        "ell": lambda cap: bordered_path(ell_sys, cap),
         "sweep": sweep_path,
         "sharded": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
             dia_sys, mesh=mesh, dispatch_cap=cap)),
+        "jacobi": lambda cap: bordered_path(jsys, cap, precond="jacobi"),
     }
     out = {"phase": "loop", "card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "launches": {}}
@@ -2113,42 +2202,54 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
             peak = torch.cuda.max_memory_allocated() / 1e9
             # Above what was in use before this path's solver existed.
             peak_above = peak - base / 1e9
-            # The caching allocator's reserve, a graph's private pool in.
+            # The caching allocator's reserve, the graphs' pools in.
             reserved_above = (torch.cuda.max_memory_reserved()
                               - base_reserved) / 1e9
             t0 = time.perf_counter()
             events, kernel_ms, (it, passes, v, reads, _) = device_events(
                 solve)
             traced = time.perf_counter() - t0
+            iteration_ms = (cg_ms(solve.solver) if hasattr(solve, "solver")
+                            else None)
             loop = loop_of()
             # The solver's own (dia, sharded) or the last call's stats.
-            capture_s = (loop.capture_s if name in ("dia", "sharded")
-                         else loop.get("capture_s", 0.0))
-            # The graphs of the first solve (a solve_bordered or sweep
-            # call captures anew in every call).
+            if isinstance(loop, dict):
+                capture_s = loop.get("capture_s", 0.0)
+                instantiate_s = loop.get("instantiate_s", 0.0)
+            else:
+                capture_s, instantiate_s = loop.capture_s, loop.instantiate_s
+            # The iterations the first solve captured (a solve_bordered
+            # or sweep call captures anew in every call).
             graphs = nodes.graphs[:len(nodes.graphs) // (1 + LOOP_WARM)
-                                  if name in ("ell", "sweep")
+                                  if name in ("ell", "sweep", "jacobi")
                                   else None]
             warm = sorted(r["s"] for r in runs[1:])
-            warm_s = warm[len(warm) // 2] if warm else None
+            warm_s = warm[len(warm) // 2]
             # The solve without its set-up (ELL) or meshing (sweep: its
             # cg_s): where the loop's time shows.
             parts = sorted(r["solve_s"] for r in runs[1:])
+            iterations = [r["iterations"] for r in runs]
             res[label] = {
                 "dispatch_cap": cap_of(), "capture_s": capture_s,
+                "instantiate_s": instantiate_s,
                 "cold_s": runs[0]["s"], "warm_median_s": warm_s,
                 "warm_s": [r["s"] for r in runs[1:]],
                 "solve_part_s": [r["solve_s"] for r in runs],
                 "warm_median_solve_part_s": parts[len(parts) // 2],
-                "iterations": [r["iterations"] for r in runs],
+                "iterations": iterations,
                 "passes": [r["passes"] for r in runs],
                 "host_reads": [r["host_reads"] for r in runs],
+                # L1's launches less its begins (one a dispatch, a host
+                # read): the iterations its cond kernel ran.
+                "iterations_run": None if cap == cg._HOST_LOOP else (
+                    launches["graph_loop"]
+                    - sum(r["host_reads"] for r in runs)),
                 "launches": launches,
                 "sha256": [r["sha256"][:16] for r in runs],
                 "graphs": graphs, "traced_s": traced,
                 "device_events_per_cg_iteration": events / max(it, 1),
                 "kernel_ms_per_cg_iteration": kernel_ms / max(it, 1),
-                "kernel_ms": kernel_ms,
+                "kernel_ms": kernel_ms, "cg_iteration_ms": iteration_ms,
                 # The profiled solve's kernel time over an untraced warm
                 # solve's wall time (the profiler's own start would
                 # count as idle).
@@ -2158,80 +2259,93 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
                 "peak_reserved_above_base_gb": reserved_above}
             r = res[label]
             print(f"[loop] {name} {label}: cap={r['dispatch_cap']} "
-                  f"capture {capture_s:.3f} s, cold {r['cold_s']:.3f} s, "
+                  f"capture {capture_s:.3f} s (instantiate "
+                  f"{instantiate_s:.3f}), cold {r['cold_s']:.3f} s, "
                   f"warm median {r['warm_median_s']:.3f} s "
                   f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}; "
                   f"without set-up or meshing: cold "
                   f"{r['solve_part_s'][0]:.3f}, warm "
                   f"{', '.join(f'{x:.3f}' for x in r['solve_part_s'][1:])})"
-                  f", "
-                  f"iterations {r['iterations']} passes {r['passes']} "
-                  f"host reads {r['host_reads']} sha256 {r['sha256']}, "
-                  f"launches {launches} in {1 + LOOP_WARM} solves, "
-                  f"graphs {graphs}, traced {traced:.3f} s: "
+                  f", iterations {r['iterations']} run "
+                  f"{r['iterations_run']} passes {r['passes']} host reads "
+                  f"{r['host_reads']} sha256 {r['sha256']}, launches "
+                  f"{launches} in {1 + LOOP_WARM} solves, iteration graphs "
+                  f"{graphs}, traced {traced:.3f} s: "
                   f"{r['device_events_per_cg_iteration']:.1f} device events "
                   f"and {r['kernel_ms_per_cg_iteration']:.3f} kernel ms a CG "
-                  f"iteration, busy share {r['busy_share']:.3f}, peak "
+                  f"iteration, busy share {r['busy_share']:.3f}, the CG "
+                  f"alone at R = 1: {iteration_ms} ms an iteration (CUDA "
+                  f"events), peak "
                   f"{peak:.3f} GB ({peak_above:.3f} GB above the memory "
                   f"in use before; reserved {reserved_above:.3f} GB above)",
                   flush=True)
             del solve, loop_of, cap_of, loop
-        host = res["none"]
-        for label, _ in LOOPS[1:]:
+        host = res["host"]
+        check(not host["graphs"] and host["launches"]["graph_loop"] == 0,
+              f"phase loop {name}: the host loop captured {host['graphs']}")
+        for label, cap in LOOPS[1:]:
             got = res[label]
             for key in ("iterations", "passes", "sha256"):
                 check(host[key] == got[key],
                       f"phase loop {name} {label}: {key} {got[key]} differ "
                       f"from the host loop's {host[key]}")
-            # One read a dispatch: below the host loop's one an iteration
-            # (and one more a pass).
-            check(all(rg < rh for rh, rg in zip(host["host_reads"],
-                                                got["host_reads"])),
-                  f"phase loop {name} {label}: {got['host_reads']} host "
-                  f"reads, the host loop {host['host_reads']}")
-            check(got["graphs"] and not host["graphs"],
-                  f"phase loop {name} {label}: the graphs "
-                  f"{got['graphs']}, the host loop's {host['graphs']}")
-            # A replay counts what it runs: at least the host loop's.
+            check(got["iterations_run"] == sum(got["iterations"]),
+                  f"phase loop {name} {label}: the card ran "
+                  f"{got['iterations_run']} iterations, k counted "
+                  f"{sum(got['iterations'])}")
+            # One read a dispatch: a CG call (a pass) is one dispatch
+            # for the whole loop, at least one and at most
+            # iterations // cap + 1 for a cap.
+            reads, passes = got["host_reads"], got["passes"]
+            check(all(q <= r for r, q in zip(reads, passes)) and (
+                reads == passes if cap is None else
+                all(r <= it // cap + q for r, it, q
+                    in zip(reads, got["iterations"], passes))),
+                  f"phase loop {name} {label}: {reads} host reads for "
+                  f"{got['iterations']} iterations in {passes} passes")
+            check(got["graphs"],
+                  f"phase loop {name} {label}: no iteration was captured")
+            # A dispatch counts what it runs: at least the host loop's.
             check(all(got["launches"][k] >= host["launches"][k]
                       for k in host["launches"]),
                   f"phase loop {name} {label}: launches {got['launches']} "
                   f"below the host loop's {host['launches']}")
-        chunks = res["chunks"]
-        passes = [x or 1 for x in host["passes"]]
-        check(all(r <= it // LOOP_CAP + q for r, it, q in zip(
-            chunks["host_reads"], host["iterations"], passes)),
-              f"phase loop {name}: chunks of {LOOP_CAP} read the host "
-              f"{chunks['host_reads']} times for {host['iterations']} "
-              "iterations")
-        # Pairs: the host loop against the default on solvers of their
-        # own (a DiaBorderedSolver warmed by one solve first), alternating
-        # which runs first; the time without set-up or meshing.
-        pair = {label: make(cap)[0] for label, cap in LOOPS[:2]}
+        # Pairs: one iteration a dispatch against the whole loop on
+        # solvers of their own (a DiaBorderedSolver warmed by one solve
+        # first), alternating which runs first; the time without set-up
+        # or meshing.
+        pair = {label: make(cap)[0] for label, cap in LOOPS
+                if label in ("cap1", "whole")}
         if name in ("dia", "sharded"):
             for solve in pair.values():
                 solve()
         times = {label: [] for label in pair}
         for i in range(LOOP_PAIRS):
-            for label in (("none", "auto") if i % 2 == 0
-                          else ("auto", "none")):
+            for label in (("cap1", "whole") if i % 2 == 0
+                          else ("whole", "cap1")):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 part = pair[label]()[4]
                 torch.cuda.synchronize()
                 times[label].append(part or time.perf_counter() - t0)
         del pair
-        res["pairs"] = pair_verdict(times["none"], times["auto"])
+        res["pairs"] = pair_verdict(times["cap1"], times["whole"])
         pv = res["pairs"]
-        print(f"[loop] {name} pairs: host loop median "
-              f"{pv['host_median_s']:.4f} s (spread "
-              f"{pv['host_spread_s']:.4f}), default median "
-              f"{pv['graph_median_s']:.4f} s, the default won "
-              f"{pv['graph_wins']} of {pv['pairs']}: {pv['verdict']}; host "
-              f"{[round(x, 4) for x in pv['host_s']]}, default "
-              f"{[round(x, 4) for x in pv['graph_s']]}", flush=True)
+        print(f"[loop] {name} pairs: one iteration a dispatch median "
+              f"{pv['base_median_s']:.4f} s (spread "
+              f"{pv['base_spread_s']:.4f}), the whole loop median "
+              f"{pv['new_median_s']:.4f} s, the whole loop won "
+              f"{pv['new_wins']} of {pv['pairs']}: {pv['verdict']}; cap 1 "
+              f"{[round(x, 4) for x in pv['base_s']]}, whole "
+              f"{[round(x, 4) for x in pv['new_s']]}", flush=True)
         out[name] = res
-        out["launches"][name] = res["auto"]["launches"]
+        out["launches"][name] = res["whole"]["launches"]
+    slower = [name for name in paths if out[name]["pairs"]["verdict"]
+              == "slower"]
+    out["whole_loop_slower_on"] = slower
+    print(f"[loop] the whole loop against one iteration a dispatch: "
+          f"slower on {slower or 'no path'}; dispatch_cap='auto' resolves "
+          f"to {cg.resolve_dispatch_cap('auto', [DEV])}", flush=True)
 
     # A host read inside the iteration: the capture fails and raises.
     a = ell_sys.ell.to_device(DEV, torch.float64)
@@ -2253,11 +2367,126 @@ def loop_phase(cli_run: dict, ell_run: dict) -> dict:
         raised = str(exc).splitlines()[0][:160]
     torch.cuda.synchronize()
     print(f"[loop] a host read in the body: {raised!r}", flush=True)
-    check(raised is not None, "a chunked solve with a host read in its "
-                              "iteration did not raise")
+    check(raised is not None, "a solve with a host read in its iteration "
+                              "did not raise")
     out["host_read_raises"] = raised
     del a, bad
     print(json.dumps(out), flush=True)
+    return out
+
+
+L1_N = 1000   # case L1: iterations of the toy loop it is timed on
+
+
+def _toy_state(kmax: int, target: float, go: bool = True):
+    """A scalar CG state and its constants on the card, for L1's case."""
+    import torch
+
+    from padne_tpu_torch.ops import cg
+
+    z = torch.zeros((), device=DEV)
+    s = cg._State(x=z.clone(), r=z, p=z, rz=z, rn=z, best=z,
+                  stall=torch.zeros((), dtype=torch.int32, device=DEV),
+                  k=torch.zeros((), dtype=torch.int64, device=DEV),
+                  go=torch.full((), go, dtype=torch.bool, device=DEV))
+    c = cg._Consts(target=torch.tensor(target, device=DEV),
+                   kmax=torch.tensor(kmax, device=DEV))
+    return s, c
+
+
+def _toy_body(s, c, periodic):
+    """x + 1 an iteration (times 10 where k is 49 mod 50); go while k <
+    kmax and x below the target."""
+    x = periodic(lambda v: v * 10, s.x + 1, s.k)
+    k = s.k + 1
+    return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
+
+
+def l1_case() -> dict:
+    """L1 (csrc/graph_loop.cu: loop_begin and loop_cond around a WHILE
+    node) against its plain version (ops.cg._dispatch_plain, the same
+    dispatch driven from the host) on the same CUDA state: a start with
+    go false, a stop where go turns false mid-dispatch, a stop at kstop
+    and at kmax, and the whole loop across a re-projection step; (go, k)
+    and x must be equal (max_abs_err: the largest difference of x and
+    k).  Timed on a loop of L1_N toy iterations (a few small kernels
+    and the state's copies): ms and plain_ms are a dispatch's time over
+    its iterations; iteration_ms is a torch replay of the same captured
+    iteration, one launch each (the host's launch in it).  bound_ms: L1's
+    bytes (the begin's 17 read and 24 written once a dispatch, the
+    cond's 17 read and 24 written an iteration) over 3.35 TB/s."""
+    import torch
+
+    from padne_tpu_torch.ops import cg
+
+    err = 0.0
+    # (kmax, target, cap, go on entry, dispatches, (go, k) after each)
+    cases = ((100, 1e9, 8, False, 1, [(False, 0)]),
+             (100, 5.0, 8, True, 1, [(False, 5)]),
+             (100, 1e9, 3, True, 2, [(True, 3), (True, 6)]),
+             (4, 1e9, 10, True, 1, [(False, 4)]),
+             (120, 1e9, cg._WHOLE, True, 1, [(False, 120)]))
+    for kmax, target, cap, go, n, want in cases:
+        s, c = _toy_state(kmax, target, go)
+        g = cg._Graph(_toy_body, s, c, cap)
+        got = [g.dispatch() for _ in range(n)]
+        ps, pc = _toy_state(kmax, target, go)
+        plain = [cg._dispatch_plain(_toy_body, ps, pc, cap)
+                 for _ in range(n)]
+        check(got == plain == want, f"L1: dispatches {got}, plain {plain}, "
+                                    f"expected {want}")
+        check(g.flag.tolist()[2] == want[-1][1],
+              f"L1: ran {g.flag.tolist()}, k {want[-1][1]}")
+        err = max(err, float((s.x - ps.x).abs()), abs(int(s.k) - int(ps.k)))
+        g.close()
+    check(err == 0.0, f"L1 differs from its plain version by {err}")
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps / L1_N
+
+    s, c = _toy_state(10**9, 1e30)
+    g = cg._Graph(_toy_body, s, c, L1_N)
+
+    def fresh():
+        # Each dispatch from k = 0 (x stays finite: ~1e20 after L1_N).
+        s.x.zero_()
+        s.k.zero_()
+        s.go.fill_(True)
+
+    ms = timed(lambda: (fresh(), g.dispatch()))
+    plain_ms = timed(lambda: (fresh(), cg._dispatch_plain(_toy_body, s, c,
+                                                           L1_N)))
+    g.graph.replay()   # instantiated by torch
+
+    def replays():
+        for _ in range(L1_N):
+            g.graph.replay()
+
+    iteration_ms = timed(replays)
+    g.close()
+    nbytes = 41 * (1 + L1_N) / L1_N
+    bound_ms = nbytes / HBM_BPS * 1e3
+    out = {"name": "L1 loop_begin + loop_cond (WHILE node)",
+           "abs_err": err, "ms": ms, "graph_ms": None, "plain_ms": plain_ms,
+           "iteration_ms": iteration_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": None,
+           "library_graph_ms": None, "csr_bound_ms": None}
+    print(f"[L1] WHILE loop against its plain version: max abs err {err}; "
+          f"one dispatch of {L1_N} toy iterations: {ms * 1e3:.2f} us an "
+          f"iteration on the card, no host between them; the same "
+          f"iteration graph replayed {L1_N} times by torch: "
+          f"{iteration_ms * 1e3:.2f} us a replay; the plain dispatch "
+          f"(driven from the host): {plain_ms * 1e3:.2f} us an iteration; "
+          f"bound {bound_ms * 1e3:.6f} us; card {smi()}", flush=True)
     return out
 
 
@@ -2314,8 +2543,7 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
     import scipy.sparse.linalg
     import torch
 
-    from padne_tpu_torch import kicad, mesh, solver
-    from padne_tpu_torch.ops import schur
+    from padne_tpu_torch.ops import cg, schur
     from padne_tpu_torch.parallel import sharding
 
     t_phase = time.perf_counter()
@@ -2325,7 +2553,7 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
     out = {"phase": "variants", "card": card, "n": system.n,
            "settings": {}}
     k1, k2 = [], []
-    launches = {"dia_sell": 0, "comp_sell": 0, "ell_spmv": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     for i, (name, kw) in enumerate(VARIANTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2361,18 +2589,18 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
         check_dia_held(f"variants {name}", shapes, got, cases, [case2])
         # Device events and kernel ms per CG iteration: the solver's CG
         # at R = 1 (the refinement passes' width) run to 10 and to 30
-        # iterations (tol 0) in the host loop or one iteration a
-        # dispatch, or, in dispatches of c > 1 gated iterations (each
-        # runs all of them), to c and to c + 1: one dispatch and two.  Each call profiled; the difference over
-        # the iterations run between leaves out the set-up and the final
-        # residual of a call.
+        # iterations (tol 0), on the host loop: torch.profiler can miss
+        # some or all of the kernels that a WHILE node's body runs.
+        # Each call profiled; the difference over the iterations run
+        # between leaves out the set-up and the final residual of a call.
         t0 = time.perf_counter()
         b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
             device=torch.device(DEV)).manual_seed(7))
-        c = s.dispatch_cap
-        ks, ran = ([10, 30], 20) if c in (None, 1) else ([c, c + 1], c)
+        ks, ran = [10, 30], 20
+        s.cg_solver.loop.cap = cg._HOST_LOOP
         runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
                 for k in ks]
+        s.cg_solver.loop.cap = s.dispatch_cap
         check([r[2].iterations for r in runs] == ks,
               f"variants {name}: the profiled CG stopped early")
         profile_s = time.perf_counter() - t0
@@ -2416,18 +2644,7 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
         torch.cuda.empty_cache()
 
     # precond="jacobi" on the ELL route above the AMG threshold.
-    gen = boardgen()
-    jtmp = tmp / "jacobi"
-    cfg = mesh.Mesher.Config(maximum_size=JACOBI_MESH,
-                             variable_size_maximum_factor=1.0)
-    small = []
-    for name in SMALL_BOARDS:
-        getattr(gen, name)(jtmp)
-        prob = kicad.load_kicad_project(jtmp / name / f"{name}.kicad_pro")
-        small.append((solver.build_system(prob, cfg)[0], name))
-    sizes = {name: sys_.n for sys_, name in small}
-    jsys, jname = min(((s_, n_) for s_, n_ in small if s_.n > 5000),
-                      key=lambda t: t[0].n)
+    jsys, jname, sizes = jacobi_board(tmp)
     reset_counts()
     stats = {}
     t0 = time.perf_counter()
@@ -2466,13 +2683,12 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
           "the Jacobi solve did not run on K3' alone")
     check(sol.residual_norm < 1e-9 and dv <= 1e-6,
           f"Jacobi solve: residual {sol.residual_norm:.3e}, |dV| {dv:.3e}")
-    # The same solve on the host loop (dispatch_cap None), after the
-    # default's (one iteration a dispatch, its capture included): the
-    # same bits, the wall beside it.
+    # The same solve on the host loop, after the default's (its
+    # capture included): the same bits, the wall beside it.
     t0 = time.perf_counter()
     hsol = schur.solve_bordered(jsys, precond="jacobi",
                                 inner_dtype=torch.float32, device=DEV,
-                                dispatch_cap=None)
+                                dispatch_cap=cg._HOST_LOOP)
     torch.cuda.synchronize()
     host_wall = time.perf_counter() - t0
     print(f"[variants] precond=jacobi on the host loop: {host_wall:.2f} s "
@@ -2670,7 +2886,7 @@ def dp_tp_solvers(system, k3_shapes, repeats: dict) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    launches = {"dia_sell": 0, "comp_sell": 0, "ell_spmv": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
 
     def counted(fn):
         reset_counts()
@@ -2901,7 +3117,7 @@ def fragmented_phase(args) -> dict:
     import torch
 
     from padne_tpu_torch import solver
-    from padne_tpu_torch.ops import schur
+    from padne_tpu_torch.ops import cg, schur
 
     t0 = time.perf_counter()
     prob, cfg = fragmented_problem(args.frag_dof)
@@ -2915,35 +3131,54 @@ def fragmented_phase(args) -> dict:
     del s
     torch.cuda.empty_cache()
     # Peak device memory of one solve at R = 146 on the host loop and on
-    # the default (a CUDA graph a dispatch), each with a solver of its
-    # own, counted from what was in use before the solver was built.
+    # the default (a WHILE graph a CG call), each with a solver of its
+    # own, counted from what was in use before the solver was built; the
+    # memory reserved after the first solve and after a second (on the
+    # cached A^+ C: the R = m + 1 graph and its pool are gone by then).
     peaks = {}
-    for label, cap in (("none", None), ("auto", "auto")):
+    for label, cap in (("host", cg._HOST_LOOP), ("auto", "auto")):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         s = schur.DiaBorderedSolver(system, device=DEV, dispatch_cap=cap)
-        fsol = s.solve(target_residual=1e-10)
-        torch.cuda.synchronize()
-        peaks[label] = {
-            "peak_above_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-            # All the caching allocator holds, a graph's pool included.
-            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-            "iterations": fsol.cg_iterations,
-            "passes": fsol.refinement_steps + 1,
-            "sha256": fingerprint("", 0, 0, 0, fsol.v)["sha256"][:16]}
+        runs = []
+        for _ in range(2):
+            fsol = s.solve(target_residual=1e-10)
+            torch.cuda.synchronize()
+            runs.append({
+                "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+                "iterations": fsol.cg_iterations,
+                "passes": fsol.refinement_steps + 1,
+                "sha256": fingerprint("", 0, 0, 0, fsol.v)["sha256"][:16]})
+            if len(runs) == 1:
+                peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
+        widths = sorted({key[0][0][0] for key in s.cg_solver.loop.graphs})
+        peaks[label] = {"peak_above_gb": peak_above,
+                        # All the caching allocator holds, pools in.
+                        "max_reserved_gb":
+                            torch.cuda.max_memory_reserved() / 1e9,
+                        "graph_widths": widths, "runs": runs}
         del s, fsol
-    print(f"[fragmented] one solve's peak allocated above the memory in "
-          f"use before the solver / peak reserved: host loop "
-          f"{peaks['none']['peak_above_gb']:.3f} / "
-          f"{peaks['none']['reserved_gb']:.3f} GB, graphs "
-          f"{peaks['auto']['peak_above_gb']:.3f} / "
-          f"{peaks['auto']['reserved_gb']:.3f} GB; {peaks}", flush=True)
-    check(all(peaks["none"][k] == peaks["auto"][k]
+    print(f"[fragmented] the first solve's peak allocated above the "
+          f"memory in use before the solver: host loop "
+          f"{peaks['host']['peak_above_gb']:.3f} GB, WHILE graphs "
+          f"{peaks['auto']['peak_above_gb']:.3f} GB; reserved after the "
+          f"first and the second solve: host loop "
+          f"{[round(r['reserved_gb'], 3) for r in peaks['host']['runs']]}"
+          f" GB, graphs "
+          f"{[round(r['reserved_gb'], 3) for r in peaks['auto']['runs']]}"
+          f" GB; the solver's graphs after them at R = "
+          f"{peaks['auto']['graph_widths']} (m + 1 = {m + 1}); {peaks}",
+          flush=True)
+    check(all(h[k] == a[k] for h, a in zip(peaks["host"]["runs"],
+                                           peaks["auto"]["runs"])
               for k in ("iterations", "passes", "sha256")),
-          f"fragmented: the graphs' solve differs from the host loop's "
+          f"fragmented: the graphs' solves differ from the host loop's "
           f"{peaks}")
+    check(peaks["auto"]["graph_widths"] == [1],
+          f"fragmented: the solver holds graphs at R = "
+          f"{peaks['auto']['graph_widths']} after A^+ C was cached")
     del system
     torch.cuda.empty_cache()
 
@@ -3259,8 +3494,15 @@ def main() -> int:
     device.resolve(None)   # TF32 off, CUDA required
     t0 = time.perf_counter()
     kernels.load()
+    runtime, driver = kernels.cuda_versions()
     print(f"[build] CUDA kernels built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; torch {torch.__version__} "
+          f"(CUDA {torch.version.cuda}), CUDA runtime {runtime}, driver "
+          f"{driver}; CUDAGraph(keep_graph=True): "
+          f"{'keep_graph' in str(inspect.signature(torch.cuda.CUDAGraph))},"
+          f" raw_cuda_graph: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'raw_cuda_graph')}", flush=True)
+    l1 = l1_case()
 
     t0 = time.perf_counter()
     from padne_tpu_torch import geom  # noqa: F401  builds the C++ core (g++)
@@ -3282,7 +3524,7 @@ def main() -> int:
         sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"],
                                 repeats)
         torch.cuda.empty_cache()
-        loop = loop_phase(cli_run, ell_run)
+        loop = loop_phase(cli_run, ell_run, pathlib.Path(tmp))
         del ell_run
         torch.cuda.empty_cache()
         variants = variants_phase(cli_run, ctx, pathlib.Path(tmp))
@@ -3333,6 +3575,9 @@ def main() -> int:
               "padne_tpu/ops/spmv_pallas.py:172",
               ell_launches["ell_spmv"],
               k3 + sharded["k3"] + dp_tp["k3"] + variants["k3"], k3[1]),
+        entry("graph_loop", "padne_tpu_torch/csrc/graph_loop.cu",
+              "padne_tpu/ops/cg.py:270 (lax.while_loop; no pallas_call)",
+              dia_launches["graph_loop"], [l1], l1),
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ as padne_tpu_torch/native does for its C++ core.  Nothing here runs at import.
 Launch accounting: each kernel wrapper (ops.dia.sell_matvec,
 ops.comp.comp_sell, ops.spmv.ell_spmv) calls `count` once per launch it
 makes: its `launches` attribute goes up by one and every hook in HOOKS
-sees the launch's operands.  Under `recording` (a CUDA-graph capture in
-ops.cg) a launch is recorded into the graph, not run: `count` keeps it on
-a tape instead, and `recount(tape)` counts the tape once per replay, so
-the counts are the launches the card ran.
+sees the launch's operands (L1, the CG loop's kernels, counts on
+ops.cg.loop_launch, without hooks).  Under
+`recording` (the capture of a CG iteration in ops.cg) a launch is
+recorded into the graph, not run: `count` keeps it on a tape instead,
+and `recount(tape, n)` counts the tape once per iteration a dispatch
+ran, so the counts are the launches the card ran.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import threading
 
 _SRC_DIR = pathlib.Path(__file__).parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-_SOURCES = ("dia_sell.cu", "ell_spmv.cu")
+_SOURCES = ("dia_sell.cu", "ell_spmv.cu", "graph_loop.cu")
 _HEADERS = ("device_info.cuh",)
 # --threads: the sources compile side by side.
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -91,7 +93,39 @@ def load() -> ctypes.CDLL:
     # f64, perm, ptr, col, val, diag, lanes, n, x, r, b, w, x0, y, stream
     lib.pg_ell_spmv.argtypes = ([i32] + [vp] * 5 + [i32, i64, vp, i32]
                                 + [vp] * 5)
+    # L1, the CG loop's WHILE graph (ops.cg): iteration graph, go, k, kmax,
+    # kstop, flag, cap, stream, out.
+    lib.pg_loop_create.restype = i32
+    lib.pg_loop_create.argtypes = [vp] * 6 + [i64, vp, ctypes.POINTER(vp)]
+    lib.pg_loop_launch.restype = i32
+    lib.pg_loop_launch.argtypes = [vp, vp]
+    lib.pg_loop_destroy.restype = None
+    lib.pg_loop_destroy.argtypes = [vp]
+    lib.pg_cuda_versions.restype = i32
+    lib.pg_cuda_versions.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.pg_loop_failed_call.restype = ctypes.c_char_p
+    lib.pg_loop_failed_call.argtypes = []
+    lib.pg_error_string.restype = ctypes.c_char_p
+    lib.pg_error_string.argtypes = [i32]
     return lib
+
+
+def check_call(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t of a graph_loop.cu entry point,
+    naming the CUDA call that failed."""
+    if rc != 0:
+        lib = load()
+        raise RuntimeError(
+            f"{name}: {lib.pg_loop_failed_call().decode()} failed "
+            f"(cudaError {rc}: {lib.pg_error_string(rc).decode()})")
+
+
+def cuda_versions() -> tuple[int, int]:
+    """(runtime, driver) versions of CUDA, e.g. (12080, 12080)."""
+    rt, drv = ctypes.c_int(), ctypes.c_int()
+    check_call(load().pg_cuda_versions(ctypes.byref(rt), ctypes.byref(drv)),
+               "cuda_versions")
+    return rt.value, drv.value
 
 
 def check_launch(rc: int, name: str) -> None:
@@ -141,7 +175,9 @@ class recording:
         _local.tape = None
 
 
-def recount(tape: list) -> None:
-    """Counts the launches of a tape again, as a graph replay runs them."""
-    for wrapper, operands in tape:
-        count(wrapper, *operands)
+def recount(tape: list, times: int = 1) -> None:
+    """Counts the launches of a tape again, `times` times: as a dispatch
+    that ran the captured iteration that many times runs them."""
+    for _ in range(times):
+        for wrapper, operands in tape:
+            count(wrapper, *operands)

@@ -233,12 +233,14 @@ class DiaBorderedSolver:
     is then that device.
 
     dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc):
-    "auto" is one iteration a dispatch on the card (one CUDA-graph
-    replay an iteration) and the host loop on the CPU; an int chunks on
-    either device; None is the host loop.  The resolved value is
-    `dispatch_cap`; the solver keeps its graphs for every later solve
-    (`cg_solver.loop`), and `host_reads` counts the continue tests the
-    last solve read on the host.
+    an int is at most that many, stopping at convergence; None is one
+    dispatch to maxiter on the card (one launch of a CUDA WHILE graph);
+    "auto" is None on one card; None and "auto" are the host loop on the
+    CPU.  The resolved value is `dispatch_cap`; the solver keeps the
+    graphs of the widths it still runs for every later solve
+    (`cg_solver.loop`: the R = m + 1 one is dropped once A^+ C is
+    cached), and `host_reads` counts the continue tests the last solve
+    read on the host.
     """
 
     def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
@@ -466,6 +468,9 @@ class DiaBorderedSolver:
         if self._Xc is None:
             X = self._run_cg(self._build_rhs(rc_pad))       # (np0, m+1)
             self._Xc = X[:, :m]
+            if m:
+                # No later pass or solve runs at R = m + 1.
+                self.cg_solver.loop.release_last()
         else:
             x_rc = self._run_cg(rc_pad[:, None], tol=tol)   # (np0, 1)
             X = torch.cat([self._Xc, x_rc], dim=1)
@@ -654,10 +659,11 @@ def solve_bordered(
     shards at (DiaBorderedSolver's shard_min).
 
     dispatch_cap: the inner CG's iterations a dispatch, as the JAX
-    package's (ops.cg's module doc): "auto" is one iteration a dispatch
-    on the card (one CUDA-graph replay an iteration) and the host loop
-    on the CPU, an int chunks on either device, None is the host loop;
-    an escalation to f64 takes max(30, cap // 8) of an int cap.
+    package's (ops.cg's module doc): an int is at most that many,
+    stopping at convergence; None is one dispatch to maxiter on the card
+    (one launch of a CUDA WHILE graph); "auto" is None on one card;
+    None and "auto" are the host loop on the CPU; an escalation to f64
+    takes max(30, cap // 8) of an int cap.
 
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
@@ -665,7 +671,8 @@ def solve_bordered(
     DIA route coarse (where the coarse inverse was built) and, on the
     ELL route, ell_k and escalated; dispatch_cap (the first inner
     solve's, resolved), host_reads (the CG's continue tests read on the
-    host) and capture_s (its CUDA graphs' capture, 0 without one)."""
+    host), capture_s (its CUDA graphs' capture, 0 without one) and
+    instantiate_s (the WHILE graphs' instantiation, part of capture_s)."""
     if precond not in ("auto", "amg", "jacobi"):
         raise ValueError(f"precond={precond!r}: 'auto', 'amg' or 'jacobi'")
     n, m = system.n, system.border.m
@@ -711,7 +718,8 @@ def solve_bordered(
             sol = solver.solve(target_residual=target_residual,
                                max_refinements=max_refinements)
             stats.update(host_reads=solver.host_reads,
-                         capture_s=solver.cg_solver.loop.capture_s)
+                         capture_s=solver.cg_solver.loop.capture_s,
+                         instantiate_s=solver.cg_solver.loop.instantiate_s)
             return sol
     return _solve_bordered_ell(
         system, dev, tol=tol, maxiter=maxiter,
@@ -880,7 +888,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         res_norm = new_norm
 
     stats.update(escalated=escalated, host_reads=host_reads,
-                 capture_s=sum(s.loop.capture_s for s in solvers))
+                 capture_s=sum(s.loop.capture_s for s in solvers),
+                 instantiate_s=sum(s.loop.instantiate_s for s in solvers))
     j = j.cpu().numpy()
     gc = float(j[system.ground_var]) if m > 0 else 0.0
     return BorderedSolution(

@@ -70,10 +70,9 @@ def solve_sweep(
 
     dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc).
     The JAX sweep runs its CG as one while_loop to maxiter in one
-    dispatch; a CUDA graph cannot hold maxiter iterations, so "auto" is
-    the solve path's: one iteration a dispatch on the card (a CUDA-graph
-    replay each, the continue test read after it), the host loop on the
-    CPU.
+    dispatch; so does "auto" on the card (one launch of a CUDA WHILE
+    graph, the continue test read once after it); on the CPU it is the
+    host loop.
 
     stats: optional dict that receives n, m, p, cg_iterations, the wall
     times mesh_assemble_s, setup_s (hierarchy and uploads), cg_s (the one
@@ -81,8 +80,9 @@ def solve_sweep(
     final true residual norm per column (cg_residual_norms), and the
     norms of the unit-scale right-hand side (rhs_core_norm,
     rhs_border_norm), dispatch_cap (resolved), host_reads (the CG's
-    continue tests read on the host) and capture_s (the CUDA graph
-    capture, 0 without one)."""
+    continue tests read on the host), capture_s (the CUDA graph
+    capture, 0 without one) and instantiate_s (the WHILE graph's
+    instantiation, part of capture_s)."""
     dev = device_mod.resolve(device)
     f64 = torch.float64
     t0 = time.perf_counter()
@@ -168,6 +168,7 @@ def solve_sweep(
             n=n, m=m, p=p, cg_iterations=res.iterations,
             dispatch_cap=cap, host_reads=res.host_reads,
             capture_s=cg_solver.loop.capture_s,
+            instantiate_s=cg_solver.loop.instantiate_s,
             cg_residual_norms=res.residual_norms.cpu().numpy().tolist(),
             rhs_core_norm=float(np.linalg.norm(system.r_core)),
             rhs_border_norm=float(np.linalg.norm(system.border.rhs)),

@@ -17,9 +17,13 @@ operator; K3' at every lanes-per-row setting, f32 and f64, R in {1, 2,
 the 16-byte grid; K1' and K2' over a window (x0 > 0, columns in the
 halos and past them), and the sharded products of ops.dia_sharded on
 four shards of the card against the one-device ones; the launch
-counters; and the CG loop as CUDA-graph chunks (ops.cg): bit-equal to
-the host loop at caps 1, 7 and 30, one host read a dispatch, and a host
-read inside an iteration raising at capture.  Tolerances: f32 sums in
+counters; and the CG loop as CUDA WHILE graphs (ops.cg, L1 in
+csrc/graph_loop.cu): bit-equal to the host loop at None (one dispatch
+to maxiter) and caps 1, 7, 10 and 30, one host read a dispatch, no
+iteration and no byte of the state changed on a start that has
+converged, k equal to the iterations L1 counted on the card, the R =
+m + 1 graph released once A^+ C is cached, and a host read inside an
+iteration raising at capture.  Tolerances: f32 sums in
 another order (1e-5 of max|y|), f64 likewise (1e-12); K2' against the
 f64 bound 2e-13 * max(|A| |x|).
 """
@@ -324,7 +328,7 @@ def test_solver_needs_no_cpu_fallback(cuda):
     assert dia.sell_matvec.launches > k1 and comp.comp_sell.launches > k2
 
 
-# -- the CG loop as CUDA-graph chunks (ops.cg) --------------------------------
+# -- the CG loop as CUDA WHILE graphs (ops.cg, csrc/graph_loop.cu) -----------
 
 
 def _islands(side=24, p=2, seed=2):
@@ -353,47 +357,144 @@ def _loop_solver(cuda, cap):
 
 
 def test_graph_chunks_are_bit_equal_to_the_host_loop(cuda):
-    """Chunks of 1, 7 and 30 iterations, each dispatch one replayed CUDA
-    graph of that many iterations gated by the device flag go: the host
-    loop's bits and iterations, one host read a dispatch; the second
-    solve replays the first's graph."""
+    """WHILE dispatches (one launch of a CUDA graph that runs the
+    captured iteration while the device flag go holds, at most cap
+    times) at None (one dispatch to maxiter) and at caps 1, 7, 10 and
+    30: the host loop's bits and iterations, one host read a dispatch;
+    the second solve launches the first's graph."""
+    from padne_tpu_torch.ops import cg
+
     b = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
-    want = _loop_solver(cuda, None)(b, 1e-10, 500)
-    assert want.iterations > 7
-    for cap in (1, 7, 30):
+    want = _loop_solver(cuda, cg._HOST_LOOP)(b, 1e-10, 500)
+    assert want.iterations > 10
+    for cap in (None, 1, 7, 10, 30):
         solve = _loop_solver(cuda, cap)
         for _ in range(2):
             got = solve(b, 1e-10, 500)
             assert got.iterations == want.iterations
             assert torch.equal(got.x, want.x)
             assert torch.equal(got.residual_norms, want.residual_norms)
-            assert got.host_reads == max(1, -(-want.iterations // cap))
+            assert got.host_reads == (1 if cap is None else max(
+                1, -(-want.iterations // cap)))
         assert len(solve.loop.graphs) == 1
 
 
 def test_graph_replays_count_their_launches(cuda):
     """K3''s count is the launches the card ran: a capture counts none,
-    each replay counts the iteration's.  At one iteration a dispatch
-    ("auto") a solve that replays a graph runs what the host loop runs,
-    launch for launch."""
+    each dispatch counts the iteration's once per iteration it ran.  A
+    solve that launches a graph ("auto": the whole loop in one
+    dispatch) runs what the host loop runs, launch for launch."""
+    from padne_tpu_torch.ops import cg
+
     b = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
-    host, auto = _loop_solver(cuda, None), _loop_solver(cuda, "auto")
+    host = _loop_solver(cuda, cg._HOST_LOOP)
+    auto = _loop_solver(cuda, "auto")
     counts = []
     for solve in (host, auto, auto):
         before = spmv.ell_spmv.launches
         res = solve(b, 1e-10, 500)
         counts.append(spmv.ell_spmv.launches - before)
-    assert res.host_reads == res.iterations
+    assert res.host_reads == 1
     # The first graph solve adds the warm-up iteration before capture.
     assert counts[2] == counts[0] < counts[1]
     assert len(auto.loop.graphs) == 1
 
 
+def _toy(cuda, kmax, target=1e9):
+    """A scalar state for a toy iteration on the card: x + 1 an
+    iteration, go while k < kmax and x below the target."""
+    from padne_tpu_torch.ops import cg
+
+    z = torch.zeros((), device=cuda)
+    s = cg._State(x=z.clone(), r=z, p=z, rz=z, rn=z, best=z,
+                  stall=torch.zeros((), dtype=torch.int32, device=cuda),
+                  k=torch.zeros((), dtype=torch.int64, device=cuda),
+                  go=torch.ones((), dtype=torch.bool, device=cuda))
+    c = cg._Consts(target=torch.tensor(target, device=cuda),
+                   kmax=torch.tensor(kmax, device=cuda))
+    return s, c
+
+
+def _toy_body(s, c, periodic):
+    x = periodic(lambda v: v * 10, s.x + 1, s.k)
+    k = s.k + 1
+    return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
+
+
+def test_a_converged_start_runs_no_iteration(cuda):
+    """A dispatch whose go is false on entry runs no iteration and
+    leaves every byte of the state as it was; a solve whose right-hand
+    side is zero (converged at init) reads once and runs none."""
+    from padne_tpu_torch.ops import cg
+
+    s, c = _toy(cuda, 100)
+    g = cg._Graph(_toy_body, s, c, 8)
+    assert g.dispatch() == (True, 8)
+    s.go.fill_(False)
+    before = [x.clone() for x in s]
+    launches = cg.loop_launch.launches
+    assert g.dispatch() == (False, 8)
+    assert all(torch.equal(a, b) for a, b in zip(s, before))
+    assert g.flag.tolist() == [0, 8, 8]
+    assert cg.loop_launch.launches == launches + 1
+    solve = _loop_solver(cuda, None)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2 * 24 * 24, 2))).to(cuda)
+    assert solve(b, 1e-10, 500).iterations > 0
+    res = solve(torch.zeros_like(b), 1e-10, 500)
+    assert (res.iterations, res.host_reads) == (0, 1)
+    assert not res.x.any()
+
+
+def test_k_equals_the_iterations_l1_counted(cuda):
+    """The iterations the card ran, counted by L1's cond kernel on the
+    device, equal k after each dispatch: at kstop, where go turns false
+    mid-dispatch and for a whole solve; L1's launch count is one begin a
+    dispatch and one cond an iteration."""
+    from padne_tpu_torch.ops import cg
+
+    s, c = _toy(cuda, 100, target=12.0)
+    g = cg._Graph(_toy_body, s, c, 5)
+    launches = cg.loop_launch.launches
+    assert g.dispatch() == (True, 5)
+    assert g.dispatch() == (True, 10)
+    assert g.dispatch() == (False, 12)
+    assert g.flag.tolist() == [0, 12, 12] and float(s.x) == 12.0
+    assert cg.loop_launch.launches == launches + 3 + 12
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2 * 24 * 24, 3))).to(cuda)
+    for cap in (None, 4):
+        solve = _loop_solver(cuda, cap)
+        before = cg.loop_launch.launches
+        res = solve(b, 1e-10, 500)
+        (graph,) = solve.loop.graphs.values()
+        assert graph.flag.tolist()[1:] == [res.iterations] * 2
+        assert (cg.loop_launch.launches - before
+                == res.iterations + res.host_reads)
+
+
+def test_the_border_columns_graph_is_released(cuda):
+    """A DiaBorderedSolver's first CG runs at R = m + 1 (A^+ C with the
+    residual column); once A^+ C is cached no pass runs that width
+    again, and the solver holds no graph of it; its R = 1 graph stays
+    for the next solve."""
+    from padne_tpu_torch.ops import schur
+
+    s = schur.DiaBorderedSolver(_grid_system(64), device=cuda,
+                                coarse_size=200, dispatch_cap=None)
+    assert s.m > 0
+    for _ in range(2):
+        sol = s.solve(target_residual=1e-10)
+        assert sol.residual_norm < 1e-10
+        widths = {key[0][0][0] for key in s.cg_solver.loop.graphs}
+        assert widths == {1}, widths
+
+
 def test_a_host_read_in_the_body_raises(cuda):
-    """A chunked CUDA solve whose iteration reads a value on the host
-    fails its capture and raises: it does not run the host loop."""
+    """A CUDA solve whose iteration reads a value on the host fails its
+    capture and raises: it does not run the host loop."""
     from padne_tpu_torch.ops import cg
 
     ell, comp_id = _islands(side=16, p=1)

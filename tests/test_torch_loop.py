@@ -1,45 +1,51 @@
 """The CG loop's dispatches (ops.cg's module doc): init, one body per
-iteration and finish, the iterations run in chunks of `dispatch_cap`
-with the continue test `go` read on the host once per dispatch.
+iteration and finish, the iterations run in dispatches of at most
+`dispatch_cap` that stop at convergence, with the continue test `go`
+read on the host once per dispatch.
 
-On the CPU the chunks run eagerly, so these tests hold the chunk logic;
-on a CUDA tensor each chunk is one CUDA graph of the same gated
-iterations.
+On the CPU a dispatch is its plain version (`while go and k < kstop`),
+so these tests hold the dispatch logic; on a CUDA tensor each dispatch
+is one launch of a CUDA WHILE graph around the same iteration.
 
 Gates:
 
-* at caps 1, 7, 30 and one above the iteration count the chunked solve
-  is bit-equal to dispatch_cap=None (torch.equal on x and the residual
-  norms, the same iterations): make_pcg in the (N, R) layout (ELL
-  operator, AMG cycle, f64) and the (R, N) layout (DIA operator and
-  cycle, f32, stall window), make_pcg_sharded on Mesh(["cpu"] * 4) in
-  both layouts, and solve_sweep (every spec's v and j);
-* maxiter not a multiple of the cap, a stall exit inside a chunk and a
-  Jacobi solve of several hundred iterations (the re-projection at
-  k % 50 == 49 inside chunks and across their boundaries): bit-equal;
+* at caps 1, 7, 30 and one above the iteration count the dispatched
+  solve is bit-equal to the host loop (dispatch_cap None on the CPU;
+  torch.equal on x and the residual norms, the same iterations):
+  make_pcg in the (N, R) layout (ELL operator, AMG cycle, f64) and the
+  (R, N) layout (DIA operator and cycle, f32, stall window),
+  make_pcg_sharded on Mesh(["cpu"] * 4) in both layouts, and
+  solve_sweep (every spec's v and j);
+* maxiter not a multiple of the cap, a stall exit inside a dispatch and
+  a Jacobi solve of several hundred iterations (the re-projection at
+  k % 50 == 49 inside dispatches and across their boundaries):
+  bit-equal;
 * one host read a dispatch: max(1, ceil(iterations / cap)); the host
   loop reads once an iteration and once more;
-* "auto" is one iteration a dispatch on one card and the host loop on
-  the CPU; the escalation's cap is max(30, cap // 8) of an int cap, and
-  the ELL route's f64 solver is built with it;
+* "auto" and None are one dispatch to maxiter on one card and the host
+  loop on the CPU; the escalation's cap is max(30, cap // 8) of an int
+  cap, and the ELL route's f64 solver is built with it;
 * DiaBorderedSolver and solve_bordered at dispatch_cap=10 against the
   JAX package's at dispatch_cap=10 (its chunked `stateful` path): the
   same CG iterations and passes, potentials within 1e-9 V (the JAX
   path counts k from 0 in each dispatch, so it re-projects at no cap
   below 50; no pass on these grids reaches 50 iterations, so the two
   runs are the same sequence);
-* a dispatch gates every carried value on go, in place: once it is
-  false, more iterations change nothing; the re-projection follows the
-  device k;
+* a dispatch stops at convergence and at its cap: no iteration when go
+  is false on entry, k equal to the host loop's when go turns false
+  mid-dispatch, a stop at kstop and at kmax; the re-projection follows
+  the device k;
 * the launch accounting a graph uses: launches counted under a
-  recording (a capture) count nothing until each recount (a replay);
+  recording (a capture) count nothing until each recount, once per
+  iteration a dispatch ran;
 * a source guard: no host read (bool, int, float, .item(), .cpu(),
   .tolist(), .numpy()) inside the body functions of ops/cg.py and the
-  gates a dispatch runs.
+  iteration a dispatch captures.
 
-The graph chunks on the card are held by tests/test_torch_cuda.py (bit-
-equal to the host loop; a host read in the body raises) and by
-chip_smoke.py's phase loop.
+The WHILE graphs on the card are held by tests/test_torch_cuda.py (bit-
+equal to the host loop; zero iterations on a converged start; L1's
+count; the R = m + 1 graph released; a host read in the body raises)
+and by chip_smoke.py's phase loop.
 """
 
 import ast
@@ -223,23 +229,31 @@ def test_sweep_chunks_are_bit_equal():
 
 
 def test_dispatch_cap_rules():
-    # "auto": one iteration a dispatch on one card (a mesh of that card
-    # included), the host loop on the CPU and on several cards.
-    assert cg.resolve_dispatch_cap("auto", ["cpu"]) is None
-    assert cg.resolve_dispatch_cap("auto", ["cuda:0"]) == 1
-    assert cg.resolve_dispatch_cap("auto", ["cuda:0"] * 4) == 1
-    assert cg.resolve_dispatch_cap("auto", ["cuda:0", "cuda:1"]) is None
+    # "auto" and None: one dispatch to maxiter on one card (a mesh of
+    # that card included), the host loop on the CPU; "auto" is the host
+    # loop on several cards too, where None and an int raise.
+    host = cg._HOST_LOOP
+    assert cg.resolve_dispatch_cap("auto", ["cpu"]) == host
+    assert cg.resolve_dispatch_cap(None, ["cpu"] * 4) == host
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0"]) is None
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0"] * 4) is None
     assert cg.resolve_dispatch_cap(None, ["cuda:0"]) is None
+    assert cg.resolve_dispatch_cap(1, ["cuda:0"]) == 1
+    assert cg.resolve_dispatch_cap("auto", ["cuda:0", "cuda:1"]) == host
+    # The private hook: the host loop on the card.
+    assert cg.resolve_dispatch_cap(host, ["cuda:0"]) == host
     assert cg.resolve_dispatch_cap(7, ["cpu"] * 4) == 7
     for bad in (0, -3, 2.5, True, "8"):
         with pytest.raises(ValueError):
             cg.resolve_dispatch_cap(bad, ["cpu"])
-    with pytest.raises(ValueError):
-        cg.resolve_dispatch_cap(7, ["cuda:0", "cuda:1"])
+    for bad in (7, None):
+        with pytest.raises(ValueError):
+            cg.resolve_dispatch_cap(bad, ["cuda:0", "cuda:1"])
     # The escalation to f64 (padne_tpu/ops/schur.py:472-475) of an int
-    # cap; "auto" stays one iteration a dispatch.
+    # cap; "auto" and None stay.
     assert cg.escalated_cap(None) is None
     assert cg.escalated_cap("auto") == "auto"
+    assert cg.escalated_cap(host) == host
     assert cg.escalated_cap(10) == 30
     assert cg.escalated_cap(400) == 50
 
@@ -339,8 +353,10 @@ def test_sweep_at_cap_matches_jax():
         assert np.abs(g.v - w.v).max() <= 1e-9
 
 
-# The functions a dispatch runs: the iterations and their gates.
-GRAPH_FUNCTIONS = ("body", "_chunk", "_where", "_periodic_gated", "_go")
+# The functions of the iteration a dispatch captures: the bodies, the
+# in-place write and the periodic step on the device k.
+GRAPH_FUNCTIONS = ("body", "_iteration", "_copy_into", "_leaves",
+                   "_periodic_gated", "_where", "_go")
 
 
 def _body_functions():
@@ -356,7 +372,7 @@ HOST_METHODS = {"item", "cpu", "tolist", "numpy"}
 
 def test_no_host_read_inside_the_body():
     bodies = _body_functions()
-    # make_pcg's and make_pcg_sharded's bodies and the gates.
+    # make_pcg's and make_pcg_sharded's bodies and the helpers.
     assert len(bodies) == len(GRAPH_FUNCTIONS) + 1
     found = []
     for fn in bodies:
@@ -371,46 +387,69 @@ def test_no_host_read_inside_the_body():
     assert not found, found
 
 
-def _toy(x0, kmax):
+def _toy(x0, kmax, target=1e9):
     """A _State of scalars for a toy body, and its constants."""
     z = torch.zeros(())
     k = torch.zeros((), dtype=torch.int64)
     return (cg._State(x=torch.tensor(x0), r=z, p=z, rz=z, rn=z, best=z,
                       stall=torch.zeros((), dtype=torch.int32), k=k,
                       go=torch.ones((), dtype=torch.bool)),
-            cg._Consts(target=z, kmax=torch.tensor(kmax)))
+            cg._Consts(target=torch.tensor(target), kmax=torch.tensor(kmax)))
 
 
 def _toy_body(s, c, periodic):
-    """x + 1 an iteration, times 10 where the re-projection would run."""
+    """x + 1 an iteration, times 10 where the re-projection would run;
+    go while k < kmax and x below the target (its "convergence")."""
     x = periodic(lambda v: v * 10, s.x + 1, s.k)
     k = s.k + 1
-    return s._replace(x=x, k=k, go=k < c.kmax)
+    return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
 
 
-def test_a_chunk_gates_every_value_on_go():
-    """A chunk writes over the state in place; iterations after go turns
-    false change nothing (x, k, go); the periodic step runs where the
-    device count is 49 mod 50; the chunk returns (go, k)."""
-    s, c = _toy(0.0, 3)
-    flag = cg._chunk(_toy_body, s, c, 5)
-    assert (float(s.x), int(s.k), bool(s.go)) == (3.0, 3, False)
-    assert flag.tolist() == [0, 3]
-    before = [t.clone() for t in s]
-    flag = cg._chunk(_toy_body, s, c, 4)
-    assert all(torch.equal(a, b) for a, b in zip(s, before))
-    assert flag.tolist() == [0, 3]
+def _toy_host_loop(s, c):
+    """The host loop's count of the toy: iterations while go."""
+    k = 0
+    while bool(s.go):
+        s = _toy_body(s, c, cg._on_host(k))
+        k += 1
+    return s, k
+
+
+def test_a_dispatch_stops_at_convergence_and_at_its_cap():
+    """The plain dispatch (L1's WHILE loop on the card) writes over the
+    state in place and returns (go, k): no iteration when go is false on
+    entry; a stop mid-dispatch where go turns false, at the host loop's
+    k; a stop at kstop = k + cap with go still true; a stop at kmax; the
+    periodic step where the device count is 49 mod 50."""
     s, c = _toy(0.0, 100)
-    flag = cg._chunk(_toy_body, s, c, 60)
+    s.go.fill_(False)
+    before = [t.clone() for t in s]
+    assert cg._dispatch_plain(_toy_body, s, c, 5) == (False, 0)
+    assert all(torch.equal(a, b) for a, b in zip(s, before))
+    # Converged mid-dispatch: x reaches the target 5 at k = 5 of 8.
+    want = _toy_host_loop(*_toy(0.0, 100, target=5.0))
+    s, c = _toy(0.0, 100, target=5.0)
+    assert cg._dispatch_plain(_toy_body, s, c, 8) == (False, 5)
+    assert want[1] == 5 and float(s.x) == float(want[0].x) == 5.0
+    # At kstop: 3 iterations, go still true; the next dispatch goes on.
+    s, c = _toy(0.0, 100)
+    assert cg._dispatch_plain(_toy_body, s, c, 3) == (True, 3)
+    assert cg._dispatch_plain(_toy_body, s, c, 3) == (True, 6)
+    assert (float(s.x), int(s.k)) == (6.0, 6)
+    # At kmax inside a dispatch: go false.
+    s, c = _toy(0.0, 4)
+    assert cg._dispatch_plain(_toy_body, s, c, 10) == (False, 4)
+    assert (float(s.x), bool(s.go)) == (4.0, False)
     # 49 steps, then (49 + 1) * 10, then 10 more.
-    assert (float(s.x), int(s.k), bool(s.go)) == (510.0, 60, True)
-    assert flag.tolist() == [1, 60]
+    s, c = _toy(0.0, 100)
+    assert cg._dispatch_plain(_toy_body, s, c, 60) == (True, 60)
+    assert float(s.x) == 510.0
 
 
 def test_a_recording_counts_at_each_recount():
     """The accounting of a CUDA graph (ops.cg._Graph): the launches a
-    capture records count nothing; every replay counts them once, with
-    their operands' shapes (as meta tensors) passed to the hooks."""
+    capture records count nothing; a dispatch counts them once per
+    iteration it ran, with their operands' shapes (as meta tensors)
+    passed to the hooks."""
     from padne_tpu_torch import kernels
 
     def wrapper():
@@ -435,10 +474,13 @@ def test_a_recording_counts_at_each_recount():
         assert wrapper.launches == 1 and len(tape) == 2
         for _ in range(3):
             kernels.recount(tape)
+        # A dispatch that ran 4 iterations, and one that ran none.
+        kernels.recount(tape, 4)
+        kernels.recount(tape, 0)
     finally:
         kernels.HOOKS.remove(hook)
-    assert wrapper.launches == 7
-    assert seen == [((2, 3), "cpu", "eager")] + 3 * [
+    assert wrapper.launches == 15
+    assert seen == [((2, 3), "cpu", "eager")] + 7 * [
         ((4, 1), "meta", "captured"), ((5, 1), "meta", "captured")]
     kernels.count(wrapper, torch.ones(1), None)
-    assert wrapper.launches == 8 and len(seen) == 7
+    assert wrapper.launches == 16 and len(seen) == 15

@@ -8,7 +8,7 @@ Run from the repository root:
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
                           [--startup] [--tp N [--dp D]]
-                          [--dispatch-cap auto|none|K] [--pairs N]
+                          [--dispatch-cap auto|none|host|K] [--pairs N]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
@@ -58,20 +58,22 @@ unpacked earlier commit) to trace instead of this repository's, so that
 two versions can be run in turns in one go on one card.
 
 --dispatch-cap passes dispatch_cap to the solve (and the sweep): "auto"
-(one iteration a dispatch, a CUDA-graph replay each), "none" (the host
-loop, one read of the continue test an iteration) or an int; without
+(the package's default), "none" (None: one dispatch to maxiter, a
+CUDA WHILE graph launch a CG call), "host" (the host loop, one read of
+the continue test an iteration: ops.cg's private hook) or an int (at
+most that many iterations a dispatch, stopping at convergence); without
 it the package's default runs, so a tree from before the option traces
 as it is.  Each solve line then also prints the CG's host reads and the
 graphs' capture seconds (a solve_bordered call builds its solver, so
 every run captures anew).
 
---pairs N runs, after one solve of each loop, N pairs of a host-loop
-(dispatch_cap None) and a default ("auto") solve_bordered call (or
-sweep, with --sweep) of the board, alternating which runs first, and
-prints for each call the time without set-up (the sweep: its CG), the
-graphs' capture seconds and the Python garbage collector's pauses
-inside the call, then each loop's least, median and largest time; no
-profiler runs.
+--pairs N runs, after one solve of each loop, N pairs of a solve at one
+iteration a dispatch (dispatch_cap 1) and one of the whole loop in one
+dispatch (None) (solve_bordered calls, or sweeps with --sweep) of the
+board, alternating which runs first, and prints for each call the time
+without set-up (the sweep: its CG), the graphs' capture seconds and the
+Python garbage collector's pauses inside the call, then each loop's
+least, median and largest time; no profiler runs.
 """
 
 from __future__ import annotations
@@ -115,6 +117,10 @@ def cap_kw(args) -> dict:
         return {}
     if cap == "none":
         return {"dispatch_cap": None}
+    if cap == "host":
+        from padne_tpu_torch.ops import cg
+
+        return {"dispatch_cap": cg._HOST_LOOP}
     return {"dispatch_cap": cap if cap == "auto" else int(cap)}
 
 
@@ -145,15 +151,15 @@ def trace_pairs(args, one) -> int:
               "in all)", flush=True)
         return part
 
-    loops = {"none": None, "auto": "auto"}
+    loops = {"cap1": 1, "whole": None}
     gc.callbacks.append(gc_pause)
     try:
         for label, cap in loops.items():
             timed(label + " (first)", cap)
         times = {label: [] for label in loops}
         for i in range(args.pairs):
-            for label in (("none", "auto") if i % 2 == 0
-                          else ("auto", "none")):
+            for label in (("cap1", "whole") if i % 2 == 0
+                          else ("whole", "cap1")):
                 times[label].append(timed(label, loops[label]))
     finally:
         gc.callbacks.remove(gc_pause)
@@ -334,7 +340,8 @@ def main() -> int:
     ap.add_argument("--dp", type=int, default=1, choices=(1, 2, 4),
                     help="dp rows of the batched solve (with --tp)")
     ap.add_argument("--dispatch-cap", default=None,
-                    help="the CG's dispatch_cap: auto, none or an int")
+                    help="the CG's dispatch_cap: auto, none, host or an "
+                    "int")
     ap.add_argument("--pairs", type=int, default=0,
                     help="alternating host-loop / default calls instead "
                          "of a trace")
