@@ -1,0 +1,7 @@
+"""device_idle.resolve: the share of the traced segment in which no operation
+ran on the device, in percent."""
+
+
+def read(run):
+    t = run.trace
+    return None if t is None else 100.0 * (1.0 - t.busy_s / t.window_s)
