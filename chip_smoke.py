@@ -2213,11 +2213,8 @@ def loop_phase(cli_run: dict, ell_run: dict, tmp: pathlib.Path) -> dict:
                             else None)
             loop = loop_of()
             # The solver's own (dia, sharded) or the last call's stats.
-            if isinstance(loop, dict):
-                capture_s = loop.get("capture_s", 0.0)
-                instantiate_s = loop.get("instantiate_s", 0.0)
-            else:
-                capture_s, instantiate_s = loop.capture_s, loop.instantiate_s
+            capture_s = (loop.get("capture_s", 0.0)
+                         if isinstance(loop, dict) else loop.capture_s)
             # The iterations the first solve captured (a solve_bordered
             # or sweep call captures anew in every call).
             graphs = nodes.graphs[:len(nodes.graphs) // (1 + LOOP_WARM)
@@ -2231,7 +2228,6 @@ def loop_phase(cli_run: dict, ell_run: dict, tmp: pathlib.Path) -> dict:
             iterations = [r["iterations"] for r in runs]
             res[label] = {
                 "dispatch_cap": cap_of(), "capture_s": capture_s,
-                "instantiate_s": instantiate_s,
                 "cold_s": runs[0]["s"], "warm_median_s": warm_s,
                 "warm_s": [r["s"] for r in runs[1:]],
                 "solve_part_s": [r["solve_s"] for r in runs],
@@ -2259,8 +2255,7 @@ def loop_phase(cli_run: dict, ell_run: dict, tmp: pathlib.Path) -> dict:
                 "peak_reserved_above_base_gb": reserved_above}
             r = res[label]
             print(f"[loop] {name} {label}: cap={r['dispatch_cap']} "
-                  f"capture {capture_s:.3f} s (instantiate "
-                  f"{instantiate_s:.3f}), cold {r['cold_s']:.3f} s, "
+                  f"capture {capture_s:.3f} s, cold {r['cold_s']:.3f} s, "
                   f"warm median {r['warm_median_s']:.3f} s "
                   f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}; "
                   f"without set-up or meshing: cold "

@@ -30,7 +30,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from . import geom, problem, sexp, units
+from . import geom, problem, sexp, spans, units
 from .utils.validation import checked
 
 log = logging.getLogger(__name__)
@@ -1396,106 +1396,115 @@ def extract_directives_from_hierarchy(root: SchemaInstance) -> list[Directive]:
 # ---------------------------------------------------------------------------
 @checked
 def load_kicad_project(pro_file_path) -> problem.Problem:
-    project = KiCadProject.from_pro_file(Path(pro_file_path))
-    log.info("Parsing PCB file")
-    pcb_tree = sexp.load_path(project.pcb_path)
+    with spans.span("kicad.load"):
+        return _load_kicad_project(pro_file_path)
 
-    copper_names = extract_copper_layer_names(pcb_tree)
 
-    log.info("Rendering copper layers")
-    prims = render_copper_primitives(pcb_tree, copper_names)
-    layer_geoms: dict[str, geom.MultiPolygon] = {}
-    for name in copper_names:
-        if prims[name]:
-            # Post-union cleanup mirrors the reference's simplify(1e-4)
-            # (kicad.py:1384): removes snap-rounding noise (nm-scale edges,
-            # near-collinear jitter) that would otherwise create degenerate
-            # sliver triangles and extreme cotan weights.
-            layer_geoms[name] = geom.simplify(geom.union_all(prims[name]), 1e-4)
-        else:
-            layer_geoms[name] = geom.MultiPolygon([])
+def _load_kicad_project(pro_file_path) -> problem.Problem:
+    with spans.span("kicad.parse"):
+        project = KiCadProject.from_pro_file(Path(pro_file_path))
+        log.info("Parsing PCB file")
+        pcb_tree = sexp.load_path(project.pcb_path)
 
-    outline = extract_board_outline(pcb_tree)
-    if outline is not None:
-        for name in list(layer_geoms):
-            if layer_geoms[name].is_empty:
-                continue
-            clipped = geom.simplify(
-                geom.intersection(layer_geoms[name], outline), 1e-4
-            )
-            if clipped.is_empty:
-                log.warning(
-                    "Clipped geometry for layer %s is empty after applying "
-                    "outline", name,
+        copper_names = extract_copper_layer_names(pcb_tree)
+
+    with spans.span("kicad.copper"):
+        log.info("Rendering copper layers")
+        prims = render_copper_primitives(pcb_tree, copper_names)
+        layer_geoms: dict[str, geom.MultiPolygon] = {}
+        for name in copper_names:
+            if prims[name]:
+                # Post-union cleanup mirrors the reference's simplify(1e-4)
+                # (kicad.py:1384): removes snap-rounding noise (nm-scale edges,
+                # near-collinear jitter) that would otherwise create degenerate
+                # sliver triangles and extreme cotan weights.
+                layer_geoms[name] = geom.simplify(geom.union_all(prims[name]), 1e-4)
+            else:
+                layer_geoms[name] = geom.MultiPolygon([])
+
+        outline = extract_board_outline(pcb_tree)
+        if outline is not None:
+            for name in list(layer_geoms):
+                if layer_geoms[name].is_empty:
+                    continue
+                clipped = geom.simplify(
+                    geom.intersection(layer_geoms[name], outline), 1e-4
                 )
-            layer_geoms[name] = clipped
+                if clipped.is_empty:
+                    log.warning(
+                        "Clipped geometry for layer %s is empty after applying "
+                        "outline", name,
+                    )
+                layer_geoms[name] = clipped
 
-    # Directives.
-    hierarchy = build_schema_hierarchy(project.sch_path)
-    directives = process_directives(extract_directives_from_hierarchy(hierarchy))
-    conductivity = COPPER_CONDUCTIVITY
-    if directives.copper_spec is not None:
-        conductivity = directives.copper_spec.conductivity
-        log.info("Using custom copper conductivity of %s S/mm", conductivity)
+    with spans.span("kicad.directives"):
+        # Directives.
+        hierarchy = build_schema_hierarchy(project.sch_path)
+        directives = process_directives(extract_directives_from_hierarchy(hierarchy))
+        conductivity = COPPER_CONDUCTIVITY
+        if directives.copper_spec is not None:
+            conductivity = directives.copper_spec.conductivity
+            log.info("Using custom copper conductivity of %s S/mm", conductivity)
 
-    stackup = extract_stackup(pcb_tree, conductivity)
-    for name, mp in layer_geoms.items():
-        if not mp.is_empty and not any(it.name == name for it in stackup.items):
-            raise ValueError("Stackup does not contain all plotted layers")
+        stackup = extract_stackup(pcb_tree, conductivity)
+        for name, mp in layer_geoms.items():
+            if not mp.is_empty and not any(it.name == name for it in stackup.items):
+                raise ValueError("Stackup does not contain all plotted layers")
 
-    log.info("Processing vias and through hole pads")
-    via_specs = extract_via_specs(pcb_tree, copper_names) + extract_tht_pad_specs(
-        pcb_tree, copper_names
-    )
-    layer_geoms = punch_via_holes(layer_geoms, via_specs)
-
-    # Drop layers with no copper (parity: empty gerbers are skipped,
-    # reference kicad.py:1354-1364, 1419-1420).
-    layer_dict: dict[str, problem.Layer] = {}
-    for name in copper_names:
-        mp = layer_geoms[name]
-        if mp.is_empty:
-            continue
-        item = next((it for it in stackup.items if it.name == name), None)
-        if item is None:
-            continue
-        layer_dict[name] = problem.Layer(
-            shape=mp, name=name, conductance=item.conductance
+    with spans.span("kicad.networks"):
+        log.info("Processing vias and through hole pads")
+        via_specs = extract_via_specs(pcb_tree, copper_names) + extract_tht_pad_specs(
+            pcb_tree, copper_names
         )
+        layer_geoms = punch_via_holes(layer_geoms, via_specs)
 
-    # Batch-classify every via boundary point per layer up front.
-    classifier = LayerPointClassifier(layer_dict)
-    points_by_layer: dict[str, list[tuple[float, float]]] = {}
-    for vs in via_specs:
-        pts = [(float(x), float(y)) for x, y in vs.shape.exterior]
-        for layer_name in vs.layer_names:
-            points_by_layer.setdefault(layer_name, []).extend(pts)
-    classifier.preload(points_by_layer)
+        # Drop layers with no copper (parity: empty gerbers are skipped,
+        # reference kicad.py:1354-1364, 1419-1420).
+        layer_dict: dict[str, problem.Layer] = {}
+        for name in copper_names:
+            mp = layer_geoms[name]
+            if mp.is_empty:
+                continue
+            item = next((it for it in stackup.items if it.name == name), None)
+            if item is None:
+                continue
+            layer_dict[name] = problem.Layer(
+                shape=mp, name=name, conductance=item.conductance
+            )
 
-    pad_index = PadIndex()
-    pad_index.load_smd_pads(pcb_tree, copper_names, layer_dict)
-    pad_index.insert_via_specs(via_specs, layer_dict, classifier)
+        # Batch-classify every via boundary point per layer up front.
+        classifier = LayerPointClassifier(layer_dict)
+        points_by_layer: dict[str, list[tuple[float, float]]] = {}
+        for vs in via_specs:
+            pts = [(float(x), float(y)) for x, y in vs.shape.exterior]
+            for layer_name in vs.layer_names:
+                points_by_layer.setdefault(layer_name, []).extend(pts)
+        classifier.preload(points_by_layer)
 
-    networks: list[problem.Network] = []
-    for vs in via_specs:
-        usable = [n for n in vs.layer_names if n in layer_dict]
-        if len(usable) < 2:
-            continue
-        vs_usable = ViaSpec(
-            point=vs.point,
-            drill_diameter=vs.drill_diameter,
-            layer_names=usable,
-            endpoint=vs.endpoint,
-        )
-        networks.extend(
-            process_via_spec(vs_usable, layer_dict, stackup, classifier)
-        )
+        pad_index = PadIndex()
+        pad_index.load_smd_pads(pcb_tree, copper_names, layer_dict)
+        pad_index.insert_via_specs(via_specs, layer_dict, classifier)
 
-    log.info("Creating networks from specifications")
-    for spec in directives.lumped_specs:
-        networks.append(spec.construct(pad_index, layer_dict))
-    for probe in directives.probe_specs:
-        networks.extend(probe.construct(pad_index, layer_dict))
+        networks: list[problem.Network] = []
+        for vs in via_specs:
+            usable = [n for n in vs.layer_names if n in layer_dict]
+            if len(usable) < 2:
+                continue
+            vs_usable = ViaSpec(
+                point=vs.point,
+                drill_diameter=vs.drill_diameter,
+                layer_names=usable,
+                endpoint=vs.endpoint,
+            )
+            networks.extend(
+                process_via_spec(vs_usable, layer_dict, stackup, classifier)
+            )
+
+        log.info("Creating networks from specifications")
+        for spec in directives.lumped_specs:
+            networks.append(spec.construct(pad_index, layer_dict))
+        for probe in directives.probe_specs:
+            networks.extend(probe.construct(pad_index, layer_dict))
 
     names_in_order = sorted(layer_dict, key=stackup.index_by_name)
     layers = [layer_dict[n] for n in names_in_order]

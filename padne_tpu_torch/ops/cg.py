@@ -68,12 +68,12 @@ that runs launches the same kernels on the same operands.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import spans
 from . import segment, spmv
 
 # 2^31 - 2 == stall exit disabled: the counter cannot reach it before
@@ -244,9 +244,13 @@ class _Graph:
     dispatch ran (kernels.recount), not at the capture."""
 
     def __init__(self, body, s: _State, c: _Consts, cap: int):
+        with spans.span("cg.capture") as sp:
+            self._build(body, s, c, cap)
+        self.capture_s = sp.seconds
+
+    def _build(self, body, s: _State, c: _Consts, cap: int) -> None:
         from .. import kernels
 
-        t0 = time.perf_counter()
         self.state, self.consts, self.loop = s, c, None
         dev = s.k.device
         body(s, c, _periodic_gated)
@@ -273,15 +277,12 @@ class _Graph:
         self.kstop = torch.zeros_like(s.k)
         self.flag = torch.zeros(3, dtype=torch.int64, device=dev)
         self.ran = 0
-        t1 = time.perf_counter()
         out = ctypes.c_void_p()
         kernels.check_call(kernels.load().pg_loop_create(
             self.graph.raw_cuda_graph(), s.go.data_ptr(), s.k.data_ptr(),
             c.kmax.data_ptr(), self.kstop.data_ptr(), self.flag.data_ptr(),
             cap, main.cuda_stream, ctypes.byref(out)), "graph_loop create")
         self.loop = out.value
-        self.capture_s = time.perf_counter() - t0
-        self.instantiate_s = time.perf_counter() - t1
 
     def dispatch(self) -> tuple:
         """One launch of the WHILE graph, one read: (go, k)."""
@@ -315,13 +316,13 @@ class _Loop:
     keeps the solver's graphs: one per (R, dtype, layout) of the state,
     captured at the first solve that needs it, launched by every later
     one.  `graphs` maps that key to the _Graph; capture_s sums their
-    capture times (the WHILE graph's instantiation in, instantiate_s
-    alone)."""
+    capture times (the `cg.capture` spans, the WHILE graph's
+    instantiation in)."""
 
     def __init__(self, body, dispatch_cap):
         self.body, self.cap = body, dispatch_cap
         self.graphs, self._last = {}, None
-        self.capture_s = self.instantiate_s = 0.0
+        self.capture_s = 0.0
 
     def __call__(self, s: _State, c: _Consts, devices) -> tuple:
         """(final state, iterations, host reads) of a solve on `devices`
@@ -338,7 +339,6 @@ class _Loop:
         if g is None:
             g = self.graphs[key] = _Graph(self.body, s, c, cap)
             self.capture_s += g.capture_s
-            self.instantiate_s += g.instantiate_s
         else:
             _copy_into(g.state, s)
             _copy_into(g.consts, c)
@@ -474,7 +474,8 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
 
     dispatch_cap: "auto", an int or None, as the module doc says.  The
     solver keeps its CUDA graphs (solve.loop.graphs) for every later
-    solve.
+    solve.  Each call of solve is one `cg.solve` span (padne_tpu_torch.
+    spans), each graph it captures one `cg.capture` span inside it.
 
     Returns solve(b, tol, maxiter) -> CGResult."""
     if operator is None and dim != 0:
@@ -557,15 +558,16 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
     loop = _Loop(body, dispatch_cap)
 
     def solve(b, tol, maxiter: int = 10000) -> CGResult:
-        bp = project(b if dim == 0 else b.T.contiguous())
-        s, k, reads = loop(*init(bp, tol, maxiter), [bp.device])
-        # The true residual: one fused launch over the ELL operator.
-        rtrue = (spmv.ell_spmv(a, s.x, b=bp) if operator is None
-                 else bp - matvec(s.x))
-        x = project(s.x)
-        return CGResult(x=x if dim == 0 else x.T, iterations=k,
-                        residual_norms=dot(rtrue, rtrue).sqrt(),
-                        host_reads=reads)
+        with spans.span("cg.solve"):
+            bp = project(b if dim == 0 else b.T.contiguous())
+            s, k, reads = loop(*init(bp, tol, maxiter), [bp.device])
+            # The true residual: one fused launch over the ELL operator.
+            rtrue = (spmv.ell_spmv(a, s.x, b=bp) if operator is None
+                     else bp - matvec(s.x))
+            x = project(s.x)
+            return CGResult(x=x if dim == 0 else x.T, iterations=k,
+                            residual_norms=dot(rtrue, rtrue).sqrt(),
+                            host_reads=reads)
 
     solve.loop = loop
     return solve
@@ -693,13 +695,14 @@ def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
     loop = _Loop(body, dispatch_cap)
 
     def solve(b, tol, maxiter: int = 10000) -> CGResult:
-        bs = project(sharding.split(mesh, b if dim == 0 else b.T, dim))
-        s, k, reads = loop(*init(bs, tol, maxiter), mesh.devices)
-        rtrue = [b_ - y for b_, y in zip(bs, a_apply(a_params, s.x))]
-        x = sharding.gather_to(project(s.x), dev0, dim)
-        return CGResult(x=x if dim == 0 else x.T, iterations=k,
-                        residual_norms=dot(rtrue, rtrue).sqrt(),
-                        host_reads=reads)
+        with spans.span("cg.solve"):
+            bs = project(sharding.split(mesh, b if dim == 0 else b.T, dim))
+            s, k, reads = loop(*init(bs, tol, maxiter), mesh.devices)
+            rtrue = [b_ - y for b_, y in zip(bs, a_apply(a_params, s.x))]
+            x = sharding.gather_to(project(s.x), dev0, dim)
+            return CGResult(x=x if dim == 0 else x.T, iterations=k,
+                            residual_norms=dot(rtrue, rtrue).sqrt(),
+                            host_reads=reads)
 
     solve.loop = loop
     return solve

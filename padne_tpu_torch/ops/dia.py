@@ -45,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 
 DEFAULT_B = 128   # row/column block size
 DEFAULT_G = 8     # row-blocks per group (the JAX grid step)
@@ -123,19 +123,19 @@ class DiaPack:
         entries (decoded from the split index, as the JAX package's
         coo_from_widx does) first, then the remainder."""
         b, d = self.b, len(self.offs)
-        hi = torch.from_numpy(self.widx_hi.astype(np.int64)).to(device)
-        lo = torch.from_numpy(self.widx_lo.astype(np.int64)).to(device)
+        with spans.span("setup.upload"):
+            hi, lo, rem_rows, rem_cols = (
+                torch.from_numpy(a.astype(np.int64)).to(device)
+                for a in (self.widx_hi, self.widx_lo, self.rem_rows,
+                          self.rem_cols))
+            vals = torch.from_numpy(np.concatenate([
+                np.asarray(self.wval, np.float64),
+                np.asarray(self.rem_vals, np.float64)])).to(device)
         blk, col_local = hi // b, hi % b
         rb = blk // d
         offs = torch.tensor(self.offs, dtype=torch.int64, device=device)
-        rows = torch.cat([rb * b + lo, torch.from_numpy(
-            self.rem_rows.astype(np.int64)).to(device)])
-        cols = torch.cat([(rb + offs[blk % d]) * b + col_local,
-                          torch.from_numpy(
-                              self.rem_cols.astype(np.int64)).to(device)])
-        vals = torch.from_numpy(np.concatenate([
-            np.asarray(self.wval, np.float64),
-            np.asarray(self.rem_vals, np.float64)])).to(device)
+        rows = torch.cat([rb * b + lo, rem_rows])
+        cols = torch.cat([(rb + offs[blk % d]) * b + col_local, rem_cols])
         return rows, cols, vals, len(self.widx_hi)
 
     def to_device(self, device, dtype=torch.float32,

@@ -47,7 +47,6 @@ device.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -55,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import spans
 from ..parallel import sharding
 from . import amg, assembly, cg, comp, dia, dia_sharded, segment, spmv
 
@@ -277,21 +277,26 @@ class DiaBorderedSolver:
         if system.coords is None:
             raise ValueError("the DIA path needs node coordinates "
                              "(CoreSystem.coords) for the Hilbert ordering")
-        self.A_host = system.ell.to_scipy()
         knobs = {k: v for k, v in (
             ("coverage", coverage), ("deep_max_offsets", deep_max_offsets),
             ("deep_coverage", deep_coverage), ("drop_tol", drop_tol),
             ("cap", cap), ("theta", theta),
             ("smooth_levels", smooth_levels)) if v is not None}
-        hierarchy = amg.build_hierarchy_dia(
-            system.ell, system.coords, coarse_size=coarse_size,
-            group=system.group if group else None, a_csr=self.A_host,
-            max_offsets=max_offsets, tp=tp, shard_min=shard_min,
-            coarse_eigh=coarse_eigh, **knobs)
-        if not hierarchy.levels:
-            raise _NoDiaHierarchy(
-                f"n={n} is too small for a DIA hierarchy at "
-                f"coarse_size={coarse_size}")
+        with spans.span("setup.hierarchy"):
+            self.A_host = system.ell.to_scipy()
+            hierarchy = amg.build_hierarchy_dia(
+                system.ell, system.coords, coarse_size=coarse_size,
+                group=system.group if group else None, a_csr=self.A_host,
+                max_offsets=max_offsets, tp=tp, shard_min=shard_min,
+                coarse_eigh=coarse_eigh, **knobs)
+            if not hierarchy.levels:
+                raise _NoDiaHierarchy(
+                    f"n={n} is too small for a DIA hierarchy at "
+                    f"coarse_size={coarse_size}")
+            if coarse == "host":
+                # The host coarse inverse, which the cycle's upload
+                # would otherwise build on first access.
+                hierarchy.coarse_inv
         self.hierarchy = hierarchy
         meta0 = hierarchy.levels[0].pack.meta
         self.sharded = tp > 1 and hierarchy.levels[0].shard and p + 1 <= 64
@@ -321,36 +326,36 @@ class DiaBorderedSolver:
         self.dispatch_cap = cg.resolve_dispatch_cap(
             dispatch_cap, mesh.devices if self.sharded else [dev])
 
-        if self.sharded:
-            lv0 = hierarchy.levels[0]
-            op_params = dia_sharded.upload_sharded(
-                lv0.pack, dia_sharded.plan_shards(lv0.pack, tp), mesh,
-                compensated=True)
-            # The sharded cycle's level 0 is the exact CG operator (the
-            # JAX rule, schur.py:748-749): it shares op_params.
-            vcycle_apply, vparams, self.n_sharded = \
-                amg.make_vcycle_dia_sharded(hierarchy, mesh,
-                                            dtype=cycle_dtype,
-                                            w_levels=w_levels, coarse=coarse,
-                                            op0=op_params)
-            self.cg_solver = cg.make_pcg_sharded(
-                mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
-                comp_pad, p + 1, (vcycle_apply, vparams), stall_window=30,
-                dim=1, dispatch_cap=self.dispatch_cap)
-        else:
-            op_params = amg.make_dia_cg_operator(hierarchy, dev)
-            vcycle_apply, vparams = amg.make_vcycle_dia_t(
-                hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels,
-                coarse=coarse, **variants)
+        with spans.span("setup.operators"):
+            if self.sharded:
+                lv0 = hierarchy.levels[0]
+                op_params = dia_sharded.upload_sharded(
+                    lv0.pack, dia_sharded.plan_shards(lv0.pack, tp), mesh,
+                    compensated=True)
+                # The sharded cycle's level 0 is the exact CG operator (the
+                # JAX rule, schur.py:748-749): it shares op_params.
+                vcycle_apply, vparams, self.n_sharded = \
+                    amg.make_vcycle_dia_sharded(
+                        hierarchy, mesh, dtype=cycle_dtype, w_levels=w_levels,
+                        coarse=coarse, op0=op_params)
+                self.cg_solver = cg.make_pcg_sharded(
+                    mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
+                    comp_pad, p + 1, (vcycle_apply, vparams),
+                    stall_window=30, dim=1, dispatch_cap=self.dispatch_cap)
+            else:
+                op_params = amg.make_dia_cg_operator(hierarchy, dev)
+                vcycle_apply, vparams = amg.make_vcycle_dia_t(
+                    hierarchy, dev, dtype=cycle_dtype, w_levels=w_levels,
+                    coarse=coarse, **variants)
 
-            def a_apply_t(prm, xt):
-                return dia.dia_matvec_t(meta0, prm, xt)
+                def a_apply_t(prm, xt):
+                    return dia.dia_matvec_t(meta0, prm, xt)
 
-            self.cg_solver = cg.make_pcg(
-                None, self.comp_pad_dev, p + 1,
-                operator=(a_apply_t, op_params),
-                precond=(vcycle_apply, vparams), stall_window=30, dim=1,
-                dispatch_cap=self.dispatch_cap)
+                self.cg_solver = cg.make_pcg(
+                    None, self.comp_pad_dev, p + 1,
+                    operator=(a_apply_t, op_params),
+                    precond=(vcycle_apply, vparams), stall_window=30, dim=1,
+                    dispatch_cap=self.dispatch_cap)
         # The device operands of K1': the CG operator (shared with K2';
         # a dia_sharded.ShardedOperator when sharded), and the cycle's
         # operators level by level.
@@ -369,31 +374,32 @@ class DiaBorderedSolver:
         self.posmap = posmap
         self.np0 = np0
         self.m, self.p = m, p
-        self.posmap_dev = _index(posmap, dev)
-        self._row_node_pos = _index(posmap[b.row_node], dev)
-        self._row_val64 = _f64(b.row_val, dev)
-        self._col_idx = _index(b.col_idx, dev)
-        self._col_val64 = _f64(b.col_val, dev)
-        # The fixed-order sums of the border products and the deflation
-        # (ops.segment): B x over the border rows, C j onto the padded
-        # nodes, Z^T r over the components and the dummy slot.
-        self._row_sum = segment.SegmentSum(b.row_idx, m, dev)
-        self._node_sum = segment.SegmentSum(posmap[b.col_node], np0, dev)
-        self._comp_sum = segment.SegmentSum(comp_pad, p + 1, dev)
-        self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
-        self._b64[self.posmap_dev] = _f64(system.r_core, dev)
+        with spans.span("setup.border"):
+            self.posmap_dev = _index(posmap, dev)
+            self._row_node_pos = _index(posmap[b.row_node], dev)
+            self._row_val64 = _f64(b.row_val, dev)
+            self._col_idx = _index(b.col_idx, dev)
+            self._col_val64 = _f64(b.col_val, dev)
+            # The fixed-order sums of the border products and the deflation
+            # (ops.segment): B x over the border rows, C j onto the padded
+            # nodes, Z^T r over the components and the dummy slot.
+            self._row_sum = segment.SegmentSum(b.row_idx, m, dev)
+            self._node_sum = segment.SegmentSum(posmap[b.col_node], np0, dev)
+            self._comp_sum = segment.SegmentSum(comp_pad, p + 1, dev)
+            self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
+            self._b64[self.posmap_dev] = _f64(system.r_core, dev)
 
-        # Host-side small dense pieces.
-        self.BZ = np.zeros((m, p))
-        np.add.at(self.BZ, (b.row_idx, system.comp_id[b.row_node]),
-                  b.row_val)
-        self.ZtC = np.zeros((p, m))
-        np.add.at(self.ZtC, (system.comp_id[b.col_node], b.col_idx),
-                  b.col_val)
-        self.C_host = scipy.sparse.coo_matrix(
-            (b.col_val, (b.col_node, b.col_idx)), shape=(n, m)).tocsr()
-        self.B_host = scipy.sparse.coo_matrix(
-            (b.row_val, (b.row_idx, b.row_node)), shape=(m, n)).tocsr()
+            # Host-side small dense pieces.
+            self.BZ = np.zeros((m, p))
+            np.add.at(self.BZ, (b.row_idx, system.comp_id[b.row_node]),
+                      b.row_val)
+            self.ZtC = np.zeros((p, m))
+            np.add.at(self.ZtC, (system.comp_id[b.col_node], b.col_idx),
+                      b.col_val)
+            self.C_host = scipy.sparse.coo_matrix(
+                (b.col_val, (b.col_node, b.col_idx)), shape=(n, m)).tocsr()
+            self.B_host = scipy.sparse.coo_matrix(
+                (b.row_val, (b.row_idx, b.row_node)), shape=(m, n)).tocsr()
         self._cg_iters = 0
         self.host_reads = 0
         self._BXc_host = None
@@ -410,10 +416,12 @@ class DiaBorderedSolver:
         device copy of r_core is rebuilt here: refreshing only the host
         arrays would leave the compensated residuals evaluated against
         the old excitation."""
-        self.system.r_core[:] = r_core
-        self.system.border.rhs[:] = rhs
-        self._b64.zero_()
-        self._b64[self.posmap_dev] = _f64(self.system.r_core, self.device)
+        with spans.span("schur.set_excitation"):
+            self.system.r_core[:] = r_core
+            self.system.border.rhs[:] = rhs
+            self._b64.zero_()
+            self._b64[self.posmap_dev] = _f64(self.system.r_core,
+                                              self.device)
 
     # -- device pieces ----------------------------------------------------
 
@@ -460,6 +468,10 @@ class DiaBorderedSolver:
     def _solve_once(self, rc, rb, tol=None):
         """One Schur pass; rc (n,) rb (m,) host f64 -> (v_pad, j): the
         padded f32 device correction and the host f64 border unknowns."""
+        with spans.span("schur.pass"):
+            return self._pass(rc, rb, tol)
+
+    def _pass(self, rc, rb, tol):
         m, p = self.m, self.p
         dev = self.device
         rc_pad = torch.zeros(self.np0, dtype=torch.float32, device=dev)
@@ -474,12 +486,14 @@ class DiaBorderedSolver:
         else:
             x_rc = self._run_cg(rc_pad[:, None], tol=tol)   # (np0, 1)
             X = torch.cat([self._Xc, x_rc], dim=1)
-        bx = self._border_apply(X.double()).cpu().numpy()
+        with spans.span("schur.download"):
+            bx = self._border_apply(X.double()).cpu().numpy()
         BXc, Bxr = bx[:, :m], bx[:, m]
         self._BXc_host = BXc
         Ztr = np.zeros(p)
         np.add.at(Ztr, self.system.comp_id, rc)
-        j, c = self._small_correction(BXc, Bxr, rb, Ztr)
+        with spans.span("schur.small"):
+            j, c = self._small_correction(BXc, Bxr, rb, Ztr)
         c_full = torch.from_numpy(
             np.concatenate([c, [0.0]]).astype(np.float32)).to(dev)
         jt = torch.from_numpy(j.astype(np.float32)).to(dev)
@@ -498,11 +512,15 @@ class DiaBorderedSolver:
         return sol[:m], sol[m:]
 
     def _full_residual(self, v, j):
-        """Exact host f64 residual (core, border) of (v, j)."""
-        b = self.system.border
-        res_core = self.system.r_core + self.A_host @ v - self.C_host @ j
-        res_border = b.rhs - self.B_host @ v
-        return res_core, res_border
+        """Exact host f64 residual (core, border) of (v, j) and its
+        norm."""
+        with spans.span("schur.residual"):
+            b = self.system.border
+            res_core = (self.system.r_core + self.A_host @ v
+                        - self.C_host @ j)
+            res_border = b.rhs - self.B_host @ v
+            return res_core, res_border, float(np.sqrt(
+                (res_core ** 2).sum() + (res_border ** 2).sum()))
 
     # -- compensated ladder -----------------------------------------------
 
@@ -534,42 +552,49 @@ class DiaBorderedSolver:
         Returns (v, j, res_core, res_border, res_norm, refinements)."""
         dev = self.device
         b = self.system.border
-        j64 = _f64(j, dev)
-        r64 = (self._b64 + self._a64(v1_pad)
-               - self._c_apply(j64))
-        rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
-        res_norm = float(((r64 * r64).sum() + (rb64 * rb64).sum()).sqrt())
-        p = self.p
-        M = np.concatenate([
-            np.concatenate([self._BXc_host, self.BZ], axis=1),
-            np.concatenate([self.ZtC, np.zeros((p, p))], axis=1),
-        ], axis=0)
-        pinv = _f64(np.linalg.pinv(M), dev)
-        BXc64, BZ64 = _f64(self._BXc_host, dev), _f64(self.BZ, dev)
-        dcorr64 = torch.zeros(self.np0, dtype=torch.float64, device=dev)
+        with spans.span("schur.residual"):
+            j64 = _f64(j, dev)
+            r64 = (self._b64 + self._a64(v1_pad)
+                   - self._c_apply(j64))
+            rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
+            res_norm = float(((r64 * r64).sum()
+                              + (rb64 * rb64).sum()).sqrt())
+        with spans.span("schur.small"):
+            p = self.p
+            M = np.concatenate([
+                np.concatenate([self._BXc_host, self.BZ], axis=1),
+                np.concatenate([self.ZtC, np.zeros((p, p))], axis=1),
+            ], axis=0)
+            pinv = _f64(np.linalg.pinv(M), dev)
+            BXc64, BZ64 = _f64(self._BXc_host, dev), _f64(self.BZ, dev)
+            dcorr64 = torch.zeros(self.np0, dtype=torch.float64, device=dev)
         refinements = 0
         while (res_norm > target_residual
                and refinements < max_refinements):
             tol_pass = min(0.05, max(self.comp_inner_tol,
                                      0.2 * target_residual / res_norm))
             xr = self._run_cg(r64.float()[:, None], tol=tol_pass)[:, 0]
-            out = self._fused_pass(xr, pinv, BXc64, BZ64, r64, rb64,
-                                   dcorr64, j64)
-            new_norm = float(out[4].sqrt())
+            with spans.span("schur.refine"):
+                out = self._fused_pass(xr, pinv, BXc64, BZ64, r64, rb64,
+                                       dcorr64, j64)
+                new_norm = float(out[4].sqrt())
             refinements += 1
             if new_norm >= res_norm:
                 break   # CG stall: keep the better iterate
             r64, rb64, dcorr64, j64 = out[:4]
             res_norm = new_norm
-        v = (v1_pad.double() + dcorr64)[self.posmap_dev].cpu().numpy()
-        j = j64.cpu().numpy()
-        res_core, res_border = self._full_residual(v, j)
-        res_norm = float(np.sqrt((res_core ** 2).sum()
-                                 + (res_border ** 2).sum()))
+        with spans.span("schur.download"):
+            v = (v1_pad.double() + dcorr64)[self.posmap_dev].cpu().numpy()
+            j = j64.cpu().numpy()
+        res_core, res_border, res_norm = self._full_residual(v, j)
         return v, j, res_core, res_border, res_norm, refinements
 
     def solve(self, target_residual: float = 1e-10,
               max_refinements: int = 8) -> BorderedSolution:
+        with spans.span("schur.solve"):
+            return self._solve(target_residual, max_refinements)
+
+    def _solve(self, target_residual, max_refinements) -> BorderedSolution:
         system, b = self.system, self.system.border
         self._cg_iters = self.host_reads = 0
         v1_pad, j = self._solve_once(system.r_core, b.rhs)
@@ -582,10 +607,10 @@ class DiaBorderedSolver:
             tol_pass = min(0.05, max(self.inner_tol,
                                      0.2 * target_residual / res_norm))
             dv_pad, dj = self._solve_once(res_core, res_border, tol=tol_pass)
-            dv = dv_pad.double()[self.posmap_dev].cpu().numpy()
+            with spans.span("schur.download"):
+                dv = dv_pad.double()[self.posmap_dev].cpu().numpy()
             v_new, j_new = v + dv, j + dj
-            rc_new, rb_new = self._full_residual(v_new, j_new)
-            new_norm = float(np.sqrt((rc_new**2).sum() + (rb_new**2).sum()))
+            rc_new, rb_new, new_norm = self._full_residual(v_new, j_new)
             refinements += 1
             if new_norm >= res_norm:
                 break
@@ -671,63 +696,66 @@ def solve_bordered(
     DIA route coarse (where the coarse inverse was built) and, on the
     ELL route, ell_k and escalated; dispatch_cap (the first inner
     solve's, resolved), host_reads (the CG's continue tests read on the
-    host), capture_s (its CUDA graphs' capture, 0 without one) and
-    instantiate_s (the WHILE graphs' instantiation, part of capture_s)."""
-    if precond not in ("auto", "amg", "jacobi"):
-        raise ValueError(f"precond={precond!r}: 'auto', 'amg' or 'jacobi'")
-    n, m = system.n, system.border.m
-    stats = {} if stats is None else stats
-    if operator == "dia" and system.coords is None:
-        raise ValueError("operator='dia' needs node coordinates "
-                         "(CoreSystem.coords) for the Hilbert ordering")
-    # Small core + WIDE MNA border: m+1 Schur columns of CG work are out
-    # of proportion to a system SuperLU factors in milliseconds.  A
-    # copper component no border row touches leaves the bordered matrix
-    # singular, so such boards keep the iterative route.
-    if (operator == "auto" and direct_small and m > 16 and n <= 50_000
-            and _border_covers_components(system)):
-        direct = _solve_bordered_direct(system)
-        if direct is not None:
-            stats.update(route="direct", levels=[], setup_s=0.0)
-            return direct
+    host) and capture_s (its CUDA graphs' capture, 0 without one).
 
-    if mesh is not None and mesh.size > 1:
-        device = mesh.devices[0]
-    else:
-        mesh = None
-    dev = device_mod.resolve(device)
-    use_dia = operator == "dia" or (
-        operator == "auto" and inner_dtype is not None
-        and system.coords is not None and n >= dia_threshold)
-    if use_dia:
-        t0 = time.perf_counter()
-        try:
-            solver = DiaBorderedSolver(system, device=dev, tol=tol,
-                                       maxiter=maxiter, mesh=mesh,
-                                       shard_min=dia_shard_min,
-                                       dispatch_cap=dispatch_cap)
-        except _NoDiaHierarchy:
-            solver = None   # fall through to the ELL route
-        if solver is not None:
-            stats.update(route="dia", setup_s=time.perf_counter() - t0,
-                         levels=[lv.pack.np_
-                                 for lv in solver.hierarchy.levels],
-                         tp=solver.tp, sharded=solver.sharded,
-                         coarse=solver.coarse,
-                         dispatch_cap=solver.dispatch_cap)
-            sol = solver.solve(target_residual=target_residual,
-                               max_refinements=max_refinements)
-            stats.update(host_reads=solver.host_reads,
-                         capture_s=solver.cg_solver.loop.capture_s,
-                         instantiate_s=solver.cg_solver.loop.instantiate_s)
-            return sol
-    return _solve_bordered_ell(
-        system, dev, tol=tol, maxiter=maxiter,
-        max_refinements=max_refinements, target_residual=target_residual,
-        inner_dtype=inner_dtype, stats=stats,
-        use_amg=precond == "amg" or (precond == "auto"
-                                     and n >= amg_threshold), mesh=mesh,
-        dispatch_cap=dispatch_cap)
+    The call is one `schur.solve_bordered` span (padne_tpu_torch.spans);
+    setup_s is its `schur.setup` span's seconds."""
+    with spans.span("schur.solve_bordered"):
+        if precond not in ("auto", "amg", "jacobi"):
+            raise ValueError(f"precond={precond!r}: 'auto', 'amg' or 'jacobi'")
+        n, m = system.n, system.border.m
+        stats = {} if stats is None else stats
+        if operator == "dia" and system.coords is None:
+            raise ValueError("operator='dia' needs node coordinates "
+                             "(CoreSystem.coords) for the Hilbert ordering")
+        # Small core + WIDE MNA border: m+1 Schur columns of CG work are out
+        # of proportion to a system SuperLU factors in milliseconds.  A
+        # copper component no border row touches leaves the bordered matrix
+        # singular, so such boards keep the iterative route.
+        if (operator == "auto" and direct_small and m > 16 and n <= 50_000
+                and _border_covers_components(system)):
+            with spans.span("schur.direct"):
+                direct = _solve_bordered_direct(system)
+            if direct is not None:
+                stats.update(route="direct", levels=[], setup_s=0.0)
+                return direct
+
+        if mesh is not None and mesh.size > 1:
+            device = mesh.devices[0]
+        else:
+            mesh = None
+        dev = device_mod.resolve(device)
+        use_dia = operator == "dia" or (
+            operator == "auto" and inner_dtype is not None
+            and system.coords is not None and n >= dia_threshold)
+        if use_dia:
+            with spans.span("schur.setup") as setup:
+                try:
+                    solver = DiaBorderedSolver(system, device=dev, tol=tol,
+                                               maxiter=maxiter, mesh=mesh,
+                                               shard_min=dia_shard_min,
+                                               dispatch_cap=dispatch_cap)
+                except _NoDiaHierarchy:
+                    solver = None   # fall through to the ELL route
+            if solver is not None:
+                stats.update(route="dia", setup_s=setup.seconds,
+                             levels=[lv.pack.np_
+                                     for lv in solver.hierarchy.levels],
+                             tp=solver.tp, sharded=solver.sharded,
+                             coarse=solver.coarse,
+                             dispatch_cap=solver.dispatch_cap)
+                sol = solver.solve(target_residual=target_residual,
+                                   max_refinements=max_refinements)
+                stats.update(host_reads=solver.host_reads,
+                             capture_s=solver.cg_solver.loop.capture_s)
+                return sol
+        return _solve_bordered_ell(
+            system, dev, tol=tol, maxiter=maxiter,
+            max_refinements=max_refinements, target_residual=target_residual,
+            inner_dtype=inner_dtype, stats=stats,
+            use_amg=precond == "amg" or (precond == "auto"
+                                         and n >= amg_threshold), mesh=mesh,
+            dispatch_cap=dispatch_cap)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
@@ -740,16 +768,9 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     (use_amg=False) Jacobi preconditioning.  With a mesh
     the PCG and the cycle row-shard over its first row of devices
     (_sharded_ell_cg); the rest stays on `dev`."""
-    t0 = time.perf_counter()
     n, m = system.n, system.border.m
     p = system.num_components
     f64 = torch.float64
-    # One upload of the operator: the f64 residual, the inner solve and
-    # the cycle's level 0 share its index arrays.
-    a64 = system.ell.to_device(dev, f64)
-    comp_id = _index(system.comp_id, dev)
-    B, C = _dense_border(system, dev)
-    zt = segment.SegmentSum(comp_id, p)   # Z^T y: (p, ...) per component
     mixed = inner_dtype is not None and inner_dtype != f64
     inner = inner_dtype if mixed else f64
     inner_tol = max(tol, 1e-5) if mixed else tol
@@ -757,23 +778,10 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         # The V-cycle's attainable f64 residual floor sits around 1e-11
         # relative; the outer refinement multiplies the gain per pass.
         inner_tol = max(inner_tol, 1e-9)
-
-    r_core = _f64(system.r_core, dev)
-    r_border = _f64(system.border.rhs, dev)
     row_mesh = None if mesh is None else sharding.Mesh(mesh.grid[0])
     tp = 1 if row_mesh is None else row_mesh.size
     n_pad = n + (-n) % tp
     devices = [dev] if row_mesh is None else row_mesh.devices
-    cap = cg.resolve_dispatch_cap(dispatch_cap, devices)
-    hierarchy = vcycle = vcycle64 = None
-    if use_amg:
-        # One layout of the cycle's operators, in f64 (what an escalation
-        # needs); the mixed inner solve casts the values and shares the
-        # index arrays.
-        hierarchy = amg.build_hierarchy(system.ell)
-        vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64, mesh=row_mesh)
-        vcycle = amg.vcycle_as(vcycle64, inner) if mixed else vcycle64
-
     solvers = []
 
     def make_solver(dtype, precond, stall_window):
@@ -786,14 +794,39 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                                            precond, stall_window, cap))
         return solvers[-1]
 
-    # Stall exit only with a mixed-precision inner solve (see make_pcg).
-    cg_solver = make_solver(inner, vcycle, 30 if mixed else None)
-    BZ = zt(B.T).T.cpu().numpy()          # (m, p)
-    ZtC = zt(C).cpu().numpy()             # (p, m)
+    with spans.span("schur.setup") as setup:
+        cap = cg.resolve_dispatch_cap(dispatch_cap, devices)
+        with spans.span("setup.border"):
+            comp_id = _index(system.comp_id, dev)
+            B, C = _dense_border(system, dev)
+            zt = segment.SegmentSum(comp_id, p)   # Z^T y: (p, ...)
+            BZ = zt(B.T).T.cpu().numpy()          # (m, p)
+            ZtC = zt(C).cpu().numpy()             # (p, m)
+            r_core = _f64(system.r_core, dev)
+            r_border = _f64(system.border.rhs, dev)
+        hierarchy = vcycle = vcycle64 = None
+        if use_amg:
+            with spans.span("setup.hierarchy"):
+                hierarchy = amg.build_hierarchy(system.ell)
+        with spans.span("setup.operators"):
+            # One upload of the operator: the f64 residual, the inner
+            # solve and the cycle's level 0 share its index arrays.
+            a64 = system.ell.to_device(dev, f64)
+            if use_amg:
+                # One layout of the cycle's operators, in f64 (what an
+                # escalation needs); the mixed inner solve casts the
+                # values and shares the index arrays.
+                vcycle64 = amg.make_vcycle(hierarchy, dev, a0=a64,
+                                           mesh=row_mesh)
+                vcycle = (amg.vcycle_as(vcycle64, inner) if mixed
+                          else vcycle64)
+            # Stall exit only with a mixed-precision inner solve (see
+            # make_pcg).
+            cg_solver = make_solver(inner, vcycle, 30 if mixed else None)
     stats.update(route="ell", ell_k=int(system.ell.cols.shape[1]),
                  levels=([len(lv.a_diag) for lv in hierarchy.levels]
                          if hierarchy is not None else []),
-                 setup_s=time.perf_counter() - t0, tp=tp, sharded=tp > 1,
+                 setup_s=setup.seconds, tp=tp, sharded=tp > 1,
                  dispatch_cap=cap)
     total_cg_iters = host_reads = 0
 
@@ -801,19 +834,28 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         """One Schur pass for core rhs rc and border rhs rb (f64 device
         tensors); tol_pass: inner CG tolerance (default inner_tol)."""
         nonlocal total_cg_iters, host_reads
-        rhs = torch.cat([C, rc[:, None]], dim=1)              # (n, m+1)
-        rhs = torch.nn.functional.pad(rhs, (0, 0, 0, n_pad - n))
-        res = cg_solver(rhs.to(inner),
-                        inner_tol if tol_pass is None else tol_pass,
-                        maxiter)
-        total_cg_iters += res.iterations
-        host_reads += res.host_reads
-        X = res.x[:n].to(f64)              # [A^+ C | A^+ rc]
-        Xc, xr = X[:, :m], X[:, m]
-        BXc = (B @ Xc).cpu().numpy()                          # (m, m)
-        Bxr = (B @ xr).cpu().numpy()                          # (m,)
-        Ztr = zt(rc).cpu().numpy()                            # (p,)
-        rb_h = rb.cpu().numpy()
+        with spans.span("schur.pass"):
+            rhs = torch.cat([C, rc[:, None]], dim=1)          # (n, m+1)
+            rhs = torch.nn.functional.pad(rhs, (0, 0, 0, n_pad - n))
+            res = cg_solver(rhs.to(inner),
+                            inner_tol if tol_pass is None else tol_pass,
+                            maxiter)
+            total_cg_iters += res.iterations
+            host_reads += res.host_reads
+            X = res.x[:n].to(f64)              # [A^+ C | A^+ rc]
+            Xc, xr = X[:, :m], X[:, m]
+            with spans.span("schur.download"):
+                BXc = (B @ Xc).cpu().numpy()                  # (m, m)
+                Bxr = (B @ xr).cpu().numpy()                  # (m,)
+                Ztr = zt(rc).cpu().numpy()                    # (p,)
+                rb_h = rb.cpu().numpy()
+            with spans.span("schur.small"):
+                j, c = small(BXc, Bxr, rb_h, Ztr)
+            jt, ct = _f64(j, dev), _f64(c, dev)
+            return Xc @ jt - xr + ct[comp_id], jt
+
+    def small(BXc, Bxr, rb_h, Ztr):
+        """The border correction (j, c) of the small dense block."""
         if p > 256:
             # Heavily fragmented copper: the block matrix is almost all
             # the (p, p) zero block — solve the thin blocks directly:
@@ -821,24 +863,24 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
             # block; the outer refinement guards rank-deficient corners.
             j, *_ = np.linalg.lstsq(ZtC, Ztr, rcond=None)
             c, *_ = np.linalg.lstsq(BZ, (rb_h + Bxr) - BXc @ j, rcond=None)
-        else:
-            M = np.concatenate([
-                np.concatenate([BXc, BZ], axis=1),
-                np.concatenate([ZtC, np.zeros((p, p))], axis=1)], axis=0)
-            sol, *_ = np.linalg.lstsq(M, np.concatenate([rb_h + Bxr, Ztr]),
-                                      rcond=None)
-            j, c = sol[:m], sol[m:]
-        jt, ct = _f64(j, dev), _f64(c, dev)
-        return Xc @ jt - xr + ct[comp_id], jt
+            return j, c
+        M = np.concatenate([
+            np.concatenate([BXc, BZ], axis=1),
+            np.concatenate([ZtC, np.zeros((p, p))], axis=1)], axis=0)
+        sol, *_ = np.linalg.lstsq(M, np.concatenate([rb_h + Bxr, Ztr]),
+                                  rcond=None)
+        return sol[:m], sol[m:]
 
     def full_residual(v, j):
-        # core: r_core - (-A v + C j);  border: r_border - B v.  One
-        # fused launch gives (C j - r_core) - A v, the core part negated.
-        neg = spmv.ell_spmv(a64, v[:, None], b=(C @ j - r_core)[:, None])
-        return -neg[:, 0], r_border - B @ v
-
-    def norm(rc, rb):
-        return float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
+        """(core, border, norm) of the full residual of (v, j)."""
+        with spans.span("schur.residual"):
+            # core: r_core - (-A v + C j);  border: r_border - B v.  One
+            # fused launch gives (C j - r_core) - A v, the core part
+            # negated.
+            neg = spmv.ell_spmv(a64, v[:, None],
+                                b=(C @ j - r_core)[:, None])
+            rc, rb = -neg[:, 0], r_border - B @ v
+            return rc, rb, float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
 
     def escalate_inner_to_f64():
         """Swap the inner solve to f64 after a mixed-precision stall: an
@@ -857,8 +899,7 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     refinements = 0
     escalated = False
     budget = max_refinements
-    res_core, res_border = full_residual(v, j)
-    res_norm = norm(res_core, res_border)
+    res_core, res_border, res_norm = full_residual(v, j)
     while res_norm > target_residual:
         if refinements >= budget:
             if mixed and not escalated:
@@ -872,8 +913,7 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         tol_pass = min(0.05, max(inner_tol, 0.2 * target_residual / res_norm))
         dv, dj = solve_once(res_core, res_border, tol_pass=tol_pass)
         v_new, j_new = v + dv, j + dj
-        rc_new, rb_new = full_residual(v_new, j_new)
-        new_norm = norm(rc_new, rb_new)
+        rc_new, rb_new, new_norm = full_residual(v_new, j_new)
         refinements += 1
         if new_norm >= res_norm:
             if mixed and not escalated:
@@ -888,12 +928,12 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         res_norm = new_norm
 
     stats.update(escalated=escalated, host_reads=host_reads,
-                 capture_s=sum(s.loop.capture_s for s in solvers),
-                 instantiate_s=sum(s.loop.instantiate_s for s in solvers))
-    j = j.cpu().numpy()
+                 capture_s=sum(s.loop.capture_s for s in solvers))
+    with spans.span("schur.download"):
+        j, v = j.cpu().numpy(), v.cpu().numpy()
     gc = float(j[system.ground_var]) if m > 0 else 0.0
     return BorderedSolution(
-        v=v.cpu().numpy(), j=j, residual_norm=res_norm, ground_current=gc,
+        v=v, j=j, residual_norm=res_norm, ground_current=gc,
         cg_iterations=total_cg_iters, refinement_steps=refinements)
 
 

@@ -43,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from . import dia
 
 SLICE = dia.SLICE        # lanes of a warp: entries per step of a slice
@@ -159,8 +159,11 @@ def build_operators(cols: np.ndarray, vals: np.ndarray, nx: int, device,
     if cols.size and (cols.min() < 0 or cols.max() >= nx):
         raise ValueError(f"ELL columns out of range for x of {nx} rows")
     dev = torch.device(device)
-    cols_d = torch.from_numpy(np.ascontiguousarray(cols, np.int32)).to(dev)
-    vals_d = torch.from_numpy(np.ascontiguousarray(vals, np.float64)).to(dev)
+    with spans.span("setup.upload"):
+        cols_d = torch.from_numpy(
+            np.ascontiguousarray(cols, np.int32)).to(dev)
+        vals_d = torch.from_numpy(
+            np.ascontiguousarray(vals, np.float64)).to(dev)
     nz = (vals_d != 0).any(0)
     lengths = nz.sum(1)
     if lanes is None:

@@ -41,9 +41,10 @@ import os
 import pathlib
 import socket
 import struct
-import time
 
 import numpy as np
+
+from . import spans
 
 log = logging.getLogger(__name__)
 
@@ -207,45 +208,54 @@ def _decline(msg: str) -> bytes:
 
 def _handle_solve(z: dict, cache: _SolverCache, device,
                   solver_kw: dict) -> bytes:
+    """One solve request: the cached solver of the system's structure
+    with the request's excitation, or a new one (`serve.setup`), then
+    the solve (`serve.solve`), inside one `serve.request` span."""
+    with spans.span("serve.request") as request:
+        reply, seconds = _solve_request(z, cache, device, solver_kw)
+    if seconds is not None:
+        log.info("serve: solved n=%d in %.2fs (setup %.2fs, total %.2fs)",
+                 int(z["n"]), *seconds, request.seconds)
+    return reply
+
+
+def _solve_request(z, cache, device, solver_kw):
+    """(reply, (solve seconds, set-up seconds) or None for a decline)."""
     from .ops import schur
 
-    t0 = time.perf_counter()
     key = _structural_key(z)
     solver = cache.get(key)
     setup_seconds = 0.0
     if solver is None:
         system = _system_from_npz(z)
         cache.make_room()
-        t1 = time.perf_counter()
-        try:
-            solver = schur.DiaBorderedSolver(system, device=device,
-                                             **solver_kw)
-        except schur._NoDiaHierarchy:
-            # Small systems (below the AMG coarse floor) take the ELL
-            # route locally; report that cleanly.
-            return _decline("system too small for the DIA server path; "
-                            "solve locally")
-        except Exception:
-            # Real server faults (device memory, set-up bugs) must be
-            # visible server-side, not masked as "too small".
-            log.exception("serve: solver setup failed (n=%d)", int(z["n"]))
-            return _decline("server solver setup failed (see server log); "
-                            "solve locally")
-        if device.type == "cuda":
-            import torch
+        with spans.span("serve.setup") as setup:
+            try:
+                solver = schur.DiaBorderedSolver(system, device=device,
+                                                 **solver_kw)
+            except schur._NoDiaHierarchy:
+                # Small systems (below the AMG coarse floor) take the ELL
+                # route locally; report that cleanly.
+                return _decline("system too small for the DIA server "
+                                "path; solve locally"), None
+            except Exception:
+                # Real server faults (device memory, set-up bugs) must be
+                # visible server-side, not masked as "too small".
+                log.exception("serve: solver setup failed (n=%d)",
+                              int(z["n"]))
+                return _decline("server solver setup failed (see server "
+                                "log); solve locally"), None
+            if device.type == "cuda":
+                import torch
 
-            torch.cuda.synchronize(device)
-        setup_seconds = time.perf_counter() - t1
+                torch.cuda.synchronize(device)
+        setup_seconds = setup.seconds
         cache.put(key, solver)
     else:
         solver.set_excitation(z["r_core"], z["rhs"])
-    t1 = time.perf_counter()
-    result = solver.solve(target_residual=float(z["target_residual"]),
-                          max_refinements=int(z["max_refinements"]))
-    solve_seconds = time.perf_counter() - t1
-    log.info("serve: solved n=%d in %.2fs (setup %.2fs, total %.2fs)",
-             int(z["n"]), solve_seconds, setup_seconds,
-             time.perf_counter() - t0)
+    with spans.span("serve.solve") as solve:
+        result = solver.solve(target_residual=float(z["target_residual"]),
+                              max_refinements=int(z["max_refinements"]))
     return _pack(
         ok=np.int8(1), v=np.asarray(result.v), j=np.asarray(result.j),
         residual_norm=np.float64(result.residual_norm),
@@ -253,8 +263,8 @@ def _handle_solve(z: dict, cache: _SolverCache, device,
         cg_iterations=np.int64(result.cg_iterations),
         refinement_steps=np.int64(result.refinement_steps),
         setup_seconds=np.float64(setup_seconds),
-        solve_seconds=np.float64(solve_seconds),
-    )
+        solve_seconds=np.float64(solve.seconds),
+    ), (solve.seconds, setup_seconds)
 
 
 def _ping_reply(device) -> bytes:

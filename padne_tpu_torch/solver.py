@@ -17,7 +17,6 @@ Variable layout matches the reference system ordering:
 from __future__ import annotations
 
 import logging
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Optional
@@ -26,7 +25,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from . import geom, mesh, problem
+from . import geom, mesh, problem, spans
 from .ops import assembly, postproc, schur
 from .utils.validation import checked
 
@@ -617,18 +616,21 @@ def build_system(prob: problem.Problem,
 
     Returns (system, meshes, mesh_to_layer, vindex, disconnected)."""
     mesher = mesh.Mesher(mesher_config)
-    indices, _, connected_pairs = compute_connectivity(prob)
-    meshes, mesh_to_layer = generate_meshes_for_problem(
-        prob, mesher, connected_pairs, indices
-    )
-    disconnected = generate_disconnected_meshes(prob, connected_pairs)
-    vindex = VertexIndexer.create(meshes)
-    filtered = filter_dead_networks(prob, indices, connected_pairs)
-    node_indexer = NodeIndexer.create(prob, meshes, mesh_to_layer, vindex,
-                                      filtered)
-    system, _ = assemble_core_system(
-        prob, meshes, mesh_to_layer, vindex, filtered, node_indexer
-    )
+    with spans.span("pipeline.connectivity"):
+        indices, _, connected_pairs = compute_connectivity(prob)
+    with spans.span("pipeline.mesh"):
+        meshes, mesh_to_layer = generate_meshes_for_problem(
+            prob, mesher, connected_pairs, indices
+        )
+    with spans.span("pipeline.assemble"):
+        disconnected = generate_disconnected_meshes(prob, connected_pairs)
+        vindex = VertexIndexer.create(meshes)
+        filtered = filter_dead_networks(prob, indices, connected_pairs)
+        node_indexer = NodeIndexer.create(prob, meshes, mesh_to_layer,
+                                          vindex, filtered)
+        system, _ = assemble_core_system(
+            prob, meshes, mesh_to_layer, vindex, filtered, node_indexer
+        )
     log.info("System: %d core + %d border variables, %d components",
              system.n, system.border.m, system.num_components)
     return system, meshes, mesh_to_layer, vindex, disconnected
@@ -692,64 +694,70 @@ def solve(
     server's pid, or None when solved in this process) and, with
     check_against_scipy, scipy_max_dv.  For a served solve, setup_s is
     the server's set-up (0 on a cached operator), server_solve_s its
-    solve and solve_s the rest of the round trip."""
-    if device_mesh is not None and device_mesh.size > 1:
-        device = device_mesh.devices[0]
-    else:
-        device_mesh = None
-    dev = device_mod.resolve(device)
-    stats = {} if stats is None else stats
-    t0 = time.perf_counter()
-    system, meshes, mesh_to_layer, vindex, disconnected = build_system(
-        prob, mesher_config
-    )
-    t1 = time.perf_counter()
-    result = None if device_mesh is not None else _served(system, dev, stats)
-    if result is None:
-        stats["served_by"] = None
-        inner_dtype = torch.float32 if dev.type == "cuda" else None
-        result = schur.solve_bordered(system, inner_dtype=inner_dtype,
-                                      device=dev, stats=stats,
-                                      mesh=device_mesh)
-    t3 = time.perf_counter()
-    stats.update(n=system.n, m=system.border.m, mesh_assemble_s=t1 - t0,
-                 solve_s=t3 - t1 - stats["setup_s"])
-    log.info("Solved on the %s route%s in %.2f s: residual %.3e, %d CG "
-             "iterations", stats["route"],
-             "" if stats["served_by"] is None
-             else f" by the server (pid {stats['served_by']})",
-             t3 - t1, result.residual_norm, result.cg_iterations)
+    solve and solve_s the rest of the round trip.  The times are the
+    seconds of the call's spans (padne_tpu_torch.spans): `pipeline`,
+    `solver.bordered` (less its set-up) and `solver.postproc`, inside
+    the call's `solver.solve`."""
+    with spans.span("solver.solve"):
+        if device_mesh is not None and device_mesh.size > 1:
+            device = device_mesh.devices[0]
+        else:
+            device_mesh = None
+        dev = device_mod.resolve(device)
+        stats = {} if stats is None else stats
+        with spans.span("pipeline") as pipeline:
+            system, meshes, mesh_to_layer, vindex, disconnected = build_system(
+                prob, mesher_config
+            )
+        with spans.span("solver.bordered") as bordered:
+            result = (None if device_mesh is not None
+                      else _served(system, dev, stats))
+            if result is None:
+                stats["served_by"] = None
+                inner_dtype = torch.float32 if dev.type == "cuda" else None
+                result = schur.solve_bordered(system, inner_dtype=inner_dtype,
+                                              device=dev, stats=stats,
+                                              mesh=device_mesh)
+        stats.update(n=system.n, m=system.border.m,
+                     mesh_assemble_s=pipeline.seconds,
+                     solve_s=bordered.seconds - stats["setup_s"])
+        log.info("Solved on the %s route%s in %.2f s: residual %.3e, %d CG "
+                 "iterations", stats["route"],
+                 "" if stats["served_by"] is None
+                 else f" by the server (pid {stats['served_by']})",
+                 bordered.seconds, result.residual_norm, result.cg_iterations)
 
-    if check_against_scipy:
-        import scipy.sparse.linalg
+        if check_against_scipy:
+            import scipy.sparse.linalg
 
-        L, r = system_to_scipy(system)
-        z_ref = scipy.sparse.linalg.spsolve(L, r)
-        dv = float(np.abs(z_ref[: system.n] - result.v).max())
-        stats["scipy_max_dv"] = dv
-        log.info("Max |dV| vs scipy direct solve: %.3e", dv)
+            L, r = system_to_scipy(system)
+            z_ref = scipy.sparse.linalg.spsolve(L, r)
+            dv = float(np.abs(z_ref[: system.n] - result.v).max())
+            stats["scipy_max_dv"] = dv
+            log.info("Max |dV| vs scipy direct solve: %.3e", dv)
 
-    info = SolverInfo(
-        ground_node_current=result.ground_current,
-        residual_norm=result.residual_norm,
-        cg_iterations=result.cg_iterations,
-        system_size=system.n + system.border.m,
-        refinement_steps=result.refinement_steps,
-    )
-    if not np.isclose(info.ground_node_current, 0):
-        warnings.warn(
-            f"Ground node current is not zero ({info.ground_node_current} "
-            "A), this may indicate an issue with the problem being solved. "
-            "Check for unterminated current loops or floating connected "
-            "components.",
-            SolverWarning,
+        info = SolverInfo(
+            ground_node_current=result.ground_current,
+            residual_norm=result.residual_norm,
+            cg_iterations=result.cg_iterations,
+            system_size=system.n + system.border.m,
+            refinement_steps=result.refinement_steps,
         )
+        if not np.isclose(info.ground_node_current, 0):
+            warnings.warn(
+                "Ground node current is not zero "
+                f"({info.ground_node_current} A), this may indicate an "
+                "issue with the problem being solved. Check for "
+                "unterminated current loops or floating connected "
+                "components.",
+                SolverWarning,
+            )
 
-    t4 = time.perf_counter()
-    layer_solutions = produce_layer_solutions(
-        prob.layers, vindex, meshes, mesh_to_layer, result.v, disconnected,
-        dev)
-    stats["postproc_s"] = time.perf_counter() - t4
-    return Solution(
-        problem=prob, layer_solutions=layer_solutions, solver_info=info
-    )
+        with spans.span("solver.postproc") as postproc:
+            layer_solutions = produce_layer_solutions(
+                prob.layers, vindex, meshes, mesh_to_layer, result.v,
+                disconnected, dev)
+        stats["postproc_s"] = postproc.seconds
+        return Solution(
+            problem=prob, layer_solutions=layer_solutions, solver_info=info
+        )

@@ -17,7 +17,6 @@ Supported sweep axes:
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from . import mesh, problem, solver
+from . import mesh, problem, solver, spans
 from .ops import amg, cg, schur, segment, spmv
 
 # From this many core unknowns the CG is preconditioned with the ELL AMG
@@ -80,98 +79,100 @@ def solve_sweep(
     final true residual norm per column (cg_residual_norms), and the
     norms of the unit-scale right-hand side (rhs_core_norm,
     rhs_border_norm), dispatch_cap (resolved), host_reads (the CG's
-    continue tests read on the host), capture_s (the CUDA graph
-    capture, 0 without one) and instantiate_s (the WHILE graph's
-    instantiation, part of capture_s)."""
+    continue tests read on the host) and capture_s (the CUDA graph
+    capture, 0 without one).  The wall times are the seconds of the
+    call's spans (padne_tpu_torch.spans) `sweep.mesh_assemble`,
+    `sweep.setup`, `sweep.cg` and `sweep.recover`."""
     dev = device_mod.resolve(device)
     f64 = torch.float64
-    t0 = time.perf_counter()
-    system = solver.build_system(prob, mesher_config)[0]
-    t1 = time.perf_counter()
+    with spans.span("sweep.mesh_assemble") as mesh_assemble:
+        system = solver.build_system(prob, mesher_config)[0]
 
     n, m = system.n, system.border.m
     p = system.num_components
-    a = system.ell.to_device(dev, f64)
-    comp_id = torch.from_numpy(
-        np.asarray(system.comp_id, np.int64)).to(dev)
-    B, C = schur._dense_border(system, dev)
-    r_core = torch.from_numpy(np.asarray(system.r_core, np.float64)).to(dev)
-    r_border = torch.from_numpy(
-        np.asarray(system.border.rhs, np.float64)).to(dev)
+    with spans.span("sweep.setup") as setup:
+        a = system.ell.to_device(dev, f64)
+        comp_id = torch.from_numpy(
+            np.asarray(system.comp_id, np.int64)).to(dev)
+        B, C = schur._dense_border(system, dev)
+        r_core = torch.from_numpy(
+            np.asarray(system.r_core, np.float64)).to(dev)
+        r_border = torch.from_numpy(
+            np.asarray(system.border.rhs, np.float64)).to(dev)
 
-    precond = None
-    if n >= _AMG_THRESHOLD:
-        precond = amg.make_vcycle(amg.build_hierarchy(system.ell), dev, a0=a)
-    cap = cg.resolve_dispatch_cap(dispatch_cap, [dev])
-    cg_solver = cg.make_pcg(a, comp_id, p, precond=precond,
-                            dispatch_cap=cap)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
+        precond = None
+        if n >= _AMG_THRESHOLD:
+            with spans.span("setup.hierarchy"):
+                hierarchy = amg.build_hierarchy(system.ell)
+            precond = amg.make_vcycle(hierarchy, dev, a0=a)
+        cap = cg.resolve_dispatch_cap(dispatch_cap, [dev])
+        cg_solver = cg.make_pcg(a, comp_id, p, precond=precond,
+                                dispatch_cap=cap)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     # One multi-RHS solve of the UNIT-conductance system.
-    rhs = torch.cat([C, r_core[:, None]], dim=1)
-    res = cg_solver(rhs, tol, maxiter)
-    Xc, xr = res.x[:, :m].contiguous(), res.x[:, m].contiguous()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t3 = time.perf_counter()
+    with spans.span("sweep.cg") as cg_span:
+        rhs = torch.cat([C, r_core[:, None]], dim=1)
+        res = cg_solver(rhs, tol, maxiter)
+        Xc, xr = res.x[:, :m].contiguous(), res.x[:, m].contiguous()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
-    zt = segment.SegmentSum(comp_id, p)   # Z^T y, a fixed-order sum
+    with spans.span("sweep.recover") as recover:
+        zt = segment.SegmentSum(comp_id, p)   # Z^T y, a fixed-order sum
 
-    # The spec-independent pieces of the small block, on the host (m + p
-    # is small, and the block is rank deficient by construction when a
-    # component floats: numpy's SVD-based lstsq gives the minimum norm).
-    BXc = (B @ Xc).cpu().numpy()
-    Bxr = (B @ xr).cpu().numpy()
-    BZ = zt(B.T).T.cpu().numpy()
-    ZtC = zt(C).cpu().numpy()
-    Ztr = zt(r_core).cpu().numpy()
-    rb_host = r_border.cpu().numpy()
-    bot = np.concatenate([ZtC, np.zeros((p, p))], axis=1)
+        # The spec-independent pieces of the small block, on the host (m + p
+        # is small, and the block is rank deficient by construction when a
+        # component floats: numpy's SVD-based lstsq gives the minimum norm).
+        BXc = (B @ Xc).cpu().numpy()
+        Bxr = (B @ xr).cpu().numpy()
+        BZ = zt(B.T).T.cpu().numpy()
+        ZtC = zt(C).cpu().numpy()
+        Ztr = zt(r_core).cpu().numpy()
+        rb_host = r_border.cpu().numpy()
+        bot = np.concatenate([ZtC, np.zeros((p, p))], axis=1)
 
-    results = []
-    for spec in specs:
-        s = spec.conductance_scale
-        src = spec.source_scale
-        # A -> s A; r_core scales with source_scale; border voltage rhs
-        # scales with source_scale.
-        # v = (sA)^+ (C j - src*r_core) + Z c = (1/s)(Xc j - src*xr) + Z c
-        M = np.concatenate(
-            [np.concatenate([BXc / s, BZ], axis=1), bot], axis=0)
-        rhs_small = np.concatenate(
-            [src * rb_host + Bxr * (src / s), src * Ztr])
-        sol, *_ = np.linalg.lstsq(M, rhs_small, rcond=None)
-        jj = torch.from_numpy(sol[:m]).to(dev)
-        c = torch.from_numpy(sol[m:]).to(dev)
-        v = (Xc @ jj - src * xr) / s + c[comp_id]
+        results = []
+        for spec in specs:
+            s = spec.conductance_scale
+            src = spec.source_scale
+            # A -> s A; r_core scales with source_scale; border voltage rhs
+            # scales with source_scale.
+            # v = (sA)^+ (C j - src*r_core) + Z c = (1/s)(Xc j - src*xr) + Z c
+            M = np.concatenate(
+                [np.concatenate([BXc / s, BZ], axis=1), bot], axis=0)
+            rhs_small = np.concatenate(
+                [src * rb_host + Bxr * (src / s), src * Ztr])
+            sol, *_ = np.linalg.lstsq(M, rhs_small, rcond=None)
+            jj = torch.from_numpy(sol[:m]).to(dev)
+            c = torch.from_numpy(sol[m:]).to(dev)
+            v = (Xc @ jj - src * xr) / s + c[comp_id]
 
-        # Full residual of this spec: the core part of the scaled system
-        # is src*r_core + s*A v - C j = -s * ((C j - src*r_core)/s - A v),
-        # one fused launch over the unit-conductance operator.
-        fused = spmv.ell_spmv(
-            a, v[:, None], b=((C @ jj - src * r_core) / s)[:, None])
-        rc = -s * fused[:, 0]
-        rb = src * r_border - B @ v
-        res_norm = float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
-        results.append(
-            SweepResult(
-                spec=spec,
-                v=v.cpu().numpy(),
-                j=jj.cpu().numpy(),
-                residual_norm=res_norm,
+            # Full residual of this spec: the core part of the scaled system
+            # is src*r_core + s*A v - C j = -s * ((C j - src*r_core)/s - A v),
+            # one fused launch over the unit-conductance operator.
+            fused = spmv.ell_spmv(
+                a, v[:, None], b=((C @ jj - src * r_core) / s)[:, None])
+            rc = -s * fused[:, 0]
+            rb = src * r_border - B @ v
+            res_norm = float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
+            results.append(
+                SweepResult(
+                    spec=spec,
+                    v=v.cpu().numpy(),
+                    j=jj.cpu().numpy(),
+                    residual_norm=res_norm,
+                )
             )
-        )
-    t4 = time.perf_counter()
     if stats is not None:
         stats.update(
             n=n, m=m, p=p, cg_iterations=res.iterations,
             dispatch_cap=cap, host_reads=res.host_reads,
             capture_s=cg_solver.loop.capture_s,
-            instantiate_s=cg_solver.loop.instantiate_s,
             cg_residual_norms=res.residual_norms.cpu().numpy().tolist(),
             rhs_core_norm=float(np.linalg.norm(system.r_core)),
             rhs_border_norm=float(np.linalg.norm(system.border.rhs)),
-            mesh_assemble_s=t1 - t0, setup_s=t2 - t1, cg_s=t3 - t2,
-            recover_s=t4 - t3)
+            mesh_assemble_s=mesh_assemble.seconds, setup_s=setup.seconds,
+            cg_s=cg_span.seconds, recover_s=recover.seconds)
     return results
