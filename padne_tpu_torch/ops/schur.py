@@ -215,10 +215,16 @@ class DiaBorderedSolver:
     check).  The cycle variants other than coarse are single-device,
     as in the JAX package: a solve that shards raises on them.
 
-    Data flow: the inner CG, the V-cycle, the border products and the
-    compensated refinement residuals all stay on the device; the host
-    solves the small (m+p) Schur block, and verifies the final residual
-    in f64 on its CSR copy of the operator.
+    Data flow: the inner CG, the V-cycle, the border products, the
+    compensated refinement residuals and the exact f64 residual all stay
+    on the device; the host solves the small (m+p) Schur block and reads
+    one norm a residual.  The exact residual of (v, j), which steers the
+    mop-up passes after the ladder and is the reported `residual_norm`,
+    is one launch of K3' over the f64 operator of the unpermuted system
+    (`a64`, built at set-up) with C j and B v summed in a fixed order;
+    v and j come down once, at the end of a solve.  `ladder_exit` says
+    why the last solve's compensated ladder stopped ("target", "stall"
+    or "cap") and `mopup_passes` how many passes followed it.
 
     mesh: a parallel.sharding.Mesh; with more than one device its
     devices become one row-sharding axis (tp) and the hierarchy pads for
@@ -259,8 +265,6 @@ class DiaBorderedSolver:
                  lump_smoothing: bool = True, smooth_steps: int = 1,
                  cheb: int = 0, cheb_deep: int = 0, coarse: str = "host",
                  dispatch_cap="auto"):
-        import scipy.sparse
-
         tp = mesh.size if mesh is not None else 1
         dev = device_mod.resolve(mesh.devices[0] if tp > 1 else device)
         self.device = dev
@@ -283,10 +287,10 @@ class DiaBorderedSolver:
             ("cap", cap), ("theta", theta),
             ("smooth_levels", smooth_levels)) if v is not None}
         with spans.span("setup.hierarchy"):
-            self.A_host = system.ell.to_scipy()
             hierarchy = amg.build_hierarchy_dia(
                 system.ell, system.coords, coarse_size=coarse_size,
-                group=system.group if group else None, a_csr=self.A_host,
+                group=system.group if group else None,
+                a_csr=system.ell.to_scipy(),
                 max_offsets=max_offsets, tp=tp, shard_min=shard_min,
                 coarse_eigh=coarse_eigh, **knobs)
             if not hierarchy.levels:
@@ -327,6 +331,9 @@ class DiaBorderedSolver:
             dispatch_cap, mesh.devices if self.sharded else [dev])
 
         with spans.span("setup.operators"):
+            # The exact f64 residual's operator (K3'), on the device where
+            # the ladder's vectors are gathered.
+            self.a64 = system.ell.to_device(dev, torch.float64)
             if self.sharded:
                 lv0 = hierarchy.levels[0]
                 op_params = dia_sharded.upload_sharded(
@@ -376,6 +383,7 @@ class DiaBorderedSolver:
         self.m, self.p = m, p
         with spans.span("setup.border"):
             self.posmap_dev = _index(posmap, dev)
+            self._row_node = _index(b.row_node, dev)
             self._row_node_pos = _index(posmap[b.row_node], dev)
             self._row_val64 = _f64(b.row_val, dev)
             self._col_idx = _index(b.col_idx, dev)
@@ -388,6 +396,7 @@ class DiaBorderedSolver:
             self._comp_sum = segment.SegmentSum(comp_pad, p + 1, dev)
             self._b64 = torch.zeros(np0, dtype=torch.float64, device=dev)
             self._b64[self.posmap_dev] = _f64(system.r_core, dev)
+            self._rhs64 = _f64(b.rhs, dev)
 
             # Host-side small dense pieces.
             self.BZ = np.zeros((m, p))
@@ -396,12 +405,10 @@ class DiaBorderedSolver:
             self.ZtC = np.zeros((p, m))
             np.add.at(self.ZtC, (system.comp_id[b.col_node], b.col_idx),
                       b.col_val)
-            self.C_host = scipy.sparse.coo_matrix(
-                (b.col_val, (b.col_node, b.col_idx)), shape=(n, m)).tocsr()
-            self.B_host = scipy.sparse.coo_matrix(
-                (b.row_val, (b.row_idx, b.row_node)), shape=(m, n)).tocsr()
         self._cg_iters = 0
         self.host_reads = 0
+        self.ladder_exit = None
+        self.mopup_passes = 0
         self._BXc_host = None
         # A^+ C: the m border columns never change across passes or
         # solves (only the residual column does), so they solve once.
@@ -412,16 +419,17 @@ class DiaBorderedSolver:
         border right-hand side rhs (m,)) of a set-up solver in place.
 
         The operator, the hierarchy and A^+ C do not depend on it, so a
-        solve after this one runs its first CG at R = 1.  The ladder's
-        device copy of r_core is rebuilt here: refreshing only the host
-        arrays would leave the compensated residuals evaluated against
-        the old excitation."""
+        solve after this one runs its first CG at R = 1.  The device
+        copies of r_core and rhs are rebuilt here: refreshing only the
+        host arrays would leave the residuals evaluated against the old
+        excitation."""
         with spans.span("schur.set_excitation"):
             self.system.r_core[:] = r_core
             self.system.border.rhs[:] = rhs
             self._b64.zero_()
             self._b64[self.posmap_dev] = _f64(self.system.r_core,
                                               self.device)
+            self._rhs64 = _f64(self.system.border.rhs, self.device)
 
     # -- device pieces ----------------------------------------------------
 
@@ -466,17 +474,17 @@ class DiaBorderedSolver:
         return res.x
 
     def _solve_once(self, rc, rb, tol=None):
-        """One Schur pass; rc (n,) rb (m,) host f64 -> (v_pad, j): the
-        padded f32 device correction and the host f64 border unknowns."""
+        """One Schur pass; rc (np0,) padded and rb (m,), f64 device
+        tensors -> (v_pad, j): the padded f32 device correction and the
+        host f64 border unknowns.  Only the small block's operands come
+        to the host."""
         with spans.span("schur.pass"):
             return self._pass(rc, rb, tol)
 
     def _pass(self, rc, rb, tol):
-        m, p = self.m, self.p
+        m = self.m
         dev = self.device
-        rc_pad = torch.zeros(self.np0, dtype=torch.float32, device=dev)
-        rc_pad[self.posmap_dev] = torch.from_numpy(
-            rc.astype(np.float32)).to(dev)
+        rc_pad = rc.float()
         if self._Xc is None:
             X = self._run_cg(self._build_rhs(rc_pad))       # (np0, m+1)
             self._Xc = X[:, :m]
@@ -488,10 +496,10 @@ class DiaBorderedSolver:
             X = torch.cat([self._Xc, x_rc], dim=1)
         with spans.span("schur.download"):
             bx = self._border_apply(X.double()).cpu().numpy()
+            Ztr = self._ztr(rc).cpu().numpy()
+            rb = rb.cpu().numpy()
         BXc, Bxr = bx[:, :m], bx[:, m]
         self._BXc_host = BXc
-        Ztr = np.zeros(p)
-        np.add.at(Ztr, self.system.comp_id, rc)
         with spans.span("schur.small"):
             j, c = self._small_correction(BXc, Bxr, rb, Ztr)
         c_full = torch.from_numpy(
@@ -512,15 +520,19 @@ class DiaBorderedSolver:
         return sol[:m], sol[m:]
 
     def _full_residual(self, v, j):
-        """Exact host f64 residual (core, border) of (v, j) and its
-        norm."""
+        """Exact f64 residual (core, border) of (v, j), f64 device
+        tensors with v in the original node order, and its norm, the one
+        number the host reads.  core: r_core - (-A v + C j), from one K3'
+        launch that gives (C j - r_core) - A v; border: rhs - B v."""
         with spans.span("schur.residual"):
-            b = self.system.border
-            res_core = (self.system.r_core + self.A_host @ v
-                        - self.C_host @ j)
-            res_border = b.rhs - self.B_host @ v
-            return res_core, res_border, float(np.sqrt(
-                (res_core ** 2).sum() + (res_border ** 2).sum()))
+            cj = self._c_apply(j)[self.posmap_dev]
+            neg = spmv.ell_spmv(
+                self.a64, v[:, None],
+                b=(cj - self._b64[self.posmap_dev])[:, None])
+            rc = -neg[:, 0]
+            rb = self._rhs64 - self._row_sum(v[self._row_node]
+                                             * self._row_val64)
+            return rc, rb, float(((rc * rc).sum() + (rb * rb).sum()).sqrt())
 
     # -- compensated ladder -----------------------------------------------
 
@@ -545,18 +557,17 @@ class DiaBorderedSolver:
 
     def _comp_refine(self, v1_pad, j, target_residual, max_refinements):
         """Device-resident refinement ladder on the compensated operator:
-        nothing n-sized crosses to the host until the final v; one scalar
-        per pass steers the loop.  The returned residual is the exact
-        host f64 one of the returned (v, j).
+        one scalar per pass steers the loop, and `ladder_exit` records
+        why it stopped.
 
-        Returns (v, j, res_core, res_border, res_norm, refinements)."""
+        Returns (v, j, refinements): v (n,) in the original node order
+        and j (m,), f64 device tensors."""
         dev = self.device
-        b = self.system.border
         with spans.span("schur.residual"):
             j64 = _f64(j, dev)
             r64 = (self._b64 + self._a64(v1_pad)
                    - self._c_apply(j64))
-            rb64 = _f64(b.rhs, dev) - self._border_apply(v1_pad.double())
+            rb64 = self._rhs64 - self._border_apply(v1_pad.double())
             res_norm = float(((r64 * r64).sum()
                               + (rb64 * rb64).sum()).sqrt())
         with spans.span("schur.small"):
@@ -569,8 +580,11 @@ class DiaBorderedSolver:
             BXc64, BZ64 = _f64(self._BXc_host, dev), _f64(self.BZ, dev)
             dcorr64 = torch.zeros(self.np0, dtype=torch.float64, device=dev)
         refinements = 0
-        while (res_norm > target_residual
-               and refinements < max_refinements):
+        self.ladder_exit = "target"
+        while res_norm > target_residual:
+            if refinements >= max_refinements:
+                self.ladder_exit = "cap"
+                break
             tol_pass = min(0.05, max(self.comp_inner_tol,
                                      0.2 * target_residual / res_norm))
             xr = self._run_cg(r64.float()[:, None], tol=tol_pass)[:, 0]
@@ -580,14 +594,12 @@ class DiaBorderedSolver:
                 new_norm = float(out[4].sqrt())
             refinements += 1
             if new_norm >= res_norm:
+                self.ladder_exit = "stall"
                 break   # CG stall: keep the better iterate
             r64, rb64, dcorr64, j64 = out[:4]
             res_norm = new_norm
-        with spans.span("schur.download"):
-            v = (v1_pad.double() + dcorr64)[self.posmap_dev].cpu().numpy()
-            j = j64.cpu().numpy()
-        res_core, res_border, res_norm = self._full_residual(v, j)
-        return v, j, res_core, res_border, res_norm, refinements
+        v = (v1_pad.double() + dcorr64)[self.posmap_dev]
+        return v, j64, refinements
 
     def solve(self, target_residual: float = 1e-10,
               max_refinements: int = 8) -> BorderedSolution:
@@ -595,21 +607,24 @@ class DiaBorderedSolver:
             return self._solve(target_residual, max_refinements)
 
     def _solve(self, target_residual, max_refinements) -> BorderedSolution:
-        system, b = self.system, self.system.border
+        system, dev = self.system, self.device
         self._cg_iters = self.host_reads = 0
-        v1_pad, j = self._solve_once(system.r_core, b.rhs)
-        (v, j, res_core, res_border, res_norm,
-         refinements) = self._comp_refine(v1_pad, j, target_residual,
-                                          max_refinements)
-        # Host-anchored mop-up passes, only if the ladder stopped above
-        # the target (e.g. a CG stall).
+        v1_pad, j = self._solve_once(self._b64, self._rhs64)
+        v, j, refinements = self._comp_refine(v1_pad, j, target_residual,
+                                              max_refinements)
+        ladder = refinements
+        res_core, res_border, res_norm = self._full_residual(v, j)
+        # Mop-up passes on the exact residual, only if the ladder stopped
+        # above the target (a CG stall, or the compensated operator's
+        # floor): Schur passes on the device, one norm read each.
         while res_norm > target_residual and refinements < max_refinements:
             tol_pass = min(0.05, max(self.inner_tol,
                                      0.2 * target_residual / res_norm))
-            dv_pad, dj = self._solve_once(res_core, res_border, tol=tol_pass)
-            with spans.span("schur.download"):
-                dv = dv_pad.double()[self.posmap_dev].cpu().numpy()
-            v_new, j_new = v + dv, j + dj
+            rc_pad = torch.zeros(self.np0, dtype=torch.float64, device=dev)
+            rc_pad[self.posmap_dev] = res_core
+            dv_pad, dj = self._solve_once(rc_pad, res_border, tol=tol_pass)
+            v_new = v + dv_pad.double()[self.posmap_dev]
+            j_new = j + _f64(dj, dev)
             rc_new, rb_new, new_norm = self._full_residual(v_new, j_new)
             refinements += 1
             if new_norm >= res_norm:
@@ -617,6 +632,9 @@ class DiaBorderedSolver:
             v, j = v_new, j_new
             res_core, res_border = rc_new, rb_new
             res_norm = new_norm
+        self.mopup_passes = refinements - ladder
+        with spans.span("schur.download"):
+            v, j = v.cpu().numpy(), j.cpu().numpy()
 
         gc = float(j[system.ground_var]) if self.m > 0 else 0.0
         return BorderedSolution(
@@ -696,7 +714,10 @@ def solve_bordered(
     DIA route coarse (where the coarse inverse was built) and, on the
     ELL route, ell_k and escalated; dispatch_cap (the first inner
     solve's, resolved), host_reads (the CG's continue tests read on the
-    host) and capture_s (its CUDA graphs' capture, 0 without one).
+    host) and capture_s (its CUDA graphs' capture, 0 without one); on
+    the DIA route also ladder_exit and mopup_passes (DiaBorderedSolver's:
+    why the compensated ladder stopped, and the passes on the exact
+    residual after it).
 
     The call is one `schur.solve_bordered` span (padne_tpu_torch.spans);
     setup_s is its `schur.setup` span's seconds."""
@@ -747,6 +768,8 @@ def solve_bordered(
                 sol = solver.solve(target_residual=target_residual,
                                    max_refinements=max_refinements)
                 stats.update(host_reads=solver.host_reads,
+                             mopup_passes=solver.mopup_passes,
+                             ladder_exit=solver.ladder_exit,
                              capture_s=solver.cg_solver.loop.capture_s)
                 return sol
         return _solve_bordered_ell(

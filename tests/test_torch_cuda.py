@@ -17,13 +17,14 @@ operator; K3' at every lanes-per-row setting, f32 and f64, R in {1, 2,
 the 16-byte grid; K1' and K2' over a window (x0 > 0, columns in the
 halos and past them), and the sharded products of ops.dia_sharded on
 four shards of the card against the one-device ones; the launch
-counters; and the CG loop as CUDA WHILE graphs (ops.cg, L1 in
-csrc/graph_loop.cu): bit-equal to the host loop at None (one dispatch
-to maxiter) and caps 1, 7, 10 and 30, one host read a dispatch, no
-iteration and no byte of the state changed on a start that has
-converged, k equal to the iterations L1 counted on the card, the R =
-m + 1 graph released once A^+ C is cached, and a host read inside an
-iteration raising at capture.  Tolerances: f32 sums in
+counters; the DIA solve's exact f64 residual through K3' (against
+SciPy's at the rounding of its terms); and the CG loop as CUDA WHILE
+graphs (ops.cg, L1 in csrc/graph_loop.cu): bit-equal to the host loop
+at None (one dispatch to maxiter) and caps 1, 7, 10 and 30, one host
+read a dispatch, no iteration and no byte of the state changed on a
+start that has converged, k equal to the iterations L1 counted on the
+card, the R = m + 1 graph released once A^+ C is cached, and a host
+read inside an iteration raising at capture.  Tolerances: f32 sums in
 another order (1e-5 of max|y|), f64 likewise (1e-12); K2' against the
 f64 bound 2e-13 * max(|A| |x|).
 """
@@ -326,6 +327,44 @@ def test_solver_needs_no_cpu_fallback(cuda):
                                    coarse_size=200)
     assert sol.residual_norm < 1e-10
     assert dia.sell_matvec.launches > k1 and comp.comp_sell.launches > k2
+
+
+def test_dia_residual_runs_through_k3_in_f64(cuda):
+    """The DIA solve's exact residual on the card, at 360,000 DoF: one
+    K3' launch (square, f64, R 1, the b epilogue) after the ladder and
+    one after each mop-up pass, and no other; the host SciPy residual of
+    the returned (v, j) meets the target, and the reported norm is its
+    to 1e-14 of the size of the residual's terms: the rounding of f64
+    sums in another order, well under the gap (about 3e-10 here) between
+    the compensated operator's residual and the exact one."""
+    from padne_tpu_torch import kernels
+    from padne_tpu_torch.ops import schur
+
+    system = _grid_system(600)
+    s = schur.DiaBorderedSolver(system, device=cuda)
+    launched = []
+
+    def hook(wrapper, *operands):
+        if wrapper is spmv.ell_spmv:
+            op, x, b, w, x0 = operands
+            launched.append((op.n, op.nx, x.shape[1], x.dtype,
+                             b is not None, w is None and x0 is None))
+
+    kernels.HOOKS.append(hook)
+    try:
+        sol = s.solve(target_residual=1e-10)
+    finally:
+        kernels.HOOKS.remove(hook)
+    n = system.n
+    assert launched == [(n, n, 1, torch.float64, True, True)] * (
+        1 + s.mopup_passes)
+    assert sol.residual_norm < 1e-10
+    L, r, *_ = schur.bordered_scipy_system(system)
+    z = np.concatenate([sol.v, sol.j])
+    host = float(np.linalg.norm(r - L @ z))
+    terms = np.linalg.norm(np.abs(r) + abs(L) @ np.abs(z))
+    assert host < 1e-10
+    assert abs(sol.residual_norm - host) <= 1e-14 * terms
 
 
 # -- the CG loop as CUDA WHILE graphs (ops.cg, csrc/graph_loop.cu) -----------

@@ -7,12 +7,15 @@ Gates: both reach the 1e-10 residual target; max |dV| <= 1e-6 of the
 potential scale; border currents agree likewise; total CG iterations
 within 3 (f32 reduction order differs)."""
 
+import collections
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from padne_tpu.ops import schur as jschur
-from padne_tpu_torch import convert
+from padne_tpu_torch import convert, spans
 from padne_tpu_torch.ops import schur
 
 from tests.test_schur_dia import make_system
@@ -45,10 +48,32 @@ def test_matches_jax_solver(with_regulator, w_levels, monkeypatch):
     assert np.isclose(got.ground_current, ref.ground_current, atol=1e-8)
 
 
-def test_reported_residual_is_exact():
-    """The reported norm is the host f64 residual of the returned (v, j),
-    and a second solve of the same instance (cached A^+ C) agrees."""
-    system = convert.core_system_from_numpy(make_system(g=64, seed=7))
+def _stall_ladder_at(s, k):
+    """Make the compensated ladder of solver `s` stall at its k-th pass
+    (its norm read as 1), so that the mop-up passes take over."""
+    fused, calls = s._fused_pass, []
+
+    def stalled(*args):
+        out = fused(*args)
+        calls.append(1)
+        return out if len(calls) != k else (*out[:4],
+                                            torch.ones_like(out[4]))
+
+    s._fused_pass = stalled
+
+
+def test_reported_residual_is_exact(monkeypatch):
+    """The reported norm is the exact f64 residual of the returned
+    (v, j), and a second solve of the same instance (cached A^+ C)
+    agrees.  With the ladder stalled at its first pass the mop-up passes
+    run on the exact residual: the norm is still exact, v agrees with
+    the JAX solve, no sparse product runs on the host, and nothing
+    n-sized crosses between host and device after the first Schur pass
+    but v in the one download at the end."""
+    import scipy.sparse
+
+    jsystem = make_system(g=64, seed=7)
+    system = convert.core_system_from_numpy(jsystem)
     s = schur.DiaBorderedSolver(system, device="cpu",
                                 cycle_dtype=torch.float32, w_levels=0)
     sol = s.solve(target_residual=1e-10)
@@ -60,6 +85,91 @@ def test_reported_residual_is_exact():
     again = s.solve(target_residual=1e-10)
     assert again.residual_norm < 1e-10
     assert np.abs(again.v - sol.v).max() < 1e-9
+
+    s = schur.DiaBorderedSolver(system, device="cpu",
+                                cycle_dtype=torch.float32, w_levels=0)
+    _stall_ladder_at(s, 1)
+    log = collections.deque(maxlen=spans.LOG.maxlen)
+    crossings = []   # (elements, perf_counter, the open spans' names)
+
+    def crossing(real, host_array):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            crossings.append((host_array(args, out).size,
+                              time.perf_counter(),
+                              [sp.name for sp in spans._stack()]))
+            return out
+        return call
+
+    def host_product(*args, **kw):
+        raise AssertionError("a sparse product on the host")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(spans, "LOG", log)
+        mp.setattr(torch.Tensor, "numpy",
+                   crossing(torch.Tensor.numpy, lambda args, out: out))
+        mp.setattr(torch, "from_numpy",
+                   crossing(torch.from_numpy, lambda args, out: args[0]))
+        for cls in (scipy.sparse.csr_matrix, scipy.sparse.csc_matrix,
+                    scipy.sparse.coo_matrix):
+            mp.setattr(cls, "__matmul__", host_product)
+            mp.setattr(cls, "dot", host_product)
+        mop = s.solve(target_residual=1e-10)
+    assert s.ladder_exit == "stall" and s.mopup_passes >= 1
+    assert mop.residual_norm < 1e-10
+    z = np.concatenate([mop.v, mop.j])
+    true_norm = float(np.linalg.norm(r - L @ z))
+    assert np.isclose(true_norm, mop.residual_norm, rtol=1e-6, atol=1e-13)
+    ref = jschur.DiaBorderedSolver(jsystem).solve(target_residual=1e-10)
+    assert np.abs(mop.v - ref.v).max() <= 1e-9
+
+    # One download after the ladder: at the end, beside the small
+    # block's own in each pass.
+    passes = [rec for rec in log if rec.name == "schur.pass"]
+    assert len(passes) == 1 + s.mopup_passes
+    downloads = [rec for rec in log if rec.name == "schur.download"]
+    assert [rec.depth for rec in downloads] == [2] * len(passes) + [1]
+    first_end = passes[0].start + passes[0].seconds
+    late = [(size, names) for size, at, names in crossings
+            if size >= system.n and at > first_end]
+    assert late == [(system.n, ["schur.solve", "schur.download"])]
+
+
+def test_ladder_exit_and_mopup_passes():
+    """ladder_exit says why the compensated ladder stopped and
+    mopup_passes counts the passes on the exact residual after it; the
+    DIA route's stats carry both."""
+    system = convert.core_system_from_numpy(make_system(g=64, seed=7))
+
+    def solver():
+        return schur.DiaBorderedSolver(system, device="cpu",
+                                       cycle_dtype=torch.float32,
+                                       w_levels=0)
+
+    s = solver()
+    sol = s.solve(target_residual=1e-10)
+    assert (s.ladder_exit, s.mopup_passes) == ("target", 0)
+    capped = s.solve(target_residual=1e-10, max_refinements=1)
+    assert (s.ladder_exit, s.mopup_passes) == ("cap", 0)
+    assert capped.refinement_steps == 1
+    assert capped.residual_norm > 1e-10
+    s = solver()
+    _stall_ladder_at(s, 2)
+    stalled = s.solve(target_residual=1e-10)
+    assert s.ladder_exit == "stall" and s.mopup_passes >= 1
+    assert stalled.residual_norm < 1e-10
+    assert np.abs(stalled.v - sol.v).max() < 1e-9
+    # Below the compensated operator's floor the ladder ends at its own
+    # target and the exact residual takes mop-up passes.
+    for target, mopup in ((1e-10, 0), (1e-13, 1)):
+        stats = {}
+        deep = schur.solve_bordered(system, operator="dia", device="cpu",
+                                    inner_dtype=torch.float32, stats=stats,
+                                    target_residual=target)
+        assert stats["route"] == "dia"
+        assert stats["ladder_exit"] == "target"
+        assert (stats["mopup_passes"] >= 1) == bool(mopup)
+        assert deep.residual_norm < target
 
 
 def test_repeat_solves_are_bit_equal():
