@@ -379,20 +379,33 @@ class _Loop:
                 return s, k, reads
 
 
+def projector_kind(num_components: int) -> str:
+    """How the deflation projector over num_components sums by
+    component, by the JAX package's rule (padne_tpu.ops.cg.
+    make_projector): "mean" for one component, dense "onehot" products
+    up to 64, "segment" sums beyond (_Components)."""
+    if num_components == 1:
+        return "mean"
+    return "onehot" if num_components <= 64 else "segment"
+
+
 class _Components:
     """Per-component sums over one block of rows and their spread back
-    to the rows, by the JAX package's rule (padne_tpu.ops.cg.
-    make_projector): dense one-hot products up to 64 components; beyond
-    that the (N, p) one-hot would be accidentally quadratic (eroded
-    boards fragment into thousands of islands), so a fixed-order segment
-    sum (ops.segment) and a gather take over.  Both add in the same
-    order on every call.  dim: the axis of the rows ((N, R) for 0,
-    (R, N) for 1); counts: (p,) f64 rows of each component."""
+    to the rows, as projector_kind says: dense one-hot products up to 64
+    components; beyond that the (N, p) one-hot would be accidentally
+    quadratic (eroded boards fragment into thousands of islands), so a
+    fixed-order segment sum (ops.segment) and a gather take over.  Both
+    add in the same order on every call.  dim: the axis of the rows
+    ((N, R) for 0, (R, N) for 1); counts: (p,) f64 rows of each
+    component."""
 
     def __init__(self, comp_id: torch.Tensor, num_components: int,
                  dim: int):
         self.dim, self.comp = dim, comp_id.long()
-        if num_components > 64:
+        # One component sums by one-hot here too (the sharded projector).
+        self.kind = ("segment" if projector_kind(num_components) == "segment"
+                     else "onehot")
+        if self.kind == "segment":
             self.seg = segment.SegmentSum(self.comp, num_components)
             self.counts = self.seg(torch.ones(
                 len(self.comp), dtype=torch.float64, device=self.comp.device))
@@ -427,11 +440,13 @@ def make_projector(comp_id: torch.Tensor, num_components: int,
     runs over the N unknowns ((N, R) for dim 0, (R, N) for dim 1).
 
     One component: subtract the means.  More: component sums and their
-    spread as _Components computes them."""
-    if num_components == 1:
+    spread as _Components computes them.  project.kind names the branch
+    taken (projector_kind)."""
+    if projector_kind(num_components) == "mean":
         def project(x):
             return x - x.mean(dim=dim, keepdim=True)
 
+        project.kind = "mean"
         return project
 
     comps = _Components(comp_id, num_components, dim)
@@ -443,6 +458,7 @@ def make_projector(comp_id: torch.Tensor, num_components: int,
         means = comps.sums(x) / counts.to(x.dtype).unsqueeze(1 - dim)
         return x - comps.spread(means)
 
+    project.kind = comps.kind
     return project
 
 
@@ -569,7 +585,7 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
                             residual_norms=dot(rtrue, rtrue).sqrt(),
                             host_reads=reads)
 
-    solve.loop = loop
+    solve.loop, solve.projector = loop, project.kind
     return solve
 
 
@@ -608,6 +624,7 @@ def make_projector_sharded(mesh, comp_id, num_components: int,
         return [x - c.spread(m) for x, m, c in
                 zip(xs, sharding.broadcast(mesh, means), comps)]
 
+    project.kind = comps[0].kind
     return project
 
 
@@ -704,5 +721,5 @@ def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
                             residual_norms=dot(rtrue, rtrue).sqrt(),
                             host_reads=reads)
 
-    solve.loop = loop
+    solve.loop, solve.projector = loop, project.kind
     return solve

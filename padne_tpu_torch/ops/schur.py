@@ -414,6 +414,16 @@ class DiaBorderedSolver:
         # solves (only the residual column does), so they solve once.
         self._Xc = None
 
+    def counters(self) -> dict:
+        """The widths a solve works at: the route, the copper components
+        (p), the border rows (m), the small Schur block's width (m + p)
+        and how the projector of the CG it built sums by component over
+        the deflation's p + 1 components, the padding rows' one
+        included (its `projector`: cg.projector_kind)."""
+        return {"route": "dia", "components": self.p,
+                "border_rows": self.m, "small_width": self.m + self.p,
+                "projector": self.cg_solver.projector}
+
     def set_excitation(self, r_core, rhs) -> None:
         """Replace the excitation (core right-hand side r_core (n,) and
         border right-hand side rhs (m,)) of a set-up solver in place.
@@ -486,17 +496,19 @@ class DiaBorderedSolver:
         dev = self.device
         rc_pad = rc.float()
         if self._Xc is None:
-            X = self._run_cg(self._build_rhs(rc_pad))       # (np0, m+1)
-            self._Xc = X[:, :m]
-            if m:
-                # No later pass or solve runs at R = m + 1.
-                self.cg_solver.loop.release_last()
+            with spans.span("schur.border_solve"):
+                X = self._run_cg(self._build_rhs(rc_pad))   # (np0, m+1)
+                self._Xc = X[:, :m]
+                if m:
+                    # No later pass or solve runs at R = m + 1.
+                    self.cg_solver.loop.release_last()
         else:
             x_rc = self._run_cg(rc_pad[:, None], tol=tol)   # (np0, 1)
             X = torch.cat([self._Xc, x_rc], dim=1)
         with spans.span("schur.download"):
-            bx = self._border_apply(X.double()).cpu().numpy()
-            Ztr = self._ztr(rc).cpu().numpy()
+            with spans.span("schur.border_products"):
+                bx = self._border_apply(X.double()).cpu().numpy()
+                Ztr = self._ztr(rc).cpu().numpy()
             rb = rb.cpu().numpy()
         BXc, Bxr = bx[:, :m], bx[:, m]
         self._BXc_host = BXc
