@@ -9,8 +9,10 @@ border injection columns, B the border constraint rows, the full system
 is reduced by the pseudo-inverse: v = A^+ (C j - r_core) + Z c, with Z
 the per-component constants.  The expensive part, A^+ applied to m+1
 vectors, is one deflated multi-RHS PCG (ops.cg); the small dense (m+p)
-Schur block is solved with lstsq on the host; full-system iterative
-refinement drives the exact residual to the target.
+Schur block is solved on the host, by lstsq on the ELL route and on the
+DIA route by its pseudo-inverse, factored once an instance (it is
+constant once A^+ C is cached); full-system iterative refinement drives
+the exact residual to the target.
 
 `solve_bordered` routes as the JAX package does: small cores with a
 wide border that touches every component go to a host sparse direct
@@ -130,6 +132,29 @@ def _f64(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float64)).to(device)
 
 
+def small_pinvs(M: np.ndarray):
+    """The pseudo-inverses of the small Schur block M from one SVD:
+    at np.linalg.lstsq's cutoff (singular values up to eps * max(M.shape)
+    of the largest are dropped), for the DIA route's passes, and at
+    np.linalg.pinv's (1e-15), for its compensated ladder.  So each keeps
+    the minimum-norm answer of the host call it stands for.  The two are
+    one matrix, returned twice, unless a singular value lies between the
+    cutoffs."""
+    U, s, Vt = np.linalg.svd(M)
+
+    def kept(rcond):
+        return s > rcond * s[0]
+
+    def pinv(keep):
+        return (Vt[keep].T / s[keep]) @ U[:, keep].T
+
+    at_lstsq = kept(np.finfo(M.dtype).eps * max(M.shape))
+    at_pinv = kept(1e-15)
+    first = pinv(at_lstsq)
+    return first, (first if np.array_equal(at_lstsq, at_pinv)
+                   else pinv(at_pinv))
+
+
 def _border_covers_components(system: CoreSystem) -> bool:
     """True when every copper component is touched by at least one
     border row or column — a necessary condition for the direct
@@ -218,7 +243,12 @@ class DiaBorderedSolver:
     Data flow: the inner CG, the V-cycle, the border products, the
     compensated refinement residuals and the exact f64 residual all stay
     on the device; the host solves the small (m+p) Schur block and reads
-    one norm a residual.  The exact residual of (v, j), which steers the
+    one norm a residual.  The block is the same matrix in every pass once
+    A^+ C is cached (only its right-hand side changes), so the first pass
+    after set-up factors it (`small_pinvs`, counted in
+    `counters()["small_factorizations"]`) and every later pass and
+    ladder of the instance applies the cached pseudo-inverses.  The
+    exact residual of (v, j), which steers the
     mop-up passes after the ladder and is the reported `residual_norm`,
     is one launch of K3' over the f64 operator of the unpermuted system
     (`a64`, built at set-up) with C j and B v summed in a fixed order;
@@ -409,20 +439,28 @@ class DiaBorderedSolver:
         self.host_reads = 0
         self.ladder_exit = None
         self.mopup_passes = 0
-        self._BXc_host = None
         # A^+ C: the m border columns never change across passes or
-        # solves (only the residual column does), so they solve once.
+        # solves (only the residual column does), so they solve once,
+        # and with them the small block: its host pseudo-inverse for the
+        # passes, and (pseudo-inverse, B Xc, B Z) on the device for the
+        # ladder.
         self._Xc = None
+        self._pinv = None
+        self._small64 = None
+        self.small_factorizations = 0
 
     def counters(self) -> dict:
         """The widths a solve works at: the route, the copper components
         (p), the border rows (m), the small Schur block's width (m + p)
         and how the projector of the CG it built sums by component over
         the deflation's p + 1 components, the padding rows' one
-        included (its `projector`: cg.projector_kind)."""
+        included (its `projector`: cg.projector_kind); and the SVDs of
+        the small block taken since set-up (`small_factorizations`: 1
+        once the first solve has cached A^+ C, however many follow)."""
         return {"route": "dia", "components": self.p,
                 "border_rows": self.m, "small_width": self.m + self.p,
-                "projector": self.cg_solver.projector}
+                "projector": self.cg_solver.projector,
+                "small_factorizations": self.small_factorizations}
 
     def set_excitation(self, r_core, rhs) -> None:
         """Replace the excitation (core right-hand side r_core (n,) and
@@ -453,10 +491,11 @@ class DiaBorderedSolver:
         rhs[:, self.m] = rc_pad
         return rhs
 
-    def _border_apply(self, x64):
-        """B @ x for padded f64 x of shape (np0,) or (np0, R)."""
-        g = x64[self._row_node_pos] * (
-            self._row_val64 if x64.ndim == 1 else self._row_val64[:, None])
+    def _border_apply(self, x):
+        """B @ x in f64 for padded x of shape (np0,) or (np0, R): the
+        border rows are gathered before the cast to f64."""
+        g = x[self._row_node_pos].double() * (
+            self._row_val64 if x.ndim == 1 else self._row_val64[:, None])
         return self._row_sum(g)
 
     def _c_apply(self, j64):
@@ -498,38 +537,42 @@ class DiaBorderedSolver:
         if self._Xc is None:
             with spans.span("schur.border_solve"):
                 X = self._run_cg(self._build_rhs(rc_pad))   # (np0, m+1)
-                self._Xc = X[:, :m]
+                self._Xc, x_rc = X[:, :m], X[:, m]
                 if m:
                     # No later pass or solve runs at R = m + 1.
                     self.cg_solver.loop.release_last()
+                with spans.span("schur.factor"):
+                    self._factor(self._border_apply(self._Xc).cpu().numpy())
         else:
-            x_rc = self._run_cg(rc_pad[:, None], tol=tol)   # (np0, 1)
-            X = torch.cat([self._Xc, x_rc], dim=1)
+            x_rc = self._run_cg(rc_pad[:, None], tol=tol)[:, 0]
         with spans.span("schur.download"):
             with spans.span("schur.border_products"):
-                bx = self._border_apply(X.double()).cpu().numpy()
-                Ztr = self._ztr(rc).cpu().numpy()
-            rb = rb.cpu().numpy()
-        BXc, Bxr = bx[:, :m], bx[:, m]
-        self._BXc_host = BXc
+                rhs_small = torch.cat([rb + self._border_apply(x_rc),
+                                       self._ztr(rc)]).cpu().numpy()
         with spans.span("schur.small"):
-            j, c = self._small_correction(BXc, Bxr, rb, Ztr)
+            # The minimum-norm answer np.linalg.lstsq gives on the block.
+            sol = self._pinv @ rhs_small
+        j, c = sol[:m], sol[m:]
         c_full = torch.from_numpy(
             np.concatenate([c, [0.0]]).astype(np.float32)).to(dev)
         jt = torch.from_numpy(j.astype(np.float32)).to(dev)
-        v_pad = X[:, :m] @ jt - X[:, m] + c_full[self.comp_pad_dev]
+        v_pad = self._Xc @ jt - x_rc + c_full[self.comp_pad_dev]
         return v_pad, j
 
-    def _small_correction(self, BXc, Bxr, rb, Ztr):
-        """Solve the small dense (m+p) Schur block with lstsq (graceful
-        on ill-posed borders): returns the border correction (j, c)."""
-        m, p = self.m, self.p
-        top = np.concatenate([BXc, self.BZ], axis=1)
-        bot = np.concatenate([self.ZtC, np.zeros((p, p))], axis=1)
-        M = np.concatenate([top, bot], axis=0)
-        rhs_small = np.concatenate([rb + Bxr, Ztr])
-        sol, *_ = np.linalg.lstsq(M, rhs_small, rcond=None)
-        return sol[:m], sol[m:]
+    def _small_block(self, BXc):
+        """The small dense Schur block [[B Xc, B Z], [Z^T C, 0]]."""
+        p = self.p
+        return np.block([[BXc, self.BZ], [self.ZtC, np.zeros((p, p))]])
+
+    def _factor(self, BXc):
+        """Factor the small block once A^+ C is cached: one SVD gives the
+        passes' host pseudo-inverse and the ladder's, which goes to the
+        device with B Xc and B Z."""
+        self._pinv, ladder = small_pinvs(self._small_block(BXc))
+        dev = self.device
+        self._small64 = (_f64(ladder, dev), _f64(BXc, dev),
+                         _f64(self.BZ, dev))
+        self.small_factorizations += 1
 
     def _full_residual(self, v, j):
         """Exact f64 residual (core, border) of (v, j), f64 device
@@ -548,13 +591,13 @@ class DiaBorderedSolver:
 
     # -- compensated ladder -----------------------------------------------
 
-    def _fused_pass(self, xr, pinv, BXc64, BZ64, r64, rb64, dcorr64, j64):
+    def _fused_pass(self, xr, r64, rb64, dcorr64, j64):
         """One refinement pass on the device: border products, the small
-        correction through the prefactored pinv of the constant Schur
-        block (minimum-norm, like the host lstsq), and the compensated
+        correction through the cached pinv of the constant Schur block
+        (minimum-norm, as np.linalg.pinv gives it), and the compensated
         residual update.  Returns (r, rb, dcorr, j, ||r||^2)."""
-        xr64 = xr.double()
-        Bxr = self._border_apply(xr64)
+        pinv, BXc64, BZ64 = self._small64
+        Bxr = self._border_apply(xr)
         rhs_small = torch.cat([rb64 + Bxr, self._ztr(r64)])
         sol = pinv @ rhs_small
         dj, c = sol[:self.m], sol[self.m:]
@@ -579,17 +622,10 @@ class DiaBorderedSolver:
             j64 = _f64(j, dev)
             r64 = (self._b64 + self._a64(v1_pad)
                    - self._c_apply(j64))
-            rb64 = self._rhs64 - self._border_apply(v1_pad.double())
+            rb64 = self._rhs64 - self._border_apply(v1_pad)
             res_norm = float(((r64 * r64).sum()
                               + (rb64 * rb64).sum()).sqrt())
         with spans.span("schur.small"):
-            p = self.p
-            M = np.concatenate([
-                np.concatenate([self._BXc_host, self.BZ], axis=1),
-                np.concatenate([self.ZtC, np.zeros((p, p))], axis=1),
-            ], axis=0)
-            pinv = _f64(np.linalg.pinv(M), dev)
-            BXc64, BZ64 = _f64(self._BXc_host, dev), _f64(self.BZ, dev)
             dcorr64 = torch.zeros(self.np0, dtype=torch.float64, device=dev)
         refinements = 0
         self.ladder_exit = "target"
@@ -601,8 +637,7 @@ class DiaBorderedSolver:
                                      0.2 * target_residual / res_norm))
             xr = self._run_cg(r64.float()[:, None], tol=tol_pass)[:, 0]
             with spans.span("schur.refine"):
-                out = self._fused_pass(xr, pinv, BXc64, BZ64, r64, rb64,
-                                       dcorr64, j64)
+                out = self._fused_pass(xr, r64, rb64, dcorr64, j64)
                 new_norm = float(out[4].sqrt())
             refinements += 1
             if new_norm >= res_norm:

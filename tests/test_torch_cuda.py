@@ -18,7 +18,8 @@ the 16-byte grid; K1' and K2' over a window (x0 > 0, columns in the
 halos and past them), and the sharded products of ops.dia_sharded on
 four shards of the card against the one-device ones; the launch
 counters; the DIA solve's exact f64 residual through K3' (against
-SciPy's at the rounding of its terms); and the CG loop as CUDA WHILE
+SciPy's at the rounding of its terms); one SVD of the small Schur block
+over a fragmented board's repeat solves; and the CG loop as CUDA WHILE
 graphs (ops.cg, L1 in csrc/graph_loop.cu): bit-equal to the host loop
 at None (one dispatch to maxiter) and caps 1, 7, 10 and 30, one host
 read a dispatch, no iteration and no byte of the state changed on a
@@ -365,6 +366,28 @@ def test_dia_residual_runs_through_k3_in_f64(cuda):
     terms = np.linalg.norm(np.abs(r) + abs(L) @ np.abs(z))
     assert host < 1e-10
     assert abs(sol.residual_norm - host) <= 1e-14 * terms
+
+
+def test_a_fragmented_board_factors_its_small_block_once(cuda):
+    """65 copper components (the smoke run's fragmented board at a small
+    size) on the card: one SVD of the small Schur block, taken with A^+ C
+    in the first solve, serves every later set_excitation + solve, and
+    each answer's exact residual stays below 1e-10."""
+    import chip_smoke
+    from padne_tpu_torch import solver
+    from padne_tpu_torch.ops import schur
+
+    prob, cfg = chip_smoke.fragmented_problem(8000, tiles=(8, 8),
+                                              tile_mm=4.0)
+    system = solver.build_system(prob, cfg)[0]
+    s = schur.DiaBorderedSolver(system, device=cuda, coarse_size=300)
+    assert s.counters()["projector"] == "segment"
+    r_core, rhs = system.r_core.copy(), system.border.rhs.copy()
+    for scale in (1.0, 1.1, 0.9, 1.25):
+        s.set_excitation(r_core * scale, rhs * scale)
+        sol = s.solve(target_residual=1e-10)
+        assert sol.residual_norm < 1e-10
+        assert s.counters()["small_factorizations"] == 1
 
 
 # -- the CG loop as CUDA WHILE graphs (ops.cg, csrc/graph_loop.cu) -----------

@@ -5,9 +5,12 @@ and on (PADNE_TPU_WCYCLE on the JAX side).
 
 Gates: both reach the 1e-10 residual target; max |dV| <= 1e-6 of the
 potential scale; border currents agree likewise; total CG iterations
-within 3 (f32 reduction order differs)."""
+within 3 (f32 reduction order differs).  The small Schur block's one
+factorization an instance is held against fresh instances, scipy's
+direct solve, np.linalg.lstsq and np.linalg.pinv."""
 
 import collections
+import dataclasses
 import time
 
 import numpy as np
@@ -334,3 +337,95 @@ def test_fragmented_board_on_the_dia_route():
     rail = got.v[system.border.row_node[1:2 * 64:2]]
     np.testing.assert_allclose(feed - rail, 0.5 + 0.002 * np.arange(64),
                                rtol=0, atol=1e-9)
+
+
+def _excited(system, rng):
+    """A copy of `system` with new source values: every border
+    right-hand side and every core injection scaled by its own draw."""
+    b = system.border
+    return dataclasses.replace(
+        system, r_core=system.r_core * rng.uniform(0.75, 1.25, system.n),
+        border=dataclasses.replace(
+            b, rhs=b.rhs * rng.uniform(0.9, 1.1, b.m)))
+
+
+def test_the_small_block_is_factored_once_an_instance():
+    """A warm DiaBorderedSolver takes one SVD of its small Schur block
+    (with A^+ C, in its first solve) and none in its later requests:
+    each set_excitation + solve equals a fresh instance's solve of the
+    same excitation (1e-9 V, 1e-9 A), and scipy's direct solve, within
+    one refinement pass."""
+    import scipy.sparse.linalg
+
+    base = convert.core_system_from_numpy(
+        make_fragmented_system(48, (8, 12), seed=5))
+    assert base.num_components + 1 > 64
+
+    def solver(system):
+        return schur.DiaBorderedSolver(system, device="cpu",
+                                       coarse_size=COARSE)
+
+    warm = solver(_excited(base, np.random.default_rng(0)))
+    assert warm.counters()["small_factorizations"] == 0
+    warm.solve(target_residual=1e-10)
+    assert warm.counters()["projector"] == "segment"
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        system = _excited(base, rng)
+        warm.set_excitation(system.r_core, system.border.rhs)
+        got = warm.solve(target_residual=1e-10)
+        assert warm.counters()["small_factorizations"] == 1
+        fresh = solver(system)
+        ref = fresh.solve(target_residual=1e-10)
+        assert fresh.counters()["small_factorizations"] == 1
+        assert got.residual_norm < 1e-10
+        assert np.abs(got.v - ref.v).max() <= 1e-9
+        assert np.abs(got.j - ref.j).max() <= 1e-9
+        assert abs(got.refinement_steps - ref.refinement_steps) <= 1
+        L, r, *_ = schur.bordered_scipy_system(system)
+        z = scipy.sparse.linalg.spsolve(L, r)
+        assert np.abs(z[:system.n] - got.v).max() <= 1e-9
+        assert np.abs(z[system.n:] - got.j).max() <= 1e-9
+
+
+def _close(got, want):
+    assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("board", ["fragmented", "one component"])
+def test_the_cached_pseudo_inverses_answer_as_lstsq_and_pinv(board):
+    """The passes' cached pseudo-inverse gives np.linalg.lstsq's answer
+    on the small block, the ladder's np.linalg.pinv's (1e-12 relative):
+    on the 192-wide block of 96 tiles and on the 4 x 4 block of one
+    grid with a regulator (m = 3)."""
+    jsystem = (make_fragmented_system(48, (8, 12), seed=5)
+               if board == "fragmented"
+               else make_system(g=64, with_regulator=True, seed=7))
+    s = schur.DiaBorderedSolver(convert.core_system_from_numpy(jsystem),
+                                device="cpu", coarse_size=COARSE)
+    s.solve(target_residual=1e-10)
+    M = s._small_block(s._border_apply(s._Xc).numpy())
+    assert M.shape == (s.m + s.p,) * 2
+    assert board == "fragmented" or M.shape == (4, 4)
+    assert np.array_equal(schur.small_pinvs(M)[0], s._pinv)
+    rhs = np.random.default_rng(2).standard_normal(len(M))
+    _close(s._pinv @ rhs, np.linalg.lstsq(M, rhs, rcond=None)[0])
+    _close(s._small64[0].numpy() @ rhs, np.linalg.pinv(M) @ rhs)
+
+
+def test_the_cutoffs_part_where_a_singular_value_lies_between():
+    """A block with one singular value between pinv's cutoff (1e-15 of
+    the largest) and lstsq's (eps * 290 of it): the passes' matrix drops
+    it as lstsq does, the ladder's keeps it as pinv does."""
+    rng = np.random.default_rng(3)
+    Q1, _ = np.linalg.qr(rng.standard_normal((290, 290)))
+    Q2, _ = np.linalg.qr(rng.standard_normal((290, 290)))
+    sv = np.logspace(0, -3, 290)
+    sv[-1] = 1e-14
+    M = (Q1 * sv) @ Q2.T
+    passes, ladder = schur.small_pinvs(M)
+    assert passes is not ladder
+    rhs = rng.standard_normal(290)
+    _close(passes @ rhs, np.linalg.lstsq(M, rhs, rcond=None)[0])
+    _close(ladder @ rhs, np.linalg.pinv(M) @ rhs)
+    assert np.linalg.norm(ladder @ rhs) > 1e3 * np.linalg.norm(passes @ rhs)

@@ -188,7 +188,8 @@ def test_the_wide_border_spans_nest_and_the_counters(board, log):
     """The first solve's A^+ C is one `schur.border_solve` inside its
     pass, around the R = m + 1 CG; every pass's border products are one
     `schur.border_products` inside its `schur.download`; the counters
-    give the widths."""
+    give the widths, and the one SVD of the small block taken with A^+ C
+    (a `schur.factor` inside the `schur.border_solve`)."""
     from pdnbench.entries import _program
 
     _, inp = board
@@ -197,10 +198,12 @@ def test_the_wide_border_spans_nest_and_the_counters(board, log):
     solver = schur.DiaBorderedSolver(system, device="cpu")
     assert solver.counters() == {
         "route": "dia", "components": SITES + 1, "border_rows": SITES + 1,
-        "small_width": 2 * (SITES + 1), "projector": "segment"}
+        "small_width": 2 * (SITES + 1), "projector": "segment",
+        "small_factorizations": 0}
     log.clear()
     for _ in range(2):
         solver.solve()
+    assert solver.counters()["small_factorizations"] == 1
     records = list(log)
     first = [r for r in records if r.top == records[0].top]
 
@@ -218,6 +221,8 @@ def test_the_wide_border_spans_nest_and_the_counters(board, log):
              and border[0].start <= r.start <= border[0].start
              + border[0].seconds]
     assert len(inner) == 1 and parent(inner[0], first) is border[0]
+    factor = [r for r in records if r.name == "schur.factor"]
+    assert len(factor) == 1 and parent(factor[0], first) is border[0]
     products = [r for r in records if r.name == "schur.border_products"]
     passes = [r for r in records if r.name == "schur.pass"]
     assert len(products) == len(passes) >= 2
