@@ -94,45 +94,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    only when the device's failed its check); set-up and solve seconds,
    CG iterations, passes, residual, K1' launches and the device events
    and kernel ms per CG iteration run (the solver's CG run to 10 and 30
-   iterations on the host loop under the profiler, the difference over
+   iterations on the plain loop under the profiler, the difference over
    the iterations run between) printed per setting; the Jacobi solve below is also run
-   on the host loop (same bits, its wall beside the default's).
+   on the plain loop (same bits, its wall beside the default's).
    Then solve_bordered(precond="jacobi") on the smallest of the four
    small boards above 5,000 unknowns at a 0.15 mm mesh (each K3' shape
    it launched held and timed, within 1e-6 V of spsolve), and
    solve_bordered(dia_shard_min=512) on phase 6's system over phase
    9b's mesh (at least 2 sharded levels, every K1'/K2' shape held,
-   within 1e-7 x span of phase 6's solve);
-9b''. the CG loop ("loop"): the host loop (ops.cg's private hook, the
-   continue test read once an iteration), one iteration a dispatch, the
-   whole loop in one dispatch (dispatch_cap None) and dispatches of at
-   most LOOP_CAP, each dispatch on the card one launch of the WHILE
-   graph of csrc/graph_loop.cu (L1) around one captured CG iteration,
-   in turns, on phase 5's system (one DiaBorderedSolver: a cold solve
-   and LOOP_WARM warm ones), phase 8's ELL system (solve_bordered, which
-   captures in every call), the 12-spec sweep on phase 8's board, phase
-   5's system over SHARDS shards of the card and the Jacobi board
-   (below): iterations, passes and the SHA-256 of the potentials equal
-   solve for solve, the iterations the card ran (L1's device counter)
-   equal to the iterations counted, one host read a CG call for the
-   whole loop and one a dispatch otherwise, launches (from 0 for each
-   path and loop) at least the host loop's; printed per path and loop:
-   the resolved cap, capture and instantiate s, cold and warm-median
-   solve s (and without set-up or meshing), host reads beside passes,
-   launches (L1 included), the node types of each iteration the first
-   solve captured (by libcuda, before instantiation), device events and
-   kernel ms a CG iteration of one more solve under the profiler and
-   its kernel time over the warm-median wall (busy share), on the DIA
-   and sharded solvers the ms a CG iteration of their CG alone at R = 1
-   by CUDA events, and peak device memory.  Then a solve whose
-   iteration reads a value on the
-   host must raise.  Per path, LOOP_PAIRS pairs of a cap-1 and a
-   whole-loop solve, alternating which runs first, give each side's
-   median, the cap-1 spread and a verdict (pair_verdict), which decides
-   dispatch_cap="auto".
-   Phase fragmented also solves its R = 146 system twice on the host
-   loop and on the default: the same bits, peak memory allocated and
-   the memory reserved after each solve printed, and no R = m + 1 graph
+   within 1e-7 x span of phase 6's solve).  Phase fragmented also
+   solves its R = 146 system twice on the plain loop and on the default
+   (the WHILE graph): the same bits, peak memory allocated and the
+   memory reserved after each solve printed, and no R = m + 1 graph
    left on the solver once A^+ C is cached;
 9c. the dp x tp layout ("dp_tp"), on a parallel.sharding.Mesh of 8
    entries naming cuda:0, dp 2 x tp 4.  Part A, the standalone solvers
@@ -214,16 +187,17 @@ Phases (any failure exits non-zero; there is no CPU path):
    atomic scatters they replaced, on the same operands, by CUDA events
    and graph replay.
 
-Each of the phases cli, sharded, loop, variants, dp_tp, fragmented,
-sweep, serve and repeat also prints one JSON line {"phase": ...} with
-its numbers.  Every solve runs the CG as WHILE graphs (the default
-dispatch_cap "auto") but phase loop's other loops; a kernel's launches
-are the ones the card ran: a capture counts none of what it records,
-and each dispatch counts them once an iteration it ran.  L1 (the loop's
-begin and cond kernels) is held against its plain version, the same
-dispatch driven from the host (ops.cg._dispatch_plain), on a toy
-iteration right after the build: no iteration on a start with go false,
-a stop at convergence, at kstop and at kmax.
+Each of the phases cli, sharded, variants, dp_tp, fragmented, sweep,
+serve and repeat also prints one JSON line {"phase": ...} with its
+numbers.  Every solve runs the CG as one WHILE graph a CG call, but where
+a phase runs the plain loop on the card for a comparison (plain_loop); a
+kernel's launches are the ones the card ran: a capture counts none of
+what it records, and each launch of the graph counts them once an
+iteration it ran.  L1 (the loop's begin and cond kernels) is held
+against its plain version, the same loop driven from the host
+(ops.cg._dispatch_plain), on a toy iteration right after the build: no
+iteration on a start with go false, a stop at convergence and at kmax,
+and a loop across a re-projection step.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -247,6 +221,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import inspect
 import json
@@ -1085,7 +1060,7 @@ def check_dia_held(path: str, shapes, launches: dict, k1, k2,
 
 def launch_counts() -> dict:
     """The kernels' launch counts; graph_loop: L1's (one begin a
-    dispatch, one cond an iteration the dispatch ran)."""
+    launch of the graph, one cond an iteration it ran)."""
     from padne_tpu_torch.ops import cg, comp, dia, spmv
 
     return {"dia_sell": dia.sell_matvec.launches,
@@ -1961,101 +1936,21 @@ def sharded_phase(cli_run: dict, ell_run: dict, k3, project,
             "ell_launches": ell_launches}
 
 
-LOOP_WARM = 2    # phase loop: warm solves of each path and loop
-# Phase loop's loops: the host loop (ops.cg's private hook, go read once
-# an iteration), one iteration a dispatch, the whole loop in one dispatch
-# (None: a WHILE graph to maxiter) and dispatches of at most LOOP_CAP.
-LOOP_CAP = 10
-LOOPS = (("host", "host loop"), ("cap1", 1), ("whole", None),
-         ("chunks", LOOP_CAP))
-# Phase loop: pairs of a cap-1 and a whole-loop solve on each path,
-# alternating which runs first; they decide dispatch_cap="auto".
-LOOP_PAIRS = 10
-# cuGraphNodeGetType's CUgraphNodeType values.
-NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
-              "wait_event", "event_record", "ext_semas_signal",
-              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
-              "conditional")
+@contextlib.contextmanager
+def plain_loop():
+    """Within the block every CG runs the plain loop
+    (ops.cg._dispatch_plain: go read on the host once an iteration), on
+    the card too: the comparisons of the WHILE graph against it, and
+    profiles of the CG's kernels (torch.profiler can miss some or all of
+    the kernels that a WHILE node's body runs)."""
+    from padne_tpu_torch.ops import cg
 
-
-def pair_verdict(base: list, new: list) -> dict:
-    """The times of LOOP_PAIRS alternating pairs of a base loop and a new
-    one: medians, the base's spread (the distance between its
-    quartiles), the pairs each side won and a verdict: "faster" or
-    "slower" (the new one) when one side won at least nine tenths of the
-    pairs and the medians differ by more than that spread, else
-    "unresolved"."""
-    import numpy as np
-
-    mb, mn = float(np.median(base)), float(np.median(new))
-    q1, q3 = np.percentile(base, [25, 75])
-    spread = float(q3 - q1)
-    wins = sum(g < h for h, g in zip(base, new))
-    losses = sum(g > h for h, g in zip(base, new))
-    verdict = "unresolved"
-    if abs(mn - mb) > spread:
-        if wins >= 0.9 * len(base):
-            verdict = "faster"
-        elif losses >= 0.9 * len(base):
-            verdict = "slower"
-    return {"base_median_s": mb, "new_median_s": mn,
-            "base_spread_s": spread, "new_wins": wins,
-            "base_wins": losses, "pairs": len(base), "verdict": verdict,
-            "base_s": base, "new_s": new}
-
-
-class GraphNodes:
-    """Within the block, lists the nodes of every CG iteration that
-    ops.cg captures, before the WHILE graph around it is instantiated: a
-    stand-in for ops.cg._iteration that, when it runs under a capture,
-    asks the driver (libcuda's cuStreamGetCaptureInfo_v2 and
-    cuGraphGetNodes) for the nodes of the graph being captured and their
-    types.  `graphs` lists {"nodes": n, "types": {type: count}} a
-    capture."""
-
-    def __enter__(self):
-        import collections
-        import ctypes
-
-        import torch
-
-        from padne_tpu_torch.ops import cg
-
-        cuda = ctypes.CDLL("libcuda.so.1")
-        vp = ctypes.c_void_p
-        self.cg, self.real, self.graphs = cg, cg._iteration, []
-
-        def listed(body, s, c):
-            self.real(body, s, c)
-            if not torch.cuda.is_current_stream_capturing():
-                return
-            status, cid = ctypes.c_int(), ctypes.c_uint64()
-            graph, deps, ndeps = vp(), vp(), ctypes.c_size_t()
-            rc = cuda.cuStreamGetCaptureInfo_v2(
-                vp(torch.cuda.current_stream().cuda_stream),
-                ctypes.byref(status), ctypes.byref(cid),
-                ctypes.byref(graph), ctypes.byref(deps),
-                ctypes.byref(ndeps))
-            n = ctypes.c_size_t()
-            rc = rc or cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
-            nodes = (vp * n.value)()
-            rc = rc or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-            kinds = collections.Counter()
-            for node in nodes:
-                kind = ctypes.c_int()
-                rc = rc or cuda.cuGraphNodeGetType(vp(node),
-                                                   ctypes.byref(kind))
-                kinds[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
-                      else str(kind.value)] += 1
-            check(rc == 0, f"the driver could not list the graph's "
-                           f"nodes (CUresult {rc})")
-            self.graphs.append({"nodes": n.value, "types": dict(kinds)})
-
-        cg._iteration = listed
-        return self
-
-    def __exit__(self, *exc):
-        self.cg._iteration = self.real
+    real = cg.one_card
+    cg.one_card = lambda devices: False
+    try:
+        yield
+    finally:
+        cg.one_card = real
 
 
 @functools.cache
@@ -2080,324 +1975,6 @@ def jacobi_board(tmp: pathlib.Path):
     return jsys, jname, sizes
 
 
-def loop_phase(cli_run: dict, ell_run: dict, tmp: pathlib.Path) -> dict:
-    """Phase loop: the CG loops of LOOPS (the host loop; one iteration a
-    dispatch; the whole loop in one dispatch, dispatch_cap None; at most
-    LOOP_CAP iterations a dispatch; each dispatch on the card one launch
-    of the WHILE graph of csrc/graph_loop.cu around one captured CG
-    iteration) on five paths, in turns on one card: phase cli's DIA
-    system (one DiaBorderedSolver, a cold solve and LOOP_WARM warm ones
-    on its cached A^+ C), phase 8's ELL system (solve_bordered, which
-    builds its solver, so every call captures), the 12-spec sweep on
-    phase 8's board, phase cli's system over SHARDS shards of the card,
-    and the Jacobi board (solve_bordered, precond="jacobi").  Each loop's
-    iterations, passes and the SHA-256 of the potentials must be the
-    host loop's, solve for solve; the iterations the card ran (L1's
-    device counter, through its launch count: one begin a dispatch and
-    one cond an iteration) must equal the iterations counted (k); the
-    whole loop reads the host once a CG call (a pass), the others once a
-    dispatch; every kernel's launches, counted from 0 for each path and
-    loop, are the card's (a graph's once an iteration it ran: at least
-    the host loop's).  Printed per path and loop: the resolved cap,
-    capture and instantiate s, cold and warm-median solve s, host reads
-    beside passes, launches (L1 included), the node types of each
-    iteration the first solve captured (by libcuda), device events and
-    kernel ms a CG iteration of one more solve under the profiler and
-    its kernel time over the warm-median wall (busy share), on the DIA
-    and sharded solvers the ms a CG iteration of their CG alone
-    (cg_ms), and peak device memory, allocated and reserved.  Then a
-    solve whose
-    iteration reads a value on the host must raise (its capture fails;
-    no host loop takes over).  Per path, LOOP_PAIRS pairs of a cap-1 and
-    a whole-loop solve, alternating which runs first, give each side's
-    median, the cap-1 spread and a verdict (pair_verdict): the whole
-    loop is "auto" only where no path finds it slower."""
-    import numpy as np
-    import torch
-
-    from padne_tpu_torch import sweep
-    from padne_tpu_torch.ops import cg, schur, spmv
-    from padne_tpu_torch.parallel import sharding
-
-    card = smi()
-    print(f"[loop] torch {torch.__version__} CUDA {torch.version.cuda}; "
-          f"card {card}", flush=True)
-    check(LOOPS[0][1] == cg._HOST_LOOP, "phase loop: the host loop's hook")
-    mesh = sharding.Mesh([torch.device(DEV, 0)] * SHARDS)
-    dia_sys, ell_sys = cli_run["system"], ell_run["system"]
-    jsys = jacobi_board(tmp)[0]
-    specs = [sweep.SweepSpec(*x) for x in SWEEP_SPECS]
-
-    def solver_path(make):
-        # One solver; its solves, and the loop that holds its graphs.
-        s = make()
-
-        def solve():
-            sol = s.solve(target_residual=1e-10)
-            return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
-                    s.host_reads, None)
-        solve.solver = s
-        return solve, lambda: s.cg_solver.loop, lambda: s.dispatch_cap
-
-    def cg_ms(s) -> float:
-        """ms a CG iteration of solver s's CG alone at R = 1 (a ladder
-        pass's width), by CUDA events: runs to 10 and to 30 iterations
-        (tol 0), each warmed once, the difference over the 20 between
-        (init and finish cancel).  The host loop's and cap 1's include
-        their host reads and launches; the whole loop's is the card's
-        alone."""
-        b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
-            device=torch.device(DEV)).manual_seed(7))
-        ms = []
-        for k in (10, 30):
-            s.cg_solver(b1, 0.0, k)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            res = s.cg_solver(b1, 0.0, k)
-            end.record()
-            torch.cuda.synchronize()
-            check(res.iterations == k, f"phase loop: the CG ran "
-                                       f"{res.iterations} of {k}")
-            ms.append(start.elapsed_time(end))
-        return (ms[1] - ms[0]) / 20
-
-    def bordered_path(system, cap, **kw):
-        last = {}
-
-        def solve():
-            st = {}
-            t0 = time.perf_counter()
-            sol = schur.solve_bordered(system, inner_dtype=torch.float32,
-                                       device=DEV, dispatch_cap=cap,
-                                       stats=st, **kw)
-            last.update(st)
-            # The passes, after the set-up.
-            return (sol.cg_iterations, sol.refinement_steps + 1, sol.v,
-                    st["host_reads"],
-                    time.perf_counter() - t0 - st["setup_s"])
-        return solve, lambda: last, lambda: last.get("dispatch_cap")
-
-    def sweep_path(cap):
-        last = {}
-
-        def solve():
-            st = {}
-            res = sweep.solve_sweep(ell_run["prob"], specs,
-                                    mesher_config=ell_run["cfg"],
-                                    dispatch_cap=cap, stats=st)
-            last.update(st)
-            # One CG call.
-            return (st["cg_iterations"], 1,
-                    np.concatenate([r.v for r in res]), st["host_reads"],
-                    st["cg_s"])
-        return solve, lambda: last, lambda: last.get("dispatch_cap")
-
-    paths = {
-        "dia": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
-            dia_sys, device=DEV, dispatch_cap=cap)),
-        "ell": lambda cap: bordered_path(ell_sys, cap),
-        "sweep": sweep_path,
-        "sharded": lambda cap: solver_path(lambda: schur.DiaBorderedSolver(
-            dia_sys, mesh=mesh, dispatch_cap=cap)),
-        "jacobi": lambda cap: bordered_path(jsys, cap, precond="jacobi"),
-    }
-    out = {"phase": "loop", "card": card, "torch": torch.__version__,
-           "cuda": torch.version.cuda, "launches": {}}
-    for name, make in paths.items():
-        res = {}
-        for label, cap in LOOPS:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            base_reserved = torch.cuda.memory_reserved()
-            reset_counts()
-            runs = []
-            with GraphNodes() as nodes:
-                solve, loop_of, cap_of = make(cap)
-                for _ in range(1 + LOOP_WARM):
-                    t0 = time.perf_counter()
-                    it, passes, v, reads, part = solve()
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    runs.append({"s": wall, "solve_s": part or wall,
-                                 "iterations": it, "passes": passes,
-                                 "sha256": fingerprint("", 0, 0, 0, v)
-                                 ["sha256"], "host_reads": reads})
-            launches = launch_counts()
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            # Above what was in use before this path's solver existed.
-            peak_above = peak - base / 1e9
-            # The caching allocator's reserve, the graphs' pools in.
-            reserved_above = (torch.cuda.max_memory_reserved()
-                              - base_reserved) / 1e9
-            t0 = time.perf_counter()
-            events, kernel_ms, (it, passes, v, reads, _) = device_events(
-                solve)
-            traced = time.perf_counter() - t0
-            iteration_ms = (cg_ms(solve.solver) if hasattr(solve, "solver")
-                            else None)
-            loop = loop_of()
-            # The solver's own (dia, sharded) or the last call's stats.
-            capture_s = (loop.get("capture_s", 0.0)
-                         if isinstance(loop, dict) else loop.capture_s)
-            # The iterations the first solve captured (a solve_bordered
-            # or sweep call captures anew in every call).
-            graphs = nodes.graphs[:len(nodes.graphs) // (1 + LOOP_WARM)
-                                  if name in ("ell", "sweep", "jacobi")
-                                  else None]
-            warm = sorted(r["s"] for r in runs[1:])
-            warm_s = warm[len(warm) // 2]
-            # The solve without its set-up (ELL) or meshing (sweep: its
-            # cg_s): where the loop's time shows.
-            parts = sorted(r["solve_s"] for r in runs[1:])
-            iterations = [r["iterations"] for r in runs]
-            res[label] = {
-                "dispatch_cap": cap_of(), "capture_s": capture_s,
-                "cold_s": runs[0]["s"], "warm_median_s": warm_s,
-                "warm_s": [r["s"] for r in runs[1:]],
-                "solve_part_s": [r["solve_s"] for r in runs],
-                "warm_median_solve_part_s": parts[len(parts) // 2],
-                "iterations": iterations,
-                "passes": [r["passes"] for r in runs],
-                "host_reads": [r["host_reads"] for r in runs],
-                # L1's launches less its begins (one a dispatch, a host
-                # read): the iterations its cond kernel ran.
-                "iterations_run": None if cap == cg._HOST_LOOP else (
-                    launches["graph_loop"]
-                    - sum(r["host_reads"] for r in runs)),
-                "launches": launches,
-                "sha256": [r["sha256"][:16] for r in runs],
-                "graphs": graphs, "traced_s": traced,
-                "device_events_per_cg_iteration": events / max(it, 1),
-                "kernel_ms_per_cg_iteration": kernel_ms / max(it, 1),
-                "kernel_ms": kernel_ms, "cg_iteration_ms": iteration_ms,
-                # The profiled solve's kernel time over an untraced warm
-                # solve's wall time (the profiler's own start would
-                # count as idle).
-                "busy_share": kernel_ms / (warm_s * 1e3),
-                "peak_device_memory_gb": peak,
-                "peak_above_base_gb": peak_above,
-                "peak_reserved_above_base_gb": reserved_above}
-            r = res[label]
-            print(f"[loop] {name} {label}: cap={r['dispatch_cap']} "
-                  f"capture {capture_s:.3f} s, cold {r['cold_s']:.3f} s, "
-                  f"warm median {r['warm_median_s']:.3f} s "
-                  f"({', '.join(f'{x:.3f}' for x in r['warm_s'])}; "
-                  f"without set-up or meshing: cold "
-                  f"{r['solve_part_s'][0]:.3f}, warm "
-                  f"{', '.join(f'{x:.3f}' for x in r['solve_part_s'][1:])})"
-                  f", iterations {r['iterations']} run "
-                  f"{r['iterations_run']} passes {r['passes']} host reads "
-                  f"{r['host_reads']} sha256 {r['sha256']}, launches "
-                  f"{launches} in {1 + LOOP_WARM} solves, iteration graphs "
-                  f"{graphs}, traced {traced:.3f} s: "
-                  f"{r['device_events_per_cg_iteration']:.1f} device events "
-                  f"and {r['kernel_ms_per_cg_iteration']:.3f} kernel ms a CG "
-                  f"iteration, busy share {r['busy_share']:.3f}, the CG "
-                  f"alone at R = 1: {iteration_ms} ms an iteration (CUDA "
-                  f"events), peak "
-                  f"{peak:.3f} GB ({peak_above:.3f} GB above the memory "
-                  f"in use before; reserved {reserved_above:.3f} GB above)",
-                  flush=True)
-            del solve, loop_of, cap_of, loop
-        host = res["host"]
-        check(not host["graphs"] and host["launches"]["graph_loop"] == 0,
-              f"phase loop {name}: the host loop captured {host['graphs']}")
-        for label, cap in LOOPS[1:]:
-            got = res[label]
-            for key in ("iterations", "passes", "sha256"):
-                check(host[key] == got[key],
-                      f"phase loop {name} {label}: {key} {got[key]} differ "
-                      f"from the host loop's {host[key]}")
-            check(got["iterations_run"] == sum(got["iterations"]),
-                  f"phase loop {name} {label}: the card ran "
-                  f"{got['iterations_run']} iterations, k counted "
-                  f"{sum(got['iterations'])}")
-            # One read a dispatch: a CG call (a pass) is one dispatch
-            # for the whole loop, at least one and at most
-            # iterations // cap + 1 for a cap.
-            reads, passes = got["host_reads"], got["passes"]
-            check(all(q <= r for r, q in zip(reads, passes)) and (
-                reads == passes if cap is None else
-                all(r <= it // cap + q for r, it, q
-                    in zip(reads, got["iterations"], passes))),
-                  f"phase loop {name} {label}: {reads} host reads for "
-                  f"{got['iterations']} iterations in {passes} passes")
-            check(got["graphs"],
-                  f"phase loop {name} {label}: no iteration was captured")
-            # A dispatch counts what it runs: at least the host loop's.
-            check(all(got["launches"][k] >= host["launches"][k]
-                      for k in host["launches"]),
-                  f"phase loop {name} {label}: launches {got['launches']} "
-                  f"below the host loop's {host['launches']}")
-        # Pairs: one iteration a dispatch against the whole loop on
-        # solvers of their own (a DiaBorderedSolver warmed by one solve
-        # first), alternating which runs first; the time without set-up
-        # or meshing.
-        pair = {label: make(cap)[0] for label, cap in LOOPS
-                if label in ("cap1", "whole")}
-        if name in ("dia", "sharded"):
-            for solve in pair.values():
-                solve()
-        times = {label: [] for label in pair}
-        for i in range(LOOP_PAIRS):
-            for label in (("cap1", "whole") if i % 2 == 0
-                          else ("whole", "cap1")):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                part = pair[label]()[4]
-                torch.cuda.synchronize()
-                times[label].append(part or time.perf_counter() - t0)
-        del pair
-        res["pairs"] = pair_verdict(times["cap1"], times["whole"])
-        pv = res["pairs"]
-        print(f"[loop] {name} pairs: one iteration a dispatch median "
-              f"{pv['base_median_s']:.4f} s (spread "
-              f"{pv['base_spread_s']:.4f}), the whole loop median "
-              f"{pv['new_median_s']:.4f} s, the whole loop won "
-              f"{pv['new_wins']} of {pv['pairs']}: {pv['verdict']}; cap 1 "
-              f"{[round(x, 4) for x in pv['base_s']]}, whole "
-              f"{[round(x, 4) for x in pv['new_s']]}", flush=True)
-        out[name] = res
-        out["launches"][name] = res["whole"]["launches"]
-    slower = [name for name in paths if out[name]["pairs"]["verdict"]
-              == "slower"]
-    out["whole_loop_slower_on"] = slower
-    print(f"[loop] the whole loop against one iteration a dispatch: "
-          f"slower on {slower or 'no path'}; dispatch_cap='auto' resolves "
-          f"to {cg.resolve_dispatch_cap('auto', [DEV])}", flush=True)
-
-    # A host read inside the iteration: the capture fails and raises.
-    a = ell_sys.ell.to_device(DEV, torch.float64)
-
-    def reading(prm, x):
-        y = spmv.ell_spmv(prm["a"], x)
-        float(y.sum())
-        return y
-
-    bad = cg.make_pcg(None, torch.as_tensor(ell_sys.comp_id, device=DEV),
-                      ell_sys.num_components,
-                      operator=(reading, {"a": a, "diag": a.diag}),
-                      dispatch_cap=5)
-    try:
-        bad(torch.ones(ell_sys.n, 1, dtype=torch.float64, device=DEV),
-            1e-10, 50)
-        raised = None
-    except RuntimeError as exc:
-        raised = str(exc).splitlines()[0][:160]
-    torch.cuda.synchronize()
-    print(f"[loop] a host read in the body: {raised!r}", flush=True)
-    check(raised is not None, "a solve with a host read in its iteration "
-                              "did not raise")
-    out["host_read_raises"] = raised
-    del a, bad
-    print(json.dumps(out), flush=True)
-    return out
-
-
 L1_N = 1000   # case L1: iterations of the toy loop it is timed on
 
 
@@ -2417,10 +1994,12 @@ def _toy_state(kmax: int, target: float, go: bool = True):
     return s, c
 
 
-def _toy_body(s, c, periodic):
+def _toy_body(s, c):
     """x + 1 an iteration (times 10 where k is 49 mod 50); go while k <
     kmax and x below the target."""
-    x = periodic(lambda v: v * 10, s.x + 1, s.k)
+    from padne_tpu_torch.ops import cg
+
+    x = cg._periodic_gated(lambda v: v * 10, s.x + 1, s.k)
     k = s.k + 1
     return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
 
@@ -2428,38 +2007,34 @@ def _toy_body(s, c, periodic):
 def l1_case() -> dict:
     """L1 (csrc/graph_loop.cu: loop_begin and loop_cond around a WHILE
     node) against its plain version (ops.cg._dispatch_plain, the same
-    dispatch driven from the host) on the same CUDA state: a start with
-    go false, a stop where go turns false mid-dispatch, a stop at kstop
-    and at kmax, and the whole loop across a re-projection step; (go, k)
-    and x must be equal (max_abs_err: the largest difference of x and
-    k).  Timed on a loop of L1_N toy iterations (a few small kernels
-    and the state's copies): ms and plain_ms are a dispatch's time over
-    its iterations; iteration_ms is a torch replay of the same captured
-    iteration, one launch each (the host's launch in it).  bound_ms: L1's
-    bytes (the begin's 17 read and 24 written once a dispatch, the
-    cond's 17 read and 24 written an iteration) over 3.35 TB/s."""
+    loop driven from the host) on the same CUDA state: a start with go
+    false, a stop where go turns false, a stop at kmax, and a loop
+    across a re-projection step; k and x must be equal (max_abs_err:
+    the largest difference of x and k).  Timed on a loop of L1_N toy
+    iterations (a few small kernels and the state's copies): ms and
+    plain_ms are a launch's time over its iterations; iteration_ms is a
+    torch replay of the same captured iteration, one launch each (the
+    host's launch in it).  bound_ms: L1's bytes (the begin's 17 read and
+    16 written once a launch, the cond's 17 read and 24 written an
+    iteration) over 3.35 TB/s."""
     import torch
 
     from padne_tpu_torch.ops import cg
 
     err = 0.0
-    # (kmax, target, cap, go on entry, dispatches, (go, k) after each)
-    cases = ((100, 1e9, 8, False, 1, [(False, 0)]),
-             (100, 5.0, 8, True, 1, [(False, 5)]),
-             (100, 1e9, 3, True, 2, [(True, 3), (True, 6)]),
-             (4, 1e9, 10, True, 1, [(False, 4)]),
-             (120, 1e9, cg._WHOLE, True, 1, [(False, 120)]))
-    for kmax, target, cap, go, n, want in cases:
+    # (kmax, target, go on entry, k after the loop)
+    cases = ((100, 1e9, False, 0), (100, 5.0, True, 5), (4, 1e9, True, 4),
+             (120, 1e9, True, 120))
+    for kmax, target, go, want in cases:
         s, c = _toy_state(kmax, target, go)
-        g = cg._Graph(_toy_body, s, c, cap)
-        got = [g.dispatch() for _ in range(n)]
+        g = cg._Graph(_toy_body, s, c)
+        got = g.dispatch()
         ps, pc = _toy_state(kmax, target, go)
-        plain = [cg._dispatch_plain(_toy_body, ps, pc, cap)
-                 for _ in range(n)]
-        check(got == plain == want, f"L1: dispatches {got}, plain {plain}, "
+        plain = cg._dispatch_plain(_toy_body, ps, pc)[0]
+        check(got == plain == want, f"L1: k {got}, plain {plain}, "
                                     f"expected {want}")
-        check(g.flag.tolist()[2] == want[-1][1],
-              f"L1: ran {g.flag.tolist()}, k {want[-1][1]}")
+        check(g.flag.tolist()[2] == want,
+              f"L1: ran {g.flag.tolist()}, k {want}")
         err = max(err, float((s.x - ps.x).abs()), abs(int(s.k) - int(ps.k)))
         g.close()
     check(err == 0.0, f"L1 differs from its plain version by {err}")
@@ -2476,18 +2051,17 @@ def l1_case() -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps / L1_N
 
-    s, c = _toy_state(10**9, 1e30)
-    g = cg._Graph(_toy_body, s, c, L1_N)
+    s, c = _toy_state(L1_N, 1e30)
+    g = cg._Graph(_toy_body, s, c)
 
     def fresh():
-        # Each dispatch from k = 0 (x stays finite: ~1e20 after L1_N).
+        # Each launch from k = 0 (x stays finite: ~1e20 after L1_N).
         s.x.zero_()
         s.k.zero_()
         s.go.fill_(True)
 
     ms = timed(lambda: (fresh(), g.dispatch()))
-    plain_ms = timed(lambda: (fresh(), cg._dispatch_plain(_toy_body, s, c,
-                                                           L1_N)))
+    plain_ms = timed(lambda: (fresh(), cg._dispatch_plain(_toy_body, s, c)))
     g.graph.replay()   # instantiated by torch
 
     def replays():
@@ -2496,7 +2070,7 @@ def l1_case() -> dict:
 
     iteration_ms = timed(replays)
     g.close()
-    nbytes = 41 * (1 + L1_N) / L1_N
+    nbytes = (33 + 41 * L1_N) / L1_N
     bound_ms = nbytes / HBM_BPS * 1e3
     out = {"name": "L1 loop_begin + loop_cond (WHILE node)",
            "abs_err": err, "ms": ms, "graph_ms": None, "plain_ms": plain_ms,
@@ -2504,10 +2078,10 @@ def l1_case() -> dict:
            "bound_by": "bytes", "library_ms": None,
            "library_graph_ms": None, "csr_bound_ms": None}
     print(f"[L1] WHILE loop against its plain version: max abs err {err}; "
-          f"one dispatch of {L1_N} toy iterations: {ms * 1e3:.2f} us an "
+          f"one launch of {L1_N} toy iterations: {ms * 1e3:.2f} us an "
           f"iteration on the card, no host between them; the same "
           f"iteration graph replayed {L1_N} times by torch: "
-          f"{iteration_ms * 1e3:.2f} us a replay; the plain dispatch "
+          f"{iteration_ms * 1e3:.2f} us a replay; the plain loop "
           f"(driven from the host): {plain_ms * 1e3:.2f} us an iteration; "
           f"bound {bound_ms * 1e3:.6f} us; card {smi()}", flush=True)
     return out
@@ -2566,7 +2140,7 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
     import scipy.sparse.linalg
     import torch
 
-    from padne_tpu_torch.ops import cg, schur
+    from padne_tpu_torch.ops import schur
     from padne_tpu_torch.parallel import sharding
 
     t_phase = time.perf_counter()
@@ -2615,7 +2189,7 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
                        residual)
         # Device events and kernel ms per CG iteration: the solver's CG
         # at R = 1 (the refinement passes' width) run to 10 and to 30
-        # iterations (tol 0), on the host loop: torch.profiler can miss
+        # iterations (tol 0), on the plain loop: torch.profiler can miss
         # some or all of the kernels that a WHILE node's body runs.
         # Each call profiled; the difference over the iterations run
         # between leaves out the set-up and the final residual of a call.
@@ -2623,10 +2197,9 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
         b1 = torch.randn(s.np0, 1, device=DEV, generator=torch.Generator(
             device=torch.device(DEV)).manual_seed(7))
         ks, ran = [10, 30], 20
-        s.cg_solver.loop.cap = cg._HOST_LOOP
-        runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
-                for k in ks]
-        s.cg_solver.loop.cap = s.dispatch_cap
+        with plain_loop():
+            runs = [device_events(lambda k=k: s.cg_solver(b1, 0.0, k))
+                    for k in ks]
         check([r[2].iterations for r in runs] == ks,
               f"variants {name}: the profiled CG stopped early")
         profile_s = time.perf_counter() - t0
@@ -2708,20 +2281,20 @@ def variants_phase(cli_run: dict, ctx: dict, tmp: pathlib.Path) -> dict:
           "the Jacobi solve did not run on K3' alone")
     check(sol.residual_norm < 1e-9 and dv <= 1e-6,
           f"Jacobi solve: residual {sol.residual_norm:.3e}, |dV| {dv:.3e}")
-    # The same solve on the host loop, after the default's (its
+    # The same solve on the plain loop, after the default's (its
     # capture included): the same bits, the wall beside it.
     t0 = time.perf_counter()
-    hsol = schur.solve_bordered(jsys, precond="jacobi",
-                                inner_dtype=torch.float32, device=DEV,
-                                dispatch_cap=cg._HOST_LOOP)
+    with plain_loop():
+        hsol = schur.solve_bordered(jsys, precond="jacobi",
+                                    inner_dtype=torch.float32, device=DEV)
     torch.cuda.synchronize()
     host_wall = time.perf_counter() - t0
-    print(f"[variants] precond=jacobi on the host loop: {host_wall:.2f} s "
+    print(f"[variants] precond=jacobi on the plain loop: {host_wall:.2f} s "
           f"(the default: {wall:.2f} s), cg_iterations="
           f"{hsol.cg_iterations}", flush=True)
     check(hsol.cg_iterations == sol.cg_iterations
           and np.array_equal(hsol.v, sol.v),
-          "Jacobi solve: the host loop's iterations or bits differ")
+          "Jacobi solve: the plain loop's iterations or bits differ")
     out["jacobi"] = {"board": jname, "n": jsys.n, "mesh_mm": JACOBI_MESH,
                      "small_board_sizes": sizes, "wall_s": wall,
                      "host_loop_wall_s": host_wall,
@@ -3144,7 +2717,7 @@ def fragmented_phase(args) -> dict:
     import torch
 
     from padne_tpu_torch import solver
-    from padne_tpu_torch.ops import cg, schur
+    from padne_tpu_torch.ops import schur
 
     t0 = time.perf_counter()
     prob, cfg = fragmented_problem(args.frag_dof)
@@ -3158,21 +2731,23 @@ def fragmented_phase(args) -> dict:
     residual = dia_residual_case(system, "fragmented ")
     del s
     torch.cuda.empty_cache()
-    # Peak device memory of one solve at R = 146 on the host loop and on
+    # Peak device memory of one solve at R = 146 on the plain loop and on
     # the default (a WHILE graph a CG call), each with a solver of its
     # own, counted from what was in use before the solver was built; the
     # memory reserved after the first solve and after a second (on the
     # cached A^+ C: the R = m + 1 graph and its pool are gone by then).
     peaks = {}
-    for label, cap in (("host", cg._HOST_LOOP), ("auto", "auto")):
+    for label in ("plain", "graph"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        s = schur.DiaBorderedSolver(system, device=DEV, dispatch_cap=cap)
+        s = schur.DiaBorderedSolver(system, device=DEV)
         runs = []
         for _ in range(2):
-            fsol = s.solve(target_residual=1e-10)
+            with (plain_loop() if label == "plain"
+                  else contextlib.nullcontext()):
+                fsol = s.solve(target_residual=1e-10)
             torch.cuda.synchronize()
             runs.append({
                 "reserved_gb": torch.cuda.memory_reserved() / 1e9,
@@ -3189,24 +2764,24 @@ def fragmented_phase(args) -> dict:
                         "graph_widths": widths, "runs": runs}
         del s, fsol
     print(f"[fragmented] the first solve's peak allocated above the "
-          f"memory in use before the solver: host loop "
-          f"{peaks['host']['peak_above_gb']:.3f} GB, WHILE graphs "
-          f"{peaks['auto']['peak_above_gb']:.3f} GB; reserved after the "
-          f"first and the second solve: host loop "
-          f"{[round(r['reserved_gb'], 3) for r in peaks['host']['runs']]}"
+          f"memory in use before the solver: plain loop "
+          f"{peaks['plain']['peak_above_gb']:.3f} GB, WHILE graphs "
+          f"{peaks['graph']['peak_above_gb']:.3f} GB; reserved after the "
+          f"first and the second solve: plain loop "
+          f"{[round(r['reserved_gb'], 3) for r in peaks['plain']['runs']]}"
           f" GB, graphs "
-          f"{[round(r['reserved_gb'], 3) for r in peaks['auto']['runs']]}"
+          f"{[round(r['reserved_gb'], 3) for r in peaks['graph']['runs']]}"
           f" GB; the solver's graphs after them at R = "
-          f"{peaks['auto']['graph_widths']} (m + 1 = {m + 1}); {peaks}",
+          f"{peaks['graph']['graph_widths']} (m + 1 = {m + 1}); {peaks}",
           flush=True)
-    check(all(h[k] == a[k] for h, a in zip(peaks["host"]["runs"],
-                                           peaks["auto"]["runs"])
+    check(all(h[k] == a[k] for h, a in zip(peaks["plain"]["runs"],
+                                           peaks["graph"]["runs"])
               for k in ("iterations", "passes", "sha256")),
-          f"fragmented: the graphs' solves differ from the host loop's "
+          f"fragmented: the graphs' solves differ from the plain loop's "
           f"{peaks}")
-    check(peaks["auto"]["graph_widths"] == [1],
+    check(peaks["graph"]["graph_widths"] == [1],
           f"fragmented: the solver holds graphs at R = "
-          f"{peaks['auto']['graph_widths']} after A^+ C was cached")
+          f"{peaks['graph']['graph_widths']} after A^+ C was cached")
     del system
     torch.cuda.empty_cache()
 
@@ -3554,7 +3129,6 @@ def main() -> int:
         sharded = sharded_phase(cli_run, ell_run, k3, ctx["project"],
                                 repeats)
         torch.cuda.empty_cache()
-        loop = loop_phase(cli_run, ell_run, pathlib.Path(tmp))
         del ell_run
         torch.cuda.empty_cache()
         variants = variants_phase(cli_run, ctx, pathlib.Path(tmp))
@@ -3580,9 +3154,7 @@ def main() -> int:
                    "dp_tp": dp_tp["launches"][name],
                    "fragmented": frag["launches"][name],
                    "sweep": sweep["launches"][name],
-                   "serve": served["launches"][name],
-                   "loop": {path: counts[name] for path, counts
-                            in loop["launches"].items()}}
+                   "serve": served["launches"][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_by_path": by_path,

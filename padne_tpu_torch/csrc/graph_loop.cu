@@ -1,26 +1,26 @@
 // L1 — the CG loop's exit at convergence on the card: one CUDA WHILE
-// conditional node a dispatch, for Hopper (sm_90a).
+// conditional node a solve, for Hopper (sm_90a).
 //
 // L1 has no Pallas counterpart: it is what XLA lowers the JAX package's
 // `jax.lax.while_loop` to (padne_tpu/ops/cg.py:270, :448, :589), the loop
 // whose `cond` runs on the device and ends a dispatch the moment it turns
 // false.  padne_tpu_torch/ops/cg.py captures ONE CG iteration into a CUDA
-// graph with torch; this file builds the graph a dispatch launches around it:
+// graph with torch; this file builds the graph a solve launches around it:
 //
 //   [loop_begin] -> WHILE(handle) { iteration (child graph) -> [loop_cond] }
 //
-//   loop_begin: kstop = min(k + cap, kmax); handle = go && k < kstop; the
-//               flag (go, k) for the host.  False on entry runs no
-//               iteration, as `cond` false on entry does in JAX.
+//   loop_begin: handle = go && k < kmax; the flag (go, k) for the host.
+//               False on entry runs no iteration, as `cond` false on entry
+//               does in JAX.
 //   loop_cond:  after each iteration, from the device scalars it has just
-//               written: handle = go && k < kstop; flag = (go, k, ran + 1).
+//               written: handle = go && k < kmax; flag = (go, k, ran + 1).
 //
-// kstop <= kmax, so k < kmax is always part of the test and a faulty go
-// cannot hang the card.  ran counts the iterations the card ran, for the
-// host to hold against k.  What bounds L1: nothing of its own — two
-// one-thread kernels of a few scalars each; the iteration it wraps is the
-// work.  Its design point is the host: one launch and one read a dispatch
-// instead of one of each an iteration.
+// k < kmax is always part of the test, so a faulty go cannot hang the card.
+// ran counts the iterations the card ran, for the host to hold against k.
+// What bounds L1: nothing of its own — two one-thread kernels of a few
+// scalars each; the iteration it wraps is the work.  Its design point is
+// the host: one launch and one read a solve instead of one of each an
+// iteration.
 //
 // Plain C interface (bound with ctypes from padne_tpu_torch/kernels.py); no
 // PyTorch headers.  Every entry point returns a cudaError_t (0 on success)
@@ -44,25 +44,23 @@ thread_local const char* g_failed = "";
 
 __global__ void loop_begin(cudaGraphConditionalHandle handle, const bool* go,
                            const int64_t* k, const int64_t* kmax,
-                           int64_t* kstop, int64_t cap, int64_t* flag) {
-  const int64_t kk = *k, km = *kmax;
-  const int64_t stop = cap >= km - kk ? km : kk + cap;
+                           int64_t* flag) {
+  const int64_t kk = *k;
   const bool g = *go;
-  *kstop = stop;
   flag[0] = g;
   flag[1] = kk;
-  cudaGraphSetConditional(handle, g && kk < stop ? 1u : 0u);
+  cudaGraphSetConditional(handle, g && kk < *kmax ? 1u : 0u);
 }
 
 __global__ void loop_cond(cudaGraphConditionalHandle handle, const bool* go,
-                          const int64_t* k, const int64_t* kstop,
+                          const int64_t* k, const int64_t* kmax,
                           int64_t* flag) {
   const int64_t kk = *k;
   const bool g = *go;
   flag[0] = g;
   flag[1] = kk;
   flag[2] += 1;
-  cudaGraphSetConditional(handle, g && kk < *kstop ? 1u : 0u);
+  cudaGraphSetConditional(handle, g && kk < *kmax ? 1u : 0u);
 }
 
 struct Loop {
@@ -82,13 +80,12 @@ cudaKernelNodeParams one_thread(void* func, void** args) {
 }
 
 int build(Loop* lp, cudaGraph_t iteration, const bool* go, const int64_t* k,
-          const int64_t* kmax, int64_t* kstop, int64_t* flag, int64_t cap,
-          cudaStream_t stream) {
+          const int64_t* kmax, int64_t* flag, cudaStream_t stream) {
   PG_TRY(cudaGraphCreate(&lp->graph, 0));
   cudaGraphConditionalHandle handle;
   PG_TRY(cudaGraphConditionalHandleCreate(&handle, lp->graph, 0, 0));
 
-  void* begin_args[] = {&handle, &go, &k, &kmax, &kstop, &cap, &flag};
+  void* begin_args[] = {&handle, &go, &k, &kmax, &flag};
   const cudaKernelNodeParams bp =
       one_thread(reinterpret_cast<void*>(loop_begin), begin_args);
   cudaGraphNode_t begin;
@@ -112,7 +109,7 @@ int build(Loop* lp, cudaGraph_t iteration, const bool* go, const int64_t* k,
   // pool alive as long as this loop.
   cudaGraphNode_t child;
   PG_TRY(cudaGraphAddChildGraphNode(&child, body, nullptr, 0, iteration));
-  void* cond_args[] = {&handle, &go, &k, &kstop, &flag};
+  void* cond_args[] = {&handle, &go, &k, &kmax, &flag};
   const cudaKernelNodeParams cp =
       one_thread(reinterpret_cast<void*>(loop_cond), cond_args);
   cudaGraphNode_t cond;
@@ -132,25 +129,19 @@ void release(Loop* lp) {
 }  // namespace
 
 // The loop around one captured iteration (a cudaGraph_t, which is cloned):
-// go (bool), k and kmax (int64) are the iteration's device scalars, kstop
-// (int64) and flag (int64[3]: go, k, iterations ran) device buffers of the
-// caller's; cap iterations at most a dispatch (>= 1).  Instantiates and
-// uploads on `stream`; *out receives the loop's handle.
+// go (bool), k and kmax (int64) are the iteration's device scalars, flag
+// (int64[3]: go, k, iterations ran) a device buffer of the caller's.
+// Instantiates and uploads on `stream`; *out receives the loop's handle.
 extern "C" int pg_loop_create(void* iteration, const void* go, const void* k,
-                              const void* kmax, void* kstop, void* flag,
-                              int64_t cap, void* stream, void** out) {
+                              const void* kmax, void* flag, void* stream,
+                              void** out) {
   *out = nullptr;
-  if (cap < 1) {
-    g_failed = "pg_loop_create (cap < 1)";
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Loop* lp = new Loop;
   const int rc = build(lp, static_cast<cudaGraph_t>(iteration),
                        static_cast<const bool*>(go),
                        static_cast<const int64_t*>(k),
                        static_cast<const int64_t*>(kmax),
-                       static_cast<int64_t*>(kstop),
-                       static_cast<int64_t*>(flag), cap,
+                       static_cast<int64_t*>(flag),
                        static_cast<cudaStream_t>(stream));
   if (rc != 0) {
     release(lp);
@@ -160,7 +151,7 @@ extern "C" int pg_loop_create(void* iteration, const void* go, const void* k,
   return 0;
 }
 
-// One dispatch: the loop's graph launched on `stream` (asynchronous).
+// One solve's loop: the graph launched on `stream` (asynchronous).
 extern "C" int pg_loop_launch(void* loop, void* stream) {
   PG_TRY(cudaGraphLaunch(static_cast<Loop*>(loop)->exec,
                          static_cast<cudaStream_t>(stream)));

@@ -13,8 +13,8 @@ sees the launch's operands (L1, the CG loop's kernels, counts on
 ops.cg.loop_launch, without hooks).  Under
 `recording` (the capture of a CG iteration in ops.cg) a launch is
 recorded into the graph, not run: `count` keeps it on a tape instead,
-and `recount(tape, n)` counts the tape once per iteration a dispatch
-ran, so the counts are the launches the card ran.
+and `recount(tape, n)` counts the tape once per iteration a launch of
+the graph ran, so the counts are the launches the card ran.
 """
 
 from __future__ import annotations
@@ -94,9 +94,9 @@ def load() -> ctypes.CDLL:
     lib.pg_ell_spmv.argtypes = ([i32] + [vp] * 5 + [i32, i64, vp, i32]
                                 + [vp] * 5)
     # L1, the CG loop's WHILE graph (ops.cg): iteration graph, go, k, kmax,
-    # kstop, flag, cap, stream, out.
+    # flag, stream, out.
     lib.pg_loop_create.restype = i32
-    lib.pg_loop_create.argtypes = [vp] * 6 + [i64, vp, ctypes.POINTER(vp)]
+    lib.pg_loop_create.argtypes = [vp] * 6 + [ctypes.POINTER(vp)]
     lib.pg_loop_launch.restype = i32
     lib.pg_loop_launch.argtypes = [vp, vp]
     lib.pg_loop_destroy.restype = None
@@ -176,8 +176,9 @@ class recording:
 
 
 def recount(tape: list, times: int = 1) -> None:
-    """Counts the launches of a tape again, `times` times: as a dispatch
-    that ran the captured iteration that many times runs them."""
+    """Counts the launches of a tape again, `times` times: as a launch
+    of the graph that ran the captured iteration that many times runs
+    them."""
     for _ in range(times):
         for wrapper, operands in tape:
             count(wrapper, *operands)

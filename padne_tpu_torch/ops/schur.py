@@ -268,11 +268,8 @@ class DiaBorderedSolver:
     it logs the decline and solves on the mesh's first device.  `device`
     is then that device.
 
-    dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc):
-    an int is at most that many, stopping at convergence; None is one
-    dispatch to maxiter on the card (one launch of a CUDA WHILE graph);
-    "auto" is None on one card; None and "auto" are the host loop on the
-    CPU.  The resolved value is `dispatch_cap`; the solver keeps the
+    The CG loop (ops.cg's module doc) is one launch of a CUDA WHILE graph
+    on one card and the plain loop elsewhere; the solver keeps the
     graphs of the widths it still runs for every later solve
     (`cg_solver.loop`: the R = m + 1 one is dropped once A^+ C is
     cached), and `host_reads` counts the continue tests the last solve
@@ -293,8 +290,7 @@ class DiaBorderedSolver:
                  smooth_levels: "int | None" = None,
                  coarse_eigh: bool = False, cycle_lumped: bool = True,
                  lump_smoothing: bool = True, smooth_steps: int = 1,
-                 cheb: int = 0, cheb_deep: int = 0, coarse: str = "host",
-                 dispatch_cap="auto"):
+                 cheb: int = 0, cheb_deep: int = 0, coarse: str = "host"):
         tp = mesh.size if mesh is not None else 1
         dev = device_mod.resolve(mesh.devices[0] if tp > 1 else device)
         self.device = dev
@@ -357,8 +353,6 @@ class DiaBorderedSolver:
         comp_pad = np.full(np0, p, dtype=np.int64)
         comp_pad[posmap] = system.comp_id
         self.comp_pad_dev = _index(comp_pad, dev)
-        self.dispatch_cap = cg.resolve_dispatch_cap(
-            dispatch_cap, mesh.devices if self.sharded else [dev])
 
         with spans.span("setup.operators"):
             # The exact f64 residual's operator (K3'), on the device where
@@ -378,7 +372,7 @@ class DiaBorderedSolver:
                 self.cg_solver = cg.make_pcg_sharded(
                     mesh, (dia_sharded.dia_matvec_t_sharded, op_params),
                     comp_pad, p + 1, (vcycle_apply, vparams),
-                    stall_window=30, dim=1, dispatch_cap=self.dispatch_cap)
+                    stall_window=30, dim=1)
             else:
                 op_params = amg.make_dia_cg_operator(hierarchy, dev)
                 vcycle_apply, vparams = amg.make_vcycle_dia_t(
@@ -391,8 +385,7 @@ class DiaBorderedSolver:
                 self.cg_solver = cg.make_pcg(
                     None, self.comp_pad_dev, p + 1,
                     operator=(a_apply_t, op_params),
-                    precond=(vcycle_apply, vparams), stall_window=30, dim=1,
-                    dispatch_cap=self.dispatch_cap)
+                    precond=(vcycle_apply, vparams), stall_window=30, dim=1)
         # The device operands of K1': the CG operator (shared with K2';
         # a dia_sharded.ShardedOperator when sharded), and the cycle's
         # operators level by level.
@@ -721,7 +714,6 @@ def solve_bordered(
     dia_threshold: int = 200_000,
     dia_shard_min: int = 32768,
     direct_small: bool = True,
-    dispatch_cap="auto",
 ) -> BorderedSolution:
     """Solve the full bordered system, routed as the JAX package routes.
 
@@ -748,23 +740,15 @@ def solve_bordered(
     first device; dia_shard_min is the fewest padded rows a DIA level
     shards at (DiaBorderedSolver's shard_min).
 
-    dispatch_cap: the inner CG's iterations a dispatch, as the JAX
-    package's (ops.cg's module doc): an int is at most that many,
-    stopping at convergence; None is one dispatch to maxiter on the card
-    (one launch of a CUDA WHILE graph); "auto" is None on one card;
-    None and "auto" are the host loop on the CPU; an escalation to f64
-    takes max(30, cap // 8) of an int cap.
-
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
     uploads), tp and sharded (whether the inner solve sharded), on the
     DIA route coarse (where the coarse inverse was built) and, on the
-    ELL route, ell_k and escalated; dispatch_cap (the first inner
-    solve's, resolved), host_reads (the CG's continue tests read on the
-    host) and capture_s (its CUDA graphs' capture, 0 without one); on
-    the DIA route also ladder_exit and mopup_passes (DiaBorderedSolver's:
-    why the compensated ladder stopped, and the passes on the exact
-    residual after it).
+    ELL route, ell_k and escalated; host_reads (the CG's continue tests
+    read on the host) and capture_s (its CUDA graphs' capture, 0 without
+    one); on the DIA route also ladder_exit and mopup_passes
+    (DiaBorderedSolver's: why the compensated ladder stopped, and the
+    passes on the exact residual after it).
 
     The call is one `schur.solve_bordered` span (padne_tpu_torch.spans);
     setup_s is its `schur.setup` span's seconds."""
@@ -801,8 +785,7 @@ def solve_bordered(
                 try:
                     solver = DiaBorderedSolver(system, device=dev, tol=tol,
                                                maxiter=maxiter, mesh=mesh,
-                                               shard_min=dia_shard_min,
-                                               dispatch_cap=dispatch_cap)
+                                               shard_min=dia_shard_min)
                 except _NoDiaHierarchy:
                     solver = None   # fall through to the ELL route
             if solver is not None:
@@ -810,8 +793,7 @@ def solve_bordered(
                              levels=[lv.pack.np_
                                      for lv in solver.hierarchy.levels],
                              tp=solver.tp, sharded=solver.sharded,
-                             coarse=solver.coarse,
-                             dispatch_cap=solver.dispatch_cap)
+                             coarse=solver.coarse)
                 sol = solver.solve(target_residual=target_residual,
                                    max_refinements=max_refinements)
                 stats.update(host_reads=solver.host_reads,
@@ -824,14 +806,12 @@ def solve_bordered(
             max_refinements=max_refinements, target_residual=target_residual,
             inner_dtype=inner_dtype, stats=stats,
             use_amg=precond == "amg" or (precond == "auto"
-                                         and n >= amg_threshold), mesh=mesh,
-            dispatch_cap=dispatch_cap)
+                                         and n >= amg_threshold), mesh=mesh)
 
 
 def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
                         max_refinements, target_residual, inner_dtype,
-                        stats, use_amg: bool, mesh=None,
-                        dispatch_cap="auto") -> BorderedSolution:
+                        stats, use_amg: bool, mesh=None) -> BorderedSolution:
     """The generic ELL route of solve_bordered: one multi-RHS deflated
     PCG per Schur pass over the ELL operator (kernel K3'), the small
     dense block by host lstsq, f64 full-system refinement; AMG or
@@ -851,21 +831,19 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     row_mesh = None if mesh is None else sharding.Mesh(mesh.grid[0])
     tp = 1 if row_mesh is None else row_mesh.size
     n_pad = n + (-n) % tp
-    devices = [dev] if row_mesh is None else row_mesh.devices
     solvers = []
 
     def make_solver(dtype, precond, stall_window):
         if row_mesh is None:
             solvers.append(cg.make_pcg(
                 a64.to(dtype), comp_id, p, precond=precond,
-                stall_window=stall_window, dispatch_cap=cap))
+                stall_window=stall_window))
         else:
             solvers.append(_sharded_ell_cg(system, row_mesh, n_pad, dtype,
-                                           precond, stall_window, cap))
+                                           precond, stall_window))
         return solvers[-1]
 
     with spans.span("schur.setup") as setup:
-        cap = cg.resolve_dispatch_cap(dispatch_cap, devices)
         with spans.span("setup.border"):
             comp_id = _index(system.comp_id, dev)
             B, C = _dense_border(system, dev)
@@ -896,8 +874,7 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
     stats.update(route="ell", ell_k=int(system.ell.cols.shape[1]),
                  levels=([len(lv.a_diag) for lv in hierarchy.levels]
                          if hierarchy is not None else []),
-                 setup_s=setup.seconds, tp=tp, sharded=tp > 1,
-                 dispatch_cap=cap)
+                 setup_s=setup.seconds, tp=tp, sharded=tp > 1)
     total_cg_iters = host_reads = 0
 
     def solve_once(rc, rb, tol_pass=None):
@@ -956,11 +933,8 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
         """Swap the inner solve to f64 after a mixed-precision stall: an
         f32 inner operator contracts per pass by ~kappa(A)*eps32, and
         boards mixing milliohm couplings with thin-sliver cotan weights
-        push kappa past 1e7, above the target.  An f64 iteration costs
-        more: an int dispatch cap drops to max(30, cap // 8)."""
-        nonlocal cg_solver, inner_tol, inner, cap
-        cap = cg.resolve_dispatch_cap(cg.escalated_cap(dispatch_cap),
-                                      devices)
+        push kappa past 1e7, above the target."""
+        nonlocal cg_solver, inner_tol, inner
         cg_solver = make_solver(f64, vcycle64, None)
         inner = f64
         inner_tol = max(tol, 1e-9) if use_amg else max(tol, 1e-12)
@@ -1008,15 +982,14 @@ def _solve_bordered_ell(system: CoreSystem, dev, tol, maxiter,
 
 
 def _sharded_ell_cg(system: CoreSystem, mesh, n_pad: int, dtype, precond,
-                    stall_window, dispatch_cap="auto"):
+                    stall_window):
     """The ELL route's deflated PCG row-sharded over `mesh`, the JAX
     package's make_pcg(mesh=): rows padded to n_pad (a multiple of the
     mesh size; padding rows form their own deflation component, so they
     carry exactly zero), each shard's rows a rectangular K3' operator
     over the all-gathered x with the diagonal as one more entry a row
     (amg.shard_ell_rows), Jacobi from the padded diagonal when no cycle
-    is given; dispatch_cap as make_pcg_sharded's.  Solves (n_pad, R)
-    right-hand sides."""
+    is given.  Solves (n_pad, R) right-hand sides."""
     ell, n, p = system.ell, system.n, system.num_components
     ops = amg.shard_ell_rows(ell.cols, ell.vals, ell.diag, n_pad, n_pad,
                              mesh, dtype)
@@ -1033,5 +1006,4 @@ def _sharded_ell_cg(system: CoreSystem, mesh, n_pad: int, dtype, precond,
         precond = cg.jacobi_sharded(sharding.split(mesh, diag, dim=0))
     return cg.make_pcg_sharded(mesh, (matvec, ops), comp_cg,
                                p + (n_pad > n), precond,
-                               stall_window=stall_window,
-                               dispatch_cap=dispatch_cap)
+                               stall_window=stall_window)

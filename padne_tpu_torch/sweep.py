@@ -56,7 +56,6 @@ def solve_sweep(
     maxiter: int = 40000,
     device=None,
     stats: Optional[dict] = None,
-    dispatch_cap="auto",
 ) -> list[SweepResult]:
     """Solve the board once per spec, sharing mesh + structure, on
     `device` (None: the CUDA card; see padne_tpu_torch.device).
@@ -67,22 +66,21 @@ def solve_sweep(
     rescaling inside the small dense border system.  Source scaling
     enters only through the right-hand sides.
 
-    dispatch_cap: the CG's iterations a dispatch (ops.cg's module doc).
-    The JAX sweep runs its CG as one while_loop to maxiter in one
-    dispatch; so does "auto" on the card (one launch of a CUDA WHILE
-    graph, the continue test read once after it); on the CPU it is the
-    host loop.
+    The JAX sweep runs its CG as one while_loop to maxiter; so does the
+    port on the card (one launch of a CUDA WHILE graph, the continue
+    test read once after it); on the CPU it is the plain loop (ops.cg's
+    module doc).
 
     stats: optional dict that receives n, m, p, cg_iterations, the wall
     times mesh_assemble_s, setup_s (hierarchy and uploads), cg_s (the one
     multi-RHS solve) and recover_s (all per-spec recoveries), the CG's
     final true residual norm per column (cg_residual_norms), and the
     norms of the unit-scale right-hand side (rhs_core_norm,
-    rhs_border_norm), dispatch_cap (resolved), host_reads (the CG's
-    continue tests read on the host) and capture_s (the CUDA graph
-    capture, 0 without one).  The wall times are the seconds of the
-    call's spans (padne_tpu_torch.spans) `sweep.mesh_assemble`,
-    `sweep.setup`, `sweep.cg` and `sweep.recover`."""
+    rhs_border_norm), host_reads (the CG's continue tests read on the
+    host) and capture_s (the CUDA graph capture, 0 without one).  The
+    wall times are the seconds of the call's spans (padne_tpu_torch.
+    spans) `sweep.mesh_assemble`, `sweep.setup`, `sweep.cg` and
+    `sweep.recover`."""
     dev = device_mod.resolve(device)
     f64 = torch.float64
     with spans.span("sweep.mesh_assemble") as mesh_assemble:
@@ -105,9 +103,7 @@ def solve_sweep(
             with spans.span("setup.hierarchy"):
                 hierarchy = amg.build_hierarchy(system.ell)
             precond = amg.make_vcycle(hierarchy, dev, a0=a)
-        cap = cg.resolve_dispatch_cap(dispatch_cap, [dev])
-        cg_solver = cg.make_pcg(a, comp_id, p, precond=precond,
-                                dispatch_cap=cap)
+        cg_solver = cg.make_pcg(a, comp_id, p, precond=precond)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -168,7 +164,7 @@ def solve_sweep(
     if stats is not None:
         stats.update(
             n=n, m=m, p=p, cg_iterations=res.iterations,
-            dispatch_cap=cap, host_reads=res.host_reads,
+            host_reads=res.host_reads,
             capture_s=cg_solver.loop.capture_s,
             cg_residual_norms=res.residual_norms.cpu().numpy().tolist(),
             rhs_core_norm=float(np.linalg.norm(system.r_core)),

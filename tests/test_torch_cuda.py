@@ -20,12 +20,12 @@ four shards of the card against the one-device ones; the launch
 counters; the DIA solve's exact f64 residual through K3' (against
 SciPy's at the rounding of its terms); one SVD of the small Schur block
 over a fragmented board's repeat solves; and the CG loop as CUDA WHILE
-graphs (ops.cg, L1 in csrc/graph_loop.cu): bit-equal to the host loop
-at None (one dispatch to maxiter) and caps 1, 7, 10 and 30, one host
-read a dispatch, no iteration and no byte of the state changed on a
-start that has converged, k equal to the iterations L1 counted on the
-card, the R = m + 1 graph released once A^+ C is cached, and a host
-read inside an iteration raising at capture.  Tolerances: f32 sums in
+graphs (ops.cg, L1 in csrc/graph_loop.cu): bit-equal to the plain loop
+run eagerly on the same CUDA tensors, one host read a solve, no
+iteration and no byte of the state changed on a start that has
+converged, k equal to the iterations L1 counted on the card, the
+R = m + 1 graph released once A^+ C is cached, and a host read inside
+an iteration raising at capture.  Tolerances: f32 sums in
 another order (1e-5 of max|y|), f64 likewise (1e-12); K2' against the
 f64 bound 2e-13 * max(|A| |x|).
 """
@@ -408,60 +408,70 @@ def _islands(side=24, p=2, seed=2):
     return assembly.build_ell(p * side * side, edges, w), comp_id
 
 
-def _loop_solver(cuda, cap):
+def _loop_solver(cuda):
     from padne_tpu_torch.ops import amg, cg
 
     ell, comp_id = _islands()
     a = ell.to_device(cuda, torch.float64)
     vc = amg.make_vcycle(amg.build_hierarchy(ell), cuda, a0=a)
     return cg.make_pcg(a, torch.from_numpy(comp_id).to(cuda), 2,
-                       precond=vc, dispatch_cap=cap)
+                       precond=vc)
 
 
-def test_graph_chunks_are_bit_equal_to_the_host_loop(cuda):
-    """WHILE dispatches (one launch of a CUDA graph that runs the
-    captured iteration while the device flag go holds, at most cap
-    times) at None (one dispatch to maxiter) and at caps 1, 7, 10 and
-    30: the host loop's bits and iterations, one host read a dispatch;
-    the second solve launches the first's graph."""
+def _plain(monkeypatch):
+    """Every loop's iterations run by cg._dispatch_plain, eagerly on the
+    tensors the solve gives it (the card's included)."""
     from padne_tpu_torch.ops import cg
 
+    monkeypatch.setattr(cg._Loop, "__call__", lambda self, s, c, devices: (
+        (s,) + cg._dispatch_plain(self.body, s, c)))
+
+
+def test_graph_is_bit_equal_to_the_plain_loop(cuda, monkeypatch):
+    """One launch of a CUDA graph that runs the captured iteration while
+    the device flag go holds and k < kmax: the bits and iterations of the
+    plain loop run eagerly on the same CUDA tensors, one host read a
+    solve; the second solve launches the first's graph."""
     b = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
-    want = _loop_solver(cuda, cg._HOST_LOOP)(b, 1e-10, 500)
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        plain = _loop_solver(cuda)
+        want = plain(b, 1e-10, 500)
     assert want.iterations > 10
-    for cap in (None, 1, 7, 10, 30):
-        solve = _loop_solver(cuda, cap)
-        for _ in range(2):
-            got = solve(b, 1e-10, 500)
-            assert got.iterations == want.iterations
-            assert torch.equal(got.x, want.x)
-            assert torch.equal(got.residual_norms, want.residual_norms)
-            assert got.host_reads == (1 if cap is None else max(
-                1, -(-want.iterations // cap)))
-        assert len(solve.loop.graphs) == 1
+    assert want.host_reads == want.iterations + 1
+    assert not plain.loop.graphs
+    solve = _loop_solver(cuda)
+    for _ in range(2):
+        got = solve(b, 1e-10, 500)
+        assert got.iterations == want.iterations
+        assert torch.equal(got.x, want.x)
+        assert torch.equal(got.residual_norms, want.residual_norms)
+        assert got.host_reads == 1
+    assert len(solve.loop.graphs) == 1
 
 
-def test_graph_replays_count_their_launches(cuda):
+def test_graph_replays_count_their_launches(cuda, monkeypatch):
     """K3''s count is the launches the card ran: a capture counts none,
-    each dispatch counts the iteration's once per iteration it ran.  A
-    solve that launches a graph ("auto": the whole loop in one
-    dispatch) runs what the host loop runs, launch for launch."""
-    from padne_tpu_torch.ops import cg
-
+    each launch of the graph counts the iteration's once per iteration
+    it ran.  A solve that launches a graph runs what the plain loop
+    runs, launch for launch."""
     b = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
-    host = _loop_solver(cuda, cg._HOST_LOOP)
-    auto = _loop_solver(cuda, "auto")
+    graph = _loop_solver(cuda)
     counts = []
-    for solve in (host, auto, auto):
-        before = spmv.ell_spmv.launches
-        res = solve(b, 1e-10, 500)
-        counts.append(spmv.ell_spmv.launches - before)
+    for plain in (True, False, False):
+        with monkeypatch.context() as mp:
+            if plain:
+                _plain(mp)
+            solve = _loop_solver(cuda) if plain else graph
+            before = spmv.ell_spmv.launches
+            res = solve(b, 1e-10, 500)
+            counts.append(spmv.ell_spmv.launches - before)
     assert res.host_reads == 1
     # The first graph solve adds the warm-up iteration before capture.
     assert counts[2] == counts[0] < counts[1]
-    assert len(auto.loop.graphs) == 1
+    assert len(graph.loop.graphs) == 1
 
 
 def _toy(cuda, kmax, target=1e9):
@@ -479,29 +489,34 @@ def _toy(cuda, kmax, target=1e9):
     return s, c
 
 
-def _toy_body(s, c, periodic):
-    x = periodic(lambda v: v * 10, s.x + 1, s.k)
+def _toy_body(s, c):
+    from padne_tpu_torch.ops import cg
+
+    x = cg._periodic_gated(lambda v: v * 10, s.x + 1, s.k)
     k = s.k + 1
     return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
 
 
 def test_a_converged_start_runs_no_iteration(cuda):
-    """A dispatch whose go is false on entry runs no iteration and
-    leaves every byte of the state as it was; a solve whose right-hand
-    side is zero (converged at init) reads once and runs none."""
+    """A launch whose go is false on entry runs no iteration and leaves
+    every byte of the state as it was; the next, with go set, runs to
+    the target; a solve whose right-hand side is zero (converged at
+    init) reads once and runs none."""
     from padne_tpu_torch.ops import cg
 
-    s, c = _toy(cuda, 100)
-    g = cg._Graph(_toy_body, s, c, 8)
-    assert g.dispatch() == (True, 8)
+    s, c = _toy(cuda, 100, target=8.0)
+    g = cg._Graph(_toy_body, s, c)
     s.go.fill_(False)
     before = [x.clone() for x in s]
     launches = cg.loop_launch.launches
-    assert g.dispatch() == (False, 8)
+    assert g.dispatch() == 0
     assert all(torch.equal(a, b) for a, b in zip(s, before))
-    assert g.flag.tolist() == [0, 8, 8]
+    assert g.flag.tolist() == [0, 0, 0]
     assert cg.loop_launch.launches == launches + 1
-    solve = _loop_solver(cuda, None)
+    s.go.fill_(True)
+    assert g.dispatch() == 8
+    assert g.flag.tolist() == [0, 8, 8] and float(s.x) == 8.0
+    solve = _loop_solver(cuda)
     b = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2 * 24 * 24, 2))).to(cuda)
     assert solve(b, 1e-10, 500).iterations > 0
@@ -512,27 +527,30 @@ def test_a_converged_start_runs_no_iteration(cuda):
 
 def test_k_equals_the_iterations_l1_counted(cuda):
     """The iterations the card ran, counted by L1's cond kernel on the
-    device, equal k after each dispatch: at kstop, where go turns false
-    mid-dispatch and for a whole solve; L1's launch count is one begin a
-    dispatch and one cond an iteration."""
+    device, equal k after each launch: where go turns false, at kmax and
+    for whole solves, the count running on across the solves that launch
+    one graph; L1's launch count is one begin a launch and one cond an
+    iteration."""
     from padne_tpu_torch.ops import cg
 
     s, c = _toy(cuda, 100, target=12.0)
-    g = cg._Graph(_toy_body, s, c, 5)
+    g = cg._Graph(_toy_body, s, c)
     launches = cg.loop_launch.launches
-    assert g.dispatch() == (True, 5)
-    assert g.dispatch() == (True, 10)
-    assert g.dispatch() == (False, 12)
+    assert g.dispatch() == 12
     assert g.flag.tolist() == [0, 12, 12] and float(s.x) == 12.0
-    assert cg.loop_launch.launches == launches + 3 + 12
+    assert cg.loop_launch.launches == launches + 1 + 12
+    s, c = _toy(cuda, 7)
+    g = cg._Graph(_toy_body, s, c)
+    assert g.dispatch() == 7 and g.flag.tolist() == [0, 7, 7]
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
-    for cap in (None, 4):
-        solve = _loop_solver(cuda, cap)
+    solve = _loop_solver(cuda)
+    for times in (1, 2):
         before = cg.loop_launch.launches
         res = solve(b, 1e-10, 500)
         (graph,) = solve.loop.graphs.values()
-        assert graph.flag.tolist()[1:] == [res.iterations] * 2
+        assert graph.flag.tolist() == [0, res.iterations,
+                                       times * res.iterations]
         assert (cg.loop_launch.launches - before
                 == res.iterations + res.host_reads)
 
@@ -545,7 +563,7 @@ def test_the_border_columns_graph_is_released(cuda):
     from padne_tpu_torch.ops import schur
 
     s = schur.DiaBorderedSolver(_grid_system(64), device=cuda,
-                                coarse_size=200, dispatch_cap=None)
+                                coarse_size=200)
     assert s.m > 0
     for _ in range(2):
         sol = s.solve(target_residual=1e-10)
@@ -556,7 +574,7 @@ def test_the_border_columns_graph_is_released(cuda):
 
 def test_a_host_read_in_the_body_raises(cuda):
     """A CUDA solve whose iteration reads a value on the host fails its
-    capture and raises: it does not run the host loop."""
+    capture and raises: it does not run the plain loop."""
     from padne_tpu_torch.ops import cg
 
     ell, comp_id = _islands(side=16, p=1)
@@ -568,8 +586,7 @@ def test_a_host_read_in_the_body_raises(cuda):
         return y
 
     solve = cg.make_pcg(None, torch.from_numpy(comp_id).to(cuda), 1,
-                        operator=(reading, {"a": a, "diag": a.diag}),
-                        dispatch_cap=5)
+                        operator=(reading, {"a": a, "diag": a.diag}))
     b = torch.ones(len(ell.diag), 2, dtype=torch.float64, device=cuda)
     with pytest.raises(RuntimeError):
         solve(b, 1e-10, 100)

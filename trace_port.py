@@ -8,14 +8,15 @@ Run from the repository root:
     python3 trace_port.py [--dof 140000] [--warm 3] [--top 12]
                           [--trace out.json] [--tree DIR] [--sweep]
                           [--startup] [--tp N [--dp D]]
-                          [--dispatch-cap auto|none|host|K] [--pairs N]
 
 The board is meshed for --dof as chip_smoke.py sizes it; the auto route
 picks DIA (n >= 200k) or ELL.  One solve runs first (kernel build,
 first-call costs), then --warm solves untraced, then one under the
 profiler.  Printed: each solve's wall time with and without its set-up
 (setup_s of the solve's stats: hierarchy build and uploads), CG
-iterations and refinement passes, and the least, median and largest
+iterations and refinement passes, the CG's host reads and the graphs'
+capture seconds (a solve_bordered call builds its solver, so every run
+captures anew), and the least, median and largest
 wall time without set-up of the untraced warm solves with each one's
 wall time, CG iterations and passes beside it; for the traced
 solve, split at the end of its set-up: the route, the summed device time
@@ -56,24 +57,6 @@ host us per kernel and the busy share.
 --tree names a directory holding another version of padne_tpu_torch (an
 unpacked earlier commit) to trace instead of this repository's, so that
 two versions can be run in turns in one go on one card.
-
---dispatch-cap passes dispatch_cap to the solve (and the sweep): "auto"
-(the package's default), "none" (None: one dispatch to maxiter, a
-CUDA WHILE graph launch a CG call), "host" (the host loop, one read of
-the continue test an iteration: ops.cg's private hook) or an int (at
-most that many iterations a dispatch, stopping at convergence); without
-it the package's default runs, so a tree from before the option traces
-as it is.  Each solve line then also prints the CG's host reads and the
-graphs' capture seconds (a solve_bordered call builds its solver, so
-every run captures anew).
-
---pairs N runs, after one solve of each loop, N pairs of a solve at one
-iteration a dispatch (dispatch_cap 1) and one of the whole loop in one
-dispatch (None) (solve_bordered calls, or sweeps with --sweep) of the
-board, alternating which runs first, and prints for each call the time
-without set-up (the sweep: its CG), the graphs' capture seconds and the
-Python garbage collector's pauses inside the call, then each loop's
-least, median and largest time; no profiler runs.
 """
 
 from __future__ import annotations
@@ -110,67 +93,6 @@ def device_ms(prof):
     return kernels, copies, ms_by_name, calls
 
 
-def cap_kw(args) -> dict:
-    """The solve's dispatch_cap argument, when --dispatch-cap names one."""
-    cap = args.dispatch_cap
-    if cap is None:
-        return {}
-    if cap == "none":
-        return {"dispatch_cap": None}
-    if cap == "host":
-        from padne_tpu_torch.ops import cg
-
-        return {"dispatch_cap": cg._HOST_LOOP}
-    return {"dispatch_cap": cap if cap == "auto" else int(cap)}
-
-
-def trace_pairs(args, one) -> int:
-    """The --pairs mode: one(cap) runs a call and returns (seconds
-    without set-up, capture seconds); see the module docstring."""
-    import torch
-
-    pauses = []
-
-    def gc_pause(phase, info):
-        # The collector's pauses, as (start, end) on the host's clock.
-        if phase == "start":
-            pauses.append([time.perf_counter(), None])
-        else:
-            pauses[-1][1] = time.perf_counter()
-
-    def timed(label, cap):
-        torch.cuda.synchronize()
-        before = len(pauses)
-        t0 = time.perf_counter()
-        part, capture = one(cap)
-        torch.cuda.synchronize()
-        gc_s = sum(b - a for a, b in pauses[before:])
-        print(f"[pairs] {label}: {part * 1e3:.1f} ms without set-up, "
-              f"capture {capture * 1e3:.1f} ms, gc {gc_s * 1e3:.1f} ms "
-              f"in the call ({(time.perf_counter() - t0) * 1e3:.1f} ms "
-              "in all)", flush=True)
-        return part
-
-    loops = {"cap1": 1, "whole": None}
-    gc.callbacks.append(gc_pause)
-    try:
-        for label, cap in loops.items():
-            timed(label + " (first)", cap)
-        times = {label: [] for label in loops}
-        for i in range(args.pairs):
-            for label in (("cap1", "whole") if i % 2 == 0
-                          else ("whole", "cap1")):
-                times[label].append(timed(label, loops[label]))
-    finally:
-        gc.callbacks.remove(gc_pause)
-    for label, ts in times.items():
-        ts = sorted(ts)
-        print(f"[pairs] {label}: least {ts[0] * 1e3:.1f} ms, median "
-              f"{ts[len(ts) // 2] * 1e3:.1f} ms, largest "
-              f"{ts[-1] * 1e3:.1f} ms over {len(ts)} calls", flush=True)
-    return 0
-
-
 def trace_sweep(args, prob, cfg, specs) -> int:
     """The --sweep mode: see the module docstring."""
     import torch
@@ -183,7 +105,7 @@ def trace_sweep(args, prob, cfg, specs) -> int:
         t0 = time.perf_counter()
         results = sweep.solve_sweep(
             prob, [sweep.SweepSpec(*x) for x in specs], mesher_config=cfg,
-            stats=stats, **cap_kw(args))
+            stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         worst = max(r.residual_norm for r in results)
@@ -339,12 +261,6 @@ def main() -> int:
                          "the batched solve traced after it")
     ap.add_argument("--dp", type=int, default=1, choices=(1, 2, 4),
                     help="dp rows of the batched solve (with --tp)")
-    ap.add_argument("--dispatch-cap", default=None,
-                    help="the CG's dispatch_cap: auto, none, host or an "
-                    "int")
-    ap.add_argument("--pairs", type=int, default=0,
-                    help="alternating host-loop / default calls instead "
-                         "of a trace")
     args = ap.parse_args()
 
     import torch
@@ -370,34 +286,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         prob, cfg = chip_smoke.bench_problem(pathlib.Path(tmp), args.dof)
-        if args.sweep and args.pairs:
-            from padne_tpu_torch import sweep
-
-            specs = [sweep.SweepSpec(*x) for x in chip_smoke.SWEEP_SPECS]
-
-            def one_sweep(cap):
-                stats = {}
-                sweep.solve_sweep(prob, specs, mesher_config=cfg,
-                                  stats=stats, dispatch_cap=cap)
-                return stats["cg_s"], stats["capture_s"]
-
-            return trace_pairs(args, one_sweep)
         if args.sweep:
             return trace_sweep(args, prob, cfg, chip_smoke.SWEEP_SPECS)
         system = solver.build_system(prob, cfg)[0]
-
-    if args.pairs:
-        def one_solve(cap):
-            stats = {}
-            t0 = time.perf_counter()
-            schur.solve_bordered(system, inner_dtype=torch.float32,
-                                 device="cuda", mesh=mesh, stats=stats,
-                                 dispatch_cap=cap)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0 - stats["setup_s"],
-                    stats["capture_s"])
-
-        return trace_pairs(args, one_solve)
 
     class Stats(dict):
         """The solve's stats dict; opens the profiler range "solve" when
@@ -416,8 +307,7 @@ def main() -> int:
         stats = Stats()
         t0 = time.perf_counter()
         sol = schur.solve_bordered(system, inner_dtype=torch.float32,
-                                   device="cuda", mesh=mesh, stats=stats,
-                                   **cap_kw(args))
+                                   device="cuda", mesh=mesh, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats.mark.__exit__(None, None, None)
@@ -426,8 +316,7 @@ def main() -> int:
               f"cg_iterations={sol.cg_iterations} "
               f"refinement_passes={sol.refinement_steps + 1} "
               f"residual_norm={sol.residual_norm:.3e}"
-              + (f" dispatch_cap={stats.get('dispatch_cap')} "
-                 f"host_reads={stats.get('host_reads')} "
+              + (f" host_reads={stats.get('host_reads')} "
                  f"capture_s={stats.get('capture_s', 0.0):.3f}"
                  if "host_reads" in stats else ""), flush=True)
         return wall, sol, stats
