@@ -9,7 +9,10 @@ automatically.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -36,6 +39,8 @@ _FLAGS = [
     "-O3",
     "-fPIC",
     "-shared",
+    # std::thread for the solver set-up's row-parallel loops.
+    "-pthread",
 ]
 
 
@@ -241,13 +246,64 @@ def build_ell(n, eu, ev, w):
         _lib.pg_ell_free(out)
 
 
+# --- threads of the solver set-up's loops ------------------------------
+
+# Rows (entries, for a COO input) below which a set-up loop runs on the
+# calling thread alone: starting threads costs more than it saves there.
+# On an 8-core H100 host, row prefixes of the 1M-DoF board's top level
+# (~7 nonzeros a row) ran as fast on 8 threads as on 1 at about 32k rows
+# (strength filter, Galerkin product), 50k (DIA packing) and 70k (the
+# permutation, which runs only on a DIA route's top level, 200,000 rows
+# and up); its second level (159,590 rows) ran 2.8-4.5x faster on 8,
+# and its third (27,098 rows) slower in the Galerkin product (0.74x).
+MIN_PARALLEL_ROWS = 65_536
+
+
+def _cgroup_cpu_quota() -> "float | None":
+    """CPUs the cgroup's CPU quota allows (quota / period), None where
+    no quota is set: cgroup v2's cpu.max, else v1's cfs files."""
+    root = pathlib.Path("/sys/fs/cgroup")
+    try:
+        quota, period = (root / "cpu.max").read_text().split()[:2]
+        return None if quota == "max" else int(quota) / int(period)
+    except (OSError, ValueError):
+        pass
+    try:
+        quota = int((root / "cpu" / "cpu.cfs_quota_us").read_text())
+        period = int((root / "cpu" / "cpu.cfs_period_us").read_text())
+        return quota / period if quota > 0 and period > 0 else None
+    except (OSError, ValueError):
+        return None
+
+
+@functools.cache
+def usable_cpus() -> int:
+    """The CPUs this process may run on (its affinity), further limited
+    by a cgroup CPU quota where one is set; read once."""
+    cpus = len(os.sched_getaffinity(0))
+    quota = _cgroup_cpu_quota()
+    if quota is not None:
+        cpus = min(cpus, max(1, math.ceil(quota)))
+    return max(1, cpus)
+
+
+def threads_for(rows: int, threads: "int | None" = None) -> int:
+    """Threads a set-up loop over `rows` rows runs on: every usable CPU
+    from MIN_PARALLEL_ROWS rows, one below; `threads` (tests) forces a
+    count.  Every count gives the same bits."""
+    if threads is None:
+        threads = usable_cpus() if rows >= MIN_PARALLEL_ROWS else 1
+    return max(1, int(threads))
+
+
 _c_uint16_p = ctypes.POINTER(ctypes.c_uint16)
 
 _lib.pg_pack_dia.restype = ctypes.c_int
 _lib.pg_pack_dia.argtypes = [
     ctypes.c_int64, _c_int64_p, _c_int64_p, _c_double_p, ctypes.c_int64,
     ctypes.c_double, ctypes.c_int32, _c_int64_p, ctypes.c_int32,
-    ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, ctypes.c_int]
+    ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p,
+    ctypes.c_int]
 _lib.pg_hilbert_order.restype = ctypes.c_int
 _lib.pg_hilbert_order.argtypes = [
     _c_double_p, ctypes.c_int64, ctypes.c_int32, _c_int64_p, _c_int64_p,
@@ -256,24 +312,27 @@ _lib.pg_hilbert_order.argtypes = [
 _lib.pg_strength_csr.restype = ctypes.c_int64
 _lib.pg_strength_csr.argtypes = [
     ctypes.c_int64, _c_int32_p, _c_int32_p, _c_double_p, _c_double_p,
-    ctypes.c_double, _c_int32_p, _c_int32_p]
+    ctypes.c_double, _c_int32_p, _c_int32_p, ctypes.c_int32]
 
 _lib.pg_pack_dia_csr.restype = ctypes.c_int
 _lib.pg_pack_dia_csr.argtypes = [
     ctypes.c_int64, _c_int32_p, _c_int32_p, _c_double_p, _c_int64_p,
-    ctypes.c_int64, ctypes.c_double, ctypes.c_int32,
+    ctypes.c_int64, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
     ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, ctypes.c_int]
 _lib.pg_pack_dia_sizes.restype = None
 _lib.pg_pack_dia_sizes.argtypes = [ctypes.c_void_p, _c_int64_p]
-_lib.pg_pack_dia_read.restype = None
+_lib.pg_pack_dia_read.restype = ctypes.c_int
 _lib.pg_pack_dia_read.argtypes = [
     ctypes.c_void_p, _c_int64_p, _c_int32_p, _c_uint16_p, _c_double_p,
-    _c_int32_p, _c_int32_p, _c_double_p]
+    _c_int32_p, _c_int32_p, _c_double_p, ctypes.c_char_p, ctypes.c_int]
 _lib.pg_pack_dia_free.restype = None
 _lib.pg_pack_dia_free.argtypes = [ctypes.c_void_p]
 
 
 def _read_pack_dia(out):
+    """The pack of a pg_pack_dia(_csr) handle into fresh arrays (the
+    native side writes them: the handle's inputs must still be alive),
+    and the handle freed."""
     import numpy as np
 
     try:
@@ -287,20 +346,25 @@ def _read_pack_dia(out):
         rr = np.empty(nr, dtype=np.int32)
         rcc = np.empty(nr, dtype=np.int32)
         rv = np.empty(nr, dtype=np.float64)
-        _lib.pg_pack_dia_read(
+        err = ctypes.create_string_buffer(256)
+        rc = _lib.pg_pack_dia_read(
             out, offs_out.ctypes.data_as(_c_int64_p),
             hi.ctypes.data_as(_c_int32_p), lo.ctypes.data_as(_c_uint16_p),
             wv.ctypes.data_as(_c_double_p), rr.ctypes.data_as(_c_int32_p),
-            rcc.ctypes.data_as(_c_int32_p), rv.ctypes.data_as(_c_double_p))
+            rcc.ctypes.data_as(_c_int32_p), rv.ctypes.data_as(_c_double_p),
+            err, 256)
+        if rc != 0:
+            raise RuntimeError(err.value.decode())
         return tuple(int(o) for o in offs_out), hi, lo, wv, rr, rcc, rv
     finally:
         _lib.pg_pack_dia_free(out)
 
 
-def pack_dia_csr(a, pos, b, coverage, max_offsets):
+def pack_dia_csr(a, pos, b, coverage, max_offsets, threads=None):
     """Same outputs as pack_dia, fed directly from a scipy CSR matrix
     with row/col ids mapped through `pos` (padded positions) and
-    diagonal entries skipped — the AMG hierarchy's per-level shape."""
+    diagonal entries skipped — the AMG hierarchy's per-level shape.
+    Runs on threads_for(rows, threads) threads."""
     import numpy as np
 
     indptr = np.ascontiguousarray(a.indptr, dtype=np.int32)
@@ -313,18 +377,20 @@ def pack_dia_csr(a, pos, b, coverage, max_offsets):
         a.shape[0], indptr.ctypes.data_as(_c_int32_p),
         indices.ctypes.data_as(_c_int32_p),
         data.ctypes.data_as(_c_double_p), pos.ctypes.data_as(_c_int64_p),
-        int(b), float(coverage), int(max_offsets), ctypes.byref(out),
-        err, 256)
+        int(b), float(coverage), int(max_offsets),
+        threads_for(a.shape[0], threads), ctypes.byref(out), err, 256)
     if rc != 0:
         raise RuntimeError(err.value.decode())
     return _read_pack_dia(out)
 
 
-def pack_dia(b, rows, cols, vals, coverage, max_offsets, offs=None):
+def pack_dia(b, rows, cols, vals, coverage, max_offsets, offs=None,
+             threads=None):
     """(offs tuple, widx_hi int32, widx_lo uint16, wval f64,
     rem_rows/rem_cols int32, rem_vals f64) — native twin of
     ops.dia.pack_dia's COO split (offset selection + W-index
-    composition + row-sorted remainder)."""
+    composition + row-sorted remainder), on threads_for(entries,
+    threads) threads."""
     import numpy as np
 
     rows = np.ascontiguousarray(rows, dtype=np.int64)
@@ -343,7 +409,7 @@ def pack_dia(b, rows, cols, vals, coverage, max_offsets, offs=None):
         int(b), rows.ctypes.data_as(_c_int64_p),
         cols.ctypes.data_as(_c_int64_p), vals.ctypes.data_as(_c_double_p),
         len(rows), float(coverage), int(max_offsets), offs_p, n_preset,
-        ctypes.byref(out), err, 256)
+        threads_for(len(rows), threads), ctypes.byref(out), err, 256)
     if rc != 0:
         raise RuntimeError(err.value.decode())
     return _read_pack_dia(out)
@@ -360,7 +426,8 @@ _lib.pg_galerkin.restype = ctypes.c_int
 _lib.pg_galerkin.argtypes = [
     ctypes.c_int64, _c_int32_p, _c_int32_p, _c_double_p, _c_int32_p,
     ctypes.c_int64, _c_double_p, ctypes.c_double, ctypes.c_double,
-    ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, ctypes.c_int]
+    ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p,
+    ctypes.c_int]
 _lib.pg_csr_sizes.restype = None
 _lib.pg_csr_sizes.argtypes = [ctypes.c_void_p, _c_int64_p]
 _lib.pg_csr_read.restype = None
@@ -399,11 +466,12 @@ def ell_to_csr(cols, vals, diag):
     return indptr, indices, data
 
 
-def galerkin(a, agg, nc, dinv, omega_p, drop_tol):
+def galerkin(a, agg, nc, dinv, omega_p, drop_tol, threads=None):
     """Coarse operator Ac = P^T A P (scipy CSR in, scipy CSR out) with
     the smoothed prolongation P = P0 - omega_p diag(dinv) (A P0) built
     internally and the drop_tol sparsify+lump filter fused — native twin
-    of the scipy chain in amg.build_hierarchy_dia."""
+    of the scipy chain in amg.build_hierarchy_dia.  Runs on
+    threads_for(fine rows, threads) threads."""
     import numpy as np
     import scipy.sparse
 
@@ -419,7 +487,8 @@ def galerkin(a, agg, nc, dinv, omega_p, drop_tol):
         indices.ctypes.data_as(_c_int32_p),
         data.ctypes.data_as(_c_double_p), agg.ctypes.data_as(_c_int32_p),
         int(nc), dinv.ctypes.data_as(_c_double_p), float(omega_p),
-        float(drop_tol), ctypes.byref(out), err, 256)
+        float(drop_tol), threads_for(a.shape[0], threads),
+        ctypes.byref(out), err, 256)
     if rc != 0:
         raise RuntimeError(err.value.decode())
     try:
@@ -441,13 +510,15 @@ def galerkin(a, agg, nc, dinv, omega_p, drop_tol):
 _lib.pg_csr_permute.restype = ctypes.c_int
 _lib.pg_csr_permute.argtypes = [
     ctypes.c_int64, _c_int32_p, _c_int32_p, _c_double_p, _c_int64_p,
-    _c_int32_p, _c_int32_p, _c_double_p, ctypes.c_char_p, ctypes.c_int]
+    _c_int32_p, _c_int32_p, _c_double_p, ctypes.c_int32, ctypes.c_char_p,
+    ctypes.c_int]
 
 
-def csr_permute(a, perm):
+def csr_permute(a, perm, threads=None):
     """A[perm][:, perm] as scipy CSR (perm: new index -> old index) —
     one counting + one gather pass (scipy's fancy-index chain runs two
-    permutation-matrix SpGEMMs).  Columns ascend within each row."""
+    permutation-matrix SpGEMMs), on threads_for(rows, threads) threads.
+    Columns ascend within each row."""
     import numpy as np
     import scipy.sparse
 
@@ -466,11 +537,34 @@ def csr_permute(a, perm):
         data.ctypes.data_as(_c_double_p), perm.ctypes.data_as(_c_int64_p),
         out_indptr.ctypes.data_as(_c_int32_p),
         out_indices.ctypes.data_as(_c_int32_p),
-        out_data.ctypes.data_as(_c_double_p), err, 256)
+        out_data.ctypes.data_as(_c_double_p), threads_for(n, threads),
+        err, 256)
     if rc != 0:
         raise RuntimeError(err.value.decode())
     return scipy.sparse.csr_matrix(
         (out_data, out_indices, out_indptr), shape=(n, n))
+
+
+def strength_csr(a, d, theta, threads=None):
+    """(indptr, indices) int32 CSR pattern of a's strong off-diagonal
+    entries, |a_ij| >= theta * sqrt(d_i d_j) (d: the positive-clamped
+    diagonal), on threads_for(rows, threads) threads."""
+    import numpy as np
+
+    n = a.shape[0]
+    indptr = np.ascontiguousarray(a.indptr, dtype=np.int32)
+    indices = np.ascontiguousarray(a.indices, dtype=np.int32)
+    data = np.ascontiguousarray(a.data, dtype=np.float64)
+    d = np.ascontiguousarray(d, dtype=np.float64)
+    out_indptr = np.empty(n + 1, dtype=np.int32)
+    out_indices = np.empty(len(indices), dtype=np.int32)
+    nnz = _lib.pg_strength_csr(
+        n, indptr.ctypes.data_as(_c_int32_p),
+        indices.ctypes.data_as(_c_int32_p), data.ctypes.data_as(_c_double_p),
+        d.ctypes.data_as(_c_double_p), float(theta),
+        out_indptr.ctypes.data_as(_c_int32_p),
+        out_indices.ctypes.data_as(_c_int32_p), threads_for(n, threads))
+    return out_indptr, out_indices[:nnz]
 
 
 lib = _lib

@@ -12,7 +12,14 @@
 #include "pg_refine.h"
 
 #include <cstring>
+#include <exception>
 #include <memory>
+#include <new>
+#include <system_error>
+#include <thread>
+#include <type_traits>
+#include <utility>
+#include <variant>
 
 using namespace pg;
 
@@ -53,6 +60,82 @@ int fail(const std::exception& e, char* err, int errlen) {
     err[errlen - 1] = '\0';
   }
   return 1;
+}
+
+// ---------------------------------------------------------------------------
+// Row-block parallelism for the solver set-up's loops.  A loop over n
+// independent rows splits into `nb` contiguous blocks, one thread each
+// (block 0 on the calling thread).  Every output row is computed by the
+// serial loop's own arithmetic in its own order; counts add up exactly
+// and a block's output lands after its predecessors' (an exclusive
+// prefix over block counts), so the result is bit-equal to the serial
+// loop's for every thread count.  threads <= 1 runs serially.
+// ---------------------------------------------------------------------------
+
+int32_t block_count(int32_t threads, int64_t n) {
+  return (int32_t)std::max<int64_t>(1, std::min<int64_t>(threads, n));
+}
+
+// fn(t, lo, hi) for t = 0..nb-1 over rows [n t / nb, n (t + 1) / nb).
+// A block that throws has its exception rethrown once all have joined.
+template <class F>
+void run_blocks(int32_t nb, int64_t n, const F& fn) {
+  if (nb <= 1) {
+    fn(0, (int64_t)0, n);
+    return;
+  }
+  std::vector<std::exception_ptr> errs(nb);
+  auto one = [&](int32_t t) {
+    try {
+      fn(t, n * t / nb, n * (t + 1) / nb);
+    } catch (...) {
+      errs[t] = std::current_exception();
+    }
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(nb - 1);
+  for (int32_t t = 1; t < nb; t++) {
+    try {
+      pool.emplace_back(one, t);
+    } catch (const std::system_error&) {
+      one(t);  // no thread to be had: the block runs here
+    }
+  }
+  one(0);
+  for (auto& th : pool) th.join();
+  for (auto& e : errs)
+    if (e) std::rethrow_exception(e);
+}
+
+// A std::vector whose resize() leaves new elements uninitialized, so
+// the pages of a large output are first touched by the blocks that
+// fill it, each on its own thread, and not zeroed serially before.
+template <class T>
+struct NoInitAlloc : std::allocator<T> {
+  template <class U>
+  struct rebind {
+    using other = NoInitAlloc<U>;
+  };
+  NoInitAlloc() = default;
+  template <class U>
+  NoInitAlloc(const NoInitAlloc<U>&) noexcept {}
+  template <class U>
+  void construct(U* p) noexcept(std::is_nothrow_default_constructible_v<U>) {
+    ::new (static_cast<void*>(p)) U;
+  }
+  template <class U, class... A>
+  void construct(U* p, A&&... a) {
+    ::new (static_cast<void*>(p)) U(std::forward<A>(a)...);
+  }
+};
+template <class T>
+using Buf = std::vector<T, NoInitAlloc<T>>;
+
+// Exclusive prefix of per-block counts: (nb + 1) offsets.
+std::vector<int64_t> block_offsets(const std::vector<int64_t>& counts) {
+  std::vector<int64_t> off(counts.size() + 1, 0);
+  for (size_t t = 0; t < counts.size(); t++) off[t + 1] = off[t] + counts[t];
+  return off;
 }
 
 struct PolySetHandle {
@@ -519,42 +602,115 @@ int pg_build_ell(int64_t n, const int64_t* eu, const int64_t* ev,
 // off-offset remainder as row-sorted triplets.  One C++ pass replaces
 // ~15 nnz-sized numpy temporaries (first-touch page faults dominate at
 // millions of entries on the CI host).
+//
+// Two calls: pg_pack_dia / pg_pack_dia_csr choose the offsets and count
+// each block's main and remainder entries; pg_pack_dia_read, given the
+// caller's buffers of the sizes pg_pack_dia_sizes reports, walks the
+// entries again and writes them there (the remainder through one
+// scratch copy for its sort).  The inputs must stay alive until the
+// read.  Entries run by blocks of the source's units (COO entries or
+// CSR rows), in the source's order.
 // ---------------------------------------------------------------------------
 
+extern "C++" {
 namespace {
 
-struct DiaPackHandle {
-  std::vector<int64_t> offs;
-  std::vector<int32_t> widx_hi;
-  std::vector<uint16_t> widx_lo;
-  std::vector<double> wval;
-  std::vector<int32_t> rem_rows, rem_cols;
-  std::vector<double> rem_vals;
+// COO triplets.
+struct CooSource {
+  const int64_t* rows;
+  const int64_t* cols;
+  const double* vals;
+  int64_t ne;
+  int64_t units() const { return ne; }
+  template <class F>
+  void each(int64_t lo, int64_t hi, F&& f) const {
+    for (int64_t e = lo; e < hi; e++) f(rows[e], cols[e], vals[e]);
+  }
 };
 
-}  // namespace
-
-int pg_pack_dia(int64_t b, const int64_t* rows, const int64_t* cols,
-                const double* vals, int64_t ne, double coverage,
-                int32_t max_offsets, const int64_t* preset_offs,
-                int32_t n_preset, void** out, char* err, int errlen) {
-  try {
-    auto h = std::make_unique<DiaPackHandle>();
-    if (n_preset > 0) {
-      h->offs.assign(preset_offs, preset_offs + n_preset);
-      std::sort(h->offs.begin(), h->offs.end());
-    } else if (ne == 0) {
-      h->offs = {0};
-    } else {
-      int64_t bdmin = INT64_MAX, bdmax = INT64_MIN;
-      for (int64_t e = 0; e < ne; e++) {
-        int64_t bd = cols[e] / b - rows[e] / b;
-        bdmin = std::min(bdmin, bd);
-        bdmax = std::max(bdmax, bd);
+// A CSR matrix's off-diagonal entries, row/column ids mapped through
+// `pos` (padded positions) where given.
+struct CsrSource {
+  int64_t n_rows;
+  const int32_t* indptr;
+  const int32_t* indices;
+  const double* data;
+  const int64_t* pos;
+  int64_t units() const { return n_rows; }
+  template <class F>
+  void each(int64_t lo, int64_t hi, F&& f) const {
+    for (int64_t i = lo; i < hi; i++) {
+      const int64_t ri = pos ? pos[i] : i;
+      for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++) {
+        const int32_t j = indices[jj];
+        if (j == i) continue;
+        f(ri, pos ? (int64_t)pos[j] : (int64_t)j, data[jj]);
       }
-      std::vector<int64_t> cnt((size_t)(bdmax - bdmin + 1), 0);
-      for (int64_t e = 0; e < ne; e++)
-        cnt[(size_t)(cols[e] / b - rows[e] / b - bdmin)]++;
+    }
+  }
+};
+
+struct DiaPackHandle {
+  std::variant<CooSource, CsrSource> src;
+  int64_t b = 1;
+  int sh = -1;  // log2(b) where b is a power of two
+  int32_t nb = 1;
+  std::vector<int64_t> offs;
+  std::vector<int32_t> lut;  // block delta - offs.front() -> slot or -1
+  std::vector<int64_t> moff, roff;  // per-block output offsets
+
+  // Row/column block of an index: a shift where b is a power of two
+  // (indices are >= 0, so the same as the division).
+  int64_t blk(int64_t v) const { return sh >= 0 ? v >> sh : v / b; }
+  int32_t slot(int64_t r, int64_t c) const {
+    const int64_t k = blk(c) - blk(r) - offs.front();
+    return (k >= 0 && k < (int64_t)lut.size()) ? lut[(size_t)k] : -1;
+  }
+};
+
+template <class Src>
+void pack_plan(DiaPackHandle& h, const Src& src, double coverage,
+               int32_t max_offsets, const int64_t* preset_offs,
+               int32_t n_preset, int32_t threads) {
+  const int64_t units = src.units();
+  const int32_t nb = h.nb = block_count(threads, units);
+  std::vector<int64_t> ne_of(nb, 0);
+  if (n_preset > 0) {
+    h.offs.assign(preset_offs, preset_offs + n_preset);
+    std::sort(h.offs.begin(), h.offs.end());
+  } else {
+    std::vector<int64_t> bmin(nb, INT64_MAX), bmax(nb, INT64_MIN);
+    run_blocks(nb, units, [&](int32_t t, int64_t lo, int64_t hi) {
+      int64_t mn = INT64_MAX, mx = INT64_MIN, k = 0;  // locals: no
+      src.each(lo, hi, [&](int64_t r, int64_t c, double) {  // false sharing
+        const int64_t bd = h.blk(c) - h.blk(r);
+        mn = std::min(mn, bd);
+        mx = std::max(mx, bd);
+        k++;
+      });
+      bmin[t] = mn;
+      bmax[t] = mx;
+      ne_of[t] = k;
+    });
+    const int64_t ne = block_offsets(ne_of)[nb];
+    if (ne == 0) {
+      h.offs = {0};
+    } else {
+      const int64_t bdmin = *std::min_element(bmin.begin(), bmin.end());
+      const int64_t bdmax = *std::max_element(bmax.begin(), bmax.end());
+      // Block-delta histogram: one per block, summed (integers: exact).
+      const size_t nbins = (size_t)(bdmax - bdmin + 1);
+      std::vector<std::vector<int64_t>> hist(nb);
+      run_blocks(nb, units, [&](int32_t t, int64_t lo, int64_t hi) {
+        std::vector<int64_t> k(nbins, 0);
+        src.each(lo, hi, [&](int64_t r, int64_t c, double) {
+          k[(size_t)(h.blk(c) - h.blk(r) - bdmin)]++;
+        });
+        hist[t].swap(k);
+      });
+      std::vector<int64_t>& cnt = hist[0];
+      for (int32_t t = 1; t < nb; t++)
+        for (size_t k = 0; k < nbins; k++) cnt[k] += hist[t][k];
       std::vector<int64_t> present;
       for (int64_t d0 = 0; d0 < (int64_t)cnt.size(); d0++)
         if (cnt[d0]) present.push_back(d0);
@@ -566,67 +722,96 @@ int pg_pack_dia(int64_t b, const int64_t* rows, const int64_t* cols,
       int64_t covered = 0;
       bool has_zero = false;
       for (int64_t d0 : present) {
-        if ((int32_t)h->offs.size() >= max_offsets) break;
+        if ((int32_t)h.offs.size() >= max_offsets) break;
         int64_t delta = d0 + bdmin;
-        h->offs.push_back(delta);
+        h.offs.push_back(delta);
         has_zero |= delta == 0;
         covered += cnt[(size_t)d0];
         if ((double)covered >= coverage * (double)ne) break;
       }
-      if (!has_zero) h->offs.push_back(0);
-      std::sort(h->offs.begin(), h->offs.end());
+      if (!has_zero) h.offs.push_back(0);
+      std::sort(h.offs.begin(), h.offs.end());
     }
-    const int32_t d = (int32_t)h->offs.size();
-    const int64_t omin = h->offs.front(), omax = h->offs.back();
-    std::vector<int32_t> lut((size_t)(omax - omin + 1), -1);
-    for (int32_t s = 0; s < d; s++) lut[(size_t)(h->offs[s] - omin)] = s;
+  }
+  const int64_t omin = h.offs.front(), omax = h.offs.back();
+  h.lut.assign((size_t)(omax - omin + 1), -1);
+  for (int32_t s = 0; s < (int32_t)h.offs.size(); s++)
+    h.lut[(size_t)(h.offs[s] - omin)] = s;
 
-    // Count main/remainder split for exact allocations.
-    int64_t nmain = 0;
-    for (int64_t e = 0; e < ne; e++) {
-      int64_t bd = cols[e] / b - rows[e] / b;
-      nmain += (bd >= omin && bd <= omax && lut[(size_t)(bd - omin)] >= 0);
-    }
-    h->widx_hi.reserve(nmain);
-    h->widx_lo.reserve(nmain);
-    h->wval.reserve(nmain);
-    h->rem_rows.reserve(ne - nmain);
-    h->rem_cols.reserve(ne - nmain);
-    h->rem_vals.reserve(ne - nmain);
-    for (int64_t e = 0; e < ne; e++) {
-      const int64_t r = rows[e], c = cols[e];
-      const int64_t rb = r / b, cb = c / b;
-      const int64_t bd = cb - rb;
-      const int32_t slot =
-          (bd >= omin && bd <= omax) ? lut[(size_t)(bd - omin)] : -1;
-      if (slot >= 0) {
-        h->widx_hi.push_back((int32_t)((rb * d + slot) * b + (c - cb * b)));
-        h->widx_lo.push_back((uint16_t)(r - rb * b));
-        h->wval.push_back(vals[e]);
-      } else {
-        h->rem_rows.push_back((int32_t)r);
-        h->rem_cols.push_back((int32_t)c);
-        h->rem_vals.push_back(vals[e]);
-      }
-    }
-    // Remainder sorted by row, stable (matches the numpy stable
-    // argsort; rem_ell's bucketing depends on row grouping).
-    const int64_t nr = (int64_t)h->rem_rows.size();
-    std::vector<int64_t> order(nr);
-    for (int64_t i = 0; i < nr; i++) order[i] = i;
-    std::stable_sort(order.begin(), order.end(), [&](int64_t x, int64_t y) {
-      return h->rem_rows[x] < h->rem_rows[y];
+  // Each block's main/remainder counts and their exclusive prefixes.
+  std::vector<int64_t> nmain(nb, 0), nrem(nb, 0);
+  run_blocks(nb, units, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t m = 0, q = 0;
+    src.each(lo, hi, [&](int64_t r, int64_t c, double) {
+      if (h.slot(r, c) >= 0)
+        m++;
+      else
+        q++;
     });
-    std::vector<int32_t> rr(nr), rc(nr);
-    std::vector<double> rv(nr);
-    for (int64_t i = 0; i < nr; i++) {
-      rr[i] = h->rem_rows[order[i]];
-      rc[i] = h->rem_cols[order[i]];
-      rv[i] = h->rem_vals[order[i]];
-    }
-    h->rem_rows.swap(rr);
-    h->rem_cols.swap(rc);
-    h->rem_vals.swap(rv);
+    nmain[t] = m;
+    nrem[t] = q;
+  });
+  h.moff = block_offsets(nmain);
+  h.roff = block_offsets(nrem);
+}
+
+template <class Src>
+void pack_fill(const DiaPackHandle& h, const Src& src, int32_t* widx_hi,
+               uint16_t* widx_lo, double* wval, int32_t* rem_rows,
+               int32_t* rem_cols, double* rem_vals) {
+  const int32_t nb = h.nb;
+  const int64_t d = (int64_t)h.offs.size(), b = h.b;
+  // Main entries in place, order kept; the remainder in walk order
+  // first, then sorted by row, stable (matches the numpy stable
+  // argsort; rem_ell's bucketing depends on row grouping).
+  const int64_t nr = h.roff[nb];
+  Buf<int32_t> rr(nr), rc(nr);
+  Buf<double> rv(nr);
+  run_blocks(nb, src.units(), [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t m = h.moff[t], q = h.roff[t];
+    src.each(lo, hi, [&](int64_t r, int64_t c, double v) {
+      const int32_t slot = h.slot(r, c);
+      if (slot >= 0) {
+        const int64_t rb = h.blk(r), cb = h.blk(c);
+        widx_hi[m] = (int32_t)((rb * d + slot) * b + (c - cb * b));
+        widx_lo[m] = (uint16_t)(r - rb * b);
+        wval[m] = v;
+        m++;
+      } else {
+        rr[q] = (int32_t)r;
+        rc[q] = (int32_t)c;
+        rv[q] = v;
+        q++;
+      }
+    });
+  });
+  Buf<int64_t> order(nr);
+  for (int64_t i = 0; i < nr; i++) order[i] = i;
+  std::stable_sort(order.begin(), order.end(),
+                   [&](int64_t x, int64_t y) { return rr[x] < rr[y]; });
+  run_blocks(block_count(nb, nr / 65536), nr,
+             [&](int32_t, int64_t lo, int64_t hi) {
+               for (int64_t i = lo; i < hi; i++) {
+                 rem_rows[i] = rr[order[i]];
+                 rem_cols[i] = rc[order[i]];
+                 rem_vals[i] = rv[order[i]];
+               }
+             });
+}
+
+template <class Src>
+int pack_start(const Src& src, int64_t b, double coverage,
+               int32_t max_offsets, const int64_t* preset_offs,
+               int32_t n_preset, int32_t threads, void** out, char* err,
+               int errlen) {
+  try {
+    auto h = std::make_unique<DiaPackHandle>();
+    h->src = src;
+    h->b = b;
+    for (int k = 0; k < 62; k++)
+      if (b == ((int64_t)1 << k)) h->sh = k;
+    pack_plan(*h, src, coverage, max_offsets, preset_offs, n_preset,
+              threads);
     *out = h.release();
     return 0;
   } catch (const std::exception& e) {
@@ -634,63 +819,57 @@ int pg_pack_dia(int64_t b, const int64_t* rows, const int64_t* cols,
   }
 }
 
+}  // namespace
+}  // extern "C++"
+
+int pg_pack_dia(int64_t b, const int64_t* rows, const int64_t* cols,
+                const double* vals, int64_t ne, double coverage,
+                int32_t max_offsets, const int64_t* preset_offs,
+                int32_t n_preset, int32_t threads, void** out, char* err,
+                int errlen) {
+  return pack_start(CooSource{rows, cols, vals, ne}, b, coverage,
+                    max_offsets, preset_offs, n_preset, threads, out, err,
+                    errlen);
+}
+
 // CSR front-end for pg_pack_dia: walks the CSR structure directly
 // (diagonal entries skipped, row/col ids mapped through `pos`) instead
-// of materializing permuted COO triplets in numpy first — the AMG
-// hierarchy packs every level through this shape.
+// of materializing permuted COO triplets — the AMG hierarchy packs
+// every level through this shape.
 int pg_pack_dia_csr(int64_t n_rows, const int32_t* indptr,
                     const int32_t* indices, const double* data,
                     const int64_t* pos, int64_t b, double coverage,
-                    int32_t max_offsets, void** out, char* err, int errlen) {
-  try {
-    int64_t ne = 0;
-    for (int64_t i = 0; i < n_rows; i++)
-      for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++)
-        ne += indices[jj] != i;
-    std::vector<int64_t> rows(ne), cols(ne);
-    std::vector<double> vals(ne);
-    int64_t o = 0;
-    for (int64_t i = 0; i < n_rows; i++) {
-      const int64_t ri = pos ? pos[i] : i;
-      for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++) {
-        const int32_t j = indices[jj];
-        if (j == i) continue;
-        rows[o] = ri;
-        cols[o] = pos ? pos[j] : j;
-        vals[o] = data[jj];
-        o++;
-      }
-    }
-    return pg_pack_dia(b, rows.data(), cols.data(), vals.data(), ne,
-                       coverage, max_offsets, nullptr, 0, out, err, errlen);
-  } catch (const std::exception& e) {
-    return fail(e, err, errlen);
-  }
+                    int32_t max_offsets, int32_t threads, void** out,
+                    char* err, int errlen) {
+  return pack_start(CsrSource{n_rows, indptr, indices, data, pos}, b,
+                    coverage, max_offsets, nullptr, 0, threads, out, err,
+                    errlen);
 }
 
 void pg_pack_dia_sizes(void* h, int64_t* sizes) {
   DiaPackHandle* ph = (DiaPackHandle*)h;
   sizes[0] = (int64_t)ph->offs.size();
-  sizes[1] = (int64_t)ph->widx_hi.size();
-  sizes[2] = (int64_t)ph->rem_rows.size();
+  sizes[1] = ph->moff.back();
+  sizes[2] = ph->roff.back();
 }
 
-void pg_pack_dia_read(void* h, int64_t* offs, int32_t* widx_hi,
-                      uint16_t* widx_lo, double* wval, int32_t* rem_rows,
-                      int32_t* rem_cols, double* rem_vals) {
-  DiaPackHandle* ph = (DiaPackHandle*)h;
-  std::memcpy(offs, ph->offs.data(), ph->offs.size() * sizeof(int64_t));
-  std::memcpy(widx_hi, ph->widx_hi.data(),
-              ph->widx_hi.size() * sizeof(int32_t));
-  std::memcpy(widx_lo, ph->widx_lo.data(),
-              ph->widx_lo.size() * sizeof(uint16_t));
-  std::memcpy(wval, ph->wval.data(), ph->wval.size() * sizeof(double));
-  std::memcpy(rem_rows, ph->rem_rows.data(),
-              ph->rem_rows.size() * sizeof(int32_t));
-  std::memcpy(rem_cols, ph->rem_cols.data(),
-              ph->rem_cols.size() * sizeof(int32_t));
-  std::memcpy(rem_vals, ph->rem_vals.data(),
-              ph->rem_vals.size() * sizeof(double));
+int pg_pack_dia_read(void* h, int64_t* offs, int32_t* widx_hi,
+                     uint16_t* widx_lo, double* wval, int32_t* rem_rows,
+                     int32_t* rem_cols, double* rem_vals, char* err,
+                     int errlen) {
+  try {
+    DiaPackHandle* ph = (DiaPackHandle*)h;
+    std::memcpy(offs, ph->offs.data(), ph->offs.size() * sizeof(int64_t));
+    std::visit(
+        [&](const auto& src) {
+          pack_fill(*ph, src, widx_hi, widx_lo, wval, rem_rows, rem_cols,
+                    rem_vals);
+        },
+        ph->src);
+    return 0;
+  } catch (const std::exception& e) {
+    return fail(e, err, errlen);
+  }
 }
 
 void pg_pack_dia_free(void* h) { delete (DiaPackHandle*)h; }
@@ -763,26 +942,40 @@ int pg_hilbert_order(const double* xy, int64_t n, int32_t bits,
 // sqrt(d_i d_j) (d = positive-clamped diagonal, precomputed by the
 // caller).  Writes a CSR pattern into caller-allocated buffers
 // (out_indices sized >= input nnz) and returns the output nnz.  A is
-// row-sorted already, so no sort is needed — one pass replaces the
-// tocoo + boolean-mask + csr_matrix round trip.
+// row-sorted already, so no sort is needed — a count and a fill pass
+// by row blocks replace the tocoo + boolean-mask + csr_matrix round trip.
 // ---------------------------------------------------------------------------
 int64_t pg_strength_csr(int64_t n, const int32_t* indptr,
                         const int32_t* indices, const double* data,
                         const double* d, double theta, int32_t* out_indptr,
-                        int32_t* out_indices) {
-  int64_t o = 0;
+                        int32_t* out_indices, int32_t threads) {
+  auto strong = [&](int64_t i, int32_t jj) {
+    const int32_t j = indices[jj];
+    if (j == i) return false;
+    const double a = data[jj] < 0 ? -data[jj] : data[jj];
+    return a >= theta * std::sqrt(d[i] * d[j]);
+  };
+  // Count by row blocks, an exclusive prefix, then the fill.
+  const int32_t nb = block_count(threads, n);
+  std::vector<int64_t> counts(nb, 0);
+  run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t k = 0;
+    for (int64_t i = lo; i < hi; i++)
+      for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++)
+        k += strong(i, jj);
+    counts[t] = k;
+  });
+  const std::vector<int64_t> off = block_offsets(counts);
   out_indptr[0] = 0;
-  for (int64_t i = 0; i < n; i++) {
-    const double di = d[i];
-    for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++) {
-      const int32_t j = indices[jj];
-      if (j == i) continue;
-      const double a = data[jj] < 0 ? -data[jj] : data[jj];
-      if (a >= theta * std::sqrt(di * d[j])) out_indices[o++] = j;
+  run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t o = off[t];
+    for (int64_t i = lo; i < hi; i++) {
+      for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++)
+        if (strong(i, jj)) out_indices[o++] = indices[jj];
+      out_indptr[i + 1] = (int32_t)o;
     }
-    out_indptr[i + 1] = (int32_t)o;
-  }
-  return o;
+  });
+  return off[nb];
 }
 
 // ---------------------------------------------------------------------------
@@ -967,31 +1160,74 @@ int pg_ell_to_csr(int64_t n, int32_t k, const int32_t* cols,
 // |v| < drop_tol * sqrt(dc_i dc_j) are LUMPED into the diagonal, keeping
 // row sums (the Neumann constant-vector kernel) exact.  Per-row columns
 // emit in ascending order.
+//
+// Every pass runs by row blocks.  Memory is taken once, on the calling
+// thread, and written in place: the blocks allocate and free nothing
+// (each fresh page costs a fault, and page faults and unmaps do not run
+// in parallel on every host).
 // ---------------------------------------------------------------------------
 
 namespace {
 
 struct CsrHandle {
   int64_t n = 0;
-  std::vector<int32_t> indptr, indices;
-  std::vector<double> data;
+  Buf<int32_t> indptr;  // (n + 1,) row offsets of the result
+  // The result's entries, rows [lo_t, hi_t) of block t at base[t] on.
+  Buf<int32_t> ind;
+  Buf<double> val;
+  std::vector<int64_t> base;
 };
+
+// ptr[i + 1] holds row i's entry count on entry and its end offset on
+// return (ptr[0] = 0); returns the total.  Throws `what` past the int32
+// index range.
+int64_t prefix_rows(int32_t nb, int64_t n, int32_t* ptr, const char* what) {
+  std::vector<int64_t> sums(nb, 0);
+  run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t k = 0;
+    for (int64_t i = lo; i < hi; i++) k += ptr[i + 1];
+    sums[t] = k;
+  });
+  const std::vector<int64_t> off = block_offsets(sums);
+  if (off[nb] > INT32_MAX) throw GeomError(what);
+  ptr[0] = 0;
+  run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t o = off[t];
+    for (int64_t i = lo; i < hi; i++) {
+      o += ptr[i + 1];
+      ptr[i + 1] = (int32_t)o;
+    }
+  });
+  return off[nb];
+}
 
 }  // namespace
 
 int pg_galerkin(int64_t n, const int32_t* indptr, const int32_t* indices,
                 const double* data, const int32_t* agg, int64_t nc,
                 const double* dinv, double omega_p, double drop_tol,
-                void** out, char* err, int errlen) {
+                int32_t threads, void** out, char* err, int errlen) {
   try {
     auto h = std::make_unique<CsrHandle>();
     h->n = nc;
-    const int64_t nnz_a = indptr[n];
+    // Fine rows (P, P^T) and coarse rows (Ac, the drop filter) run by
+    // row blocks.
+    const int32_t nbf = block_count(threads, n);
+    const int32_t nbc = block_count(threads, nc);
+    // An epoch-stamped accumulator over coarse columns a block.
+    const size_t nbm = (size_t)std::max(nbf, nbc);
+    Buf<int32_t> stamps(nbm * nc);
+    Buf<double> accs(nbm * nc);
+    auto stamp_of = [&](int32_t t) {
+      int32_t* stamp = stamps.data() + (size_t)t * nc;
+      std::fill(stamp, stamp + nc, -1);
+      return stamp;
+    };
 
     // P in CSR (n x nc).  omega_p == 0 degenerates to one entry per row
     // (the aggregation indicator).
-    std::vector<int32_t> pptr(n + 1), pind;
-    std::vector<double> pval;
+    Buf<int32_t> pptr(n + 1), pind;
+    Buf<double> pval;
     if (omega_p == 0.0) {
       pind.resize(n);
       pval.assign(n, 1.0);
@@ -1001,17 +1237,13 @@ int pg_galerkin(int64_t n, const int32_t* indptr, const int32_t* indices,
       }
       pptr[n] = (int32_t)n;
     } else {
-      // Epoch-stamped accumulator over coarse columns: collapse the
+      // Row i of P into (stamp, acc) over `touched`, sorted: the
       // per-row contributions {agg[i]: +1} + {agg[j]: -omega_p dinv_i
       // a_ij} (j runs over the FULL row, diagonal included — matching
-      // A @ P0).
-      std::vector<int32_t> stamp(nc, -1);
-      std::vector<double> acc(nc, 0.0);
-      std::vector<int32_t> touched;
-      pind.reserve(nnz_a);  // upper bound: <= row degree + 1 per row
-      pval.reserve(nnz_a);
-      pptr[0] = 0;
-      for (int64_t i = 0; i < n; i++) {
+      // A @ P0).  Run twice, the same arithmetic each time: to count
+      // the row's nonzeros, then to write them at its offset.
+      auto p_row = [&](int64_t i, int32_t* stamp, double* acc,
+                       std::vector<int32_t>& touched) {
         touched.clear();
         const double w = -omega_p * dinv[i];
         const int32_t ai = agg[i];
@@ -1028,116 +1260,192 @@ int pg_galerkin(int64_t n, const int32_t* indptr, const int32_t* indices,
           acc[J] += w * data[jj];
         }
         std::sort(touched.begin(), touched.end());
-        for (int32_t J : touched) {
-          if (acc[J] != 0.0) {
-            pind.push_back(J);
-            pval.push_back(acc[J]);
+      };
+      run_blocks(nbf, n, [&](int32_t t, int64_t lo, int64_t hi) {
+        int32_t* stamp = stamp_of(t);
+        double* acc = accs.data() + (size_t)t * nc;
+        std::vector<int32_t> touched;
+        for (int64_t i = lo; i < hi; i++) {
+          p_row(i, stamp, acc, touched);
+          int32_t k = 0;
+          for (int32_t J : touched) k += acc[J] != 0.0;
+          pptr[i + 1] = k;
+        }
+      });
+      const int64_t nnz_p =
+          prefix_rows(nbf, n, pptr.data(),
+                      "galerkin: prolongation nnz exceeds int32 range");
+      pind.resize(nnz_p);
+      pval.resize(nnz_p);
+      run_blocks(nbf, n, [&](int32_t t, int64_t lo, int64_t hi) {
+        int32_t* stamp = stamp_of(t);
+        double* acc = accs.data() + (size_t)t * nc;
+        std::vector<int32_t> touched;
+        for (int64_t i = lo; i < hi; i++) {
+          p_row(i, stamp, acc, touched);
+          int32_t o = pptr[i];
+          for (int32_t J : touched) {
+            if (acc[J] != 0.0) {
+              pind[o] = J;
+              pval[o] = acc[J];
+              o++;
+            }
           }
         }
-        pptr[i + 1] = (int32_t)pind.size();
-      }
+      });
     }
 
-    // P^T by counting sort (coarse-row-grouped (fine row, value) lists).
-    const int64_t nnz_p = (int64_t)pind.size();
+    // P^T by counting sort (coarse-row-grouped (fine row, value) lists,
+    // fine rows ascending in each): a histogram per fine-row block, then
+    // block t's cursor in coarse row I starts after the entries of
+    // blocks < t, so the fill keeps the serial sort's order.
+    const int64_t nnz_p = pptr[n];
+    Buf<int32_t> curs((size_t)nbf * nc);
+    run_blocks(nbf, n, [&](int32_t t, int64_t lo, int64_t hi) {
+      int32_t* cur = curs.data() + (size_t)t * nc;
+      std::fill(cur, cur + nc, 0);
+      for (int32_t e = pptr[lo]; e < pptr[hi]; e++) cur[pind[e]]++;
+    });
     std::vector<int32_t> tptr(nc + 1, 0);
-    for (int64_t e = 0; e < nnz_p; e++) tptr[pind[e] + 1]++;
-    for (int64_t I = 0; I < nc; I++) tptr[I + 1] += tptr[I];
-    std::vector<int32_t> trow(nnz_p);
-    std::vector<double> tval(nnz_p);
-    {
-      std::vector<int32_t> cur(tptr.begin(), tptr.end() - 1);
-      for (int64_t i = 0; i < n; i++)
+    for (int64_t I = 0; I < nc; I++) {
+      int32_t o = tptr[I];
+      for (int32_t t = 0; t < nbf; t++) {
+        int32_t& c = curs[(size_t)t * nc + I];
+        const int32_t k = c;
+        c = o;
+        o += k;
+      }
+      tptr[I + 1] = o;
+    }
+    Buf<int32_t> trow(nnz_p);
+    Buf<double> tval(nnz_p);
+    run_blocks(nbf, n, [&](int32_t t, int64_t lo, int64_t hi) {
+      int32_t* cur = curs.data() + (size_t)t * nc;
+      for (int64_t i = lo; i < hi; i++)
         for (int32_t e = pptr[i]; e < pptr[i + 1]; e++) {
           const int32_t o = cur[pind[e]]++;
           trow[o] = (int32_t)i;
           tval[o] = pval[e];
         }
-    }
+    });
+
+    // Room for Ac: coarse row I makes at most min(nc, sum over its fine
+    // rows i of sum over A_i's columns j of |P_j|) entries; each block
+    // writes its rows one after another from its own base.  Only the
+    // pages written are touched.
+    Buf<int32_t> wrow(n);
+    run_blocks(nbf, n, [&](int32_t, int64_t lo, int64_t hi) {
+      for (int64_t i = lo; i < hi; i++) {
+        int32_t k = 0;
+        for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++)
+          k += pptr[indices[jj] + 1] - pptr[indices[jj]];
+        wrow[i] = k;
+      }
+    });
+    std::vector<int64_t> room(nbc, 0);
+    run_blocks(nbc, nc, [&](int32_t t, int64_t lo, int64_t hi) {
+      int64_t k = 0;
+      for (int64_t I = lo; I < hi; I++) {
+        int64_t u = 0;
+        for (int32_t q = tptr[I]; q < tptr[I + 1]; q++) u += wrow[trow[q]];
+        k += std::min<int64_t>(u, nc);
+      }
+      room[t] = k;
+    });
+    h->base = block_offsets(room);
+    h->ind.resize(h->base[nbc]);
+    h->val.resize(h->base[nbc]);
+    h->indptr.resize(nc + 1);
 
     // Ac row by row: Ac_I = sum_{(i, p) in PT_I} p * (A P)_i, expanding
     // (A P)_i on the fly (avoids materializing the B = A P intermediate;
     // P rows average ~2-3 entries so the recompute is cheap).
-    std::vector<int32_t> stamp(nc, -1);
-    std::vector<double> acc(nc, 0.0);
-    std::vector<int32_t> touched;
-    h->indptr.resize(nc + 1);
-    h->indptr[0] = 0;
-    h->indices.reserve(nnz_a / 2);
-    h->data.reserve(nnz_a / 2);
-    for (int64_t I = 0; I < nc; I++) {
-      touched.clear();
-      for (int32_t t = tptr[I]; t < tptr[I + 1]; t++) {
-        const int32_t i = trow[t];
-        const double p = tval[t];
-        for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++) {
-          const double w = p * data[jj];
-          const int32_t j = indices[jj];
-          for (int32_t e = pptr[j]; e < pptr[j + 1]; e++) {
-            const int32_t J = pind[e];
-            if (stamp[J] != (int32_t)I) {
-              stamp[J] = (int32_t)I;
-              acc[J] = 0.0;
-              touched.push_back(J);
+    run_blocks(nbc, nc, [&](int32_t t, int64_t lo, int64_t hi) {
+      int32_t* stamp = stamp_of(t);
+      double* acc = accs.data() + (size_t)t * nc;
+      std::vector<int32_t> touched;
+      int64_t o = h->base[t];
+      for (int64_t I = lo; I < hi; I++) {
+        touched.clear();
+        for (int32_t q = tptr[I]; q < tptr[I + 1]; q++) {
+          const int32_t i = trow[q];
+          const double p = tval[q];
+          for (int32_t jj = indptr[i]; jj < indptr[i + 1]; jj++) {
+            const double w = p * data[jj];
+            const int32_t j = indices[jj];
+            for (int32_t e = pptr[j]; e < pptr[j + 1]; e++) {
+              const int32_t J = pind[e];
+              if (stamp[J] != (int32_t)I) {
+                stamp[J] = (int32_t)I;
+                acc[J] = 0.0;
+                touched.push_back(J);
+              }
+              acc[J] += w * pval[e];
             }
-            acc[J] += w * pval[e];
           }
         }
-      }
-      std::sort(touched.begin(), touched.end());
-      for (int32_t J : touched) {
-        // Exact zeros are dropped (eliminate_zeros parity) EXCEPT the
-        // diagonal when the drop filter runs — lumping needs a stored
-        // diagonal slot in every row (a whole-component aggregate has
-        // an exactly-zero Galerkin diagonal).
-        if (acc[J] != 0.0 || (drop_tol > 0.0 && J == (int32_t)I)) {
-          h->indices.push_back(J);
-          h->data.push_back(acc[J]);
+        std::sort(touched.begin(), touched.end());
+        const int64_t start = o;
+        for (int32_t J : touched) {
+          // Exact zeros are dropped (eliminate_zeros parity) EXCEPT the
+          // diagonal when the drop filter runs — lumping needs a stored
+          // diagonal slot in every row (a whole-component aggregate has
+          // an exactly-zero Galerkin diagonal).
+          if (acc[J] != 0.0 || (drop_tol > 0.0 && J == (int32_t)I)) {
+            h->ind[o] = J;
+            h->val[o] = acc[J];
+            o++;
+          }
         }
+        h->indptr[I + 1] = (int32_t)(o - start);
       }
-      if ((int64_t)h->indices.size() > INT32_MAX)
-        throw GeomError("galerkin: coarse nnz exceeds int32 range");
-      h->indptr[I + 1] = (int32_t)h->indices.size();
-    }
+    });
 
     if (drop_tol > 0.0) {
       // Fused sparsify + lump (amg.build_hierarchy_dia drop_tol
       // semantics): needs the full coarse diagonal first, then one
-      // in-place compaction pass.
-      std::vector<double> dc(nc, 1.0);
-      for (int64_t I = 0; I < nc; I++)
-        for (int32_t e = h->indptr[I]; e < h->indptr[I + 1]; e++)
-          if (h->indices[e] == (int32_t)I && h->data[e] > 0.0)
-            dc[I] = h->data[e];
-      int64_t o = 0;
-      int32_t prev_end = h->indptr[0];
-      for (int64_t I = 0; I < nc; I++) {
-        double lump = 0.0;
-        int64_t diag_at = -1;
-        for (int32_t e = prev_end; e < h->indptr[I + 1]; e++) {
-          const int32_t J = h->indices[e];
-          const double v = h->data[e];
-          if (J == (int32_t)I) {
-            diag_at = o;
-          } else if (std::abs(v) < drop_tol * std::sqrt(dc[I] * dc[J])) {
-            lump += v;
-            continue;
+      // compaction pass, in place in each block's rows.
+      Buf<double> dc(nc);
+      run_blocks(nbc, nc, [&](int32_t t, int64_t lo, int64_t hi) {
+        int64_t r = h->base[t];
+        for (int64_t I = lo; I < hi; I++) {
+          dc[I] = 1.0;
+          for (int32_t k = 0; k < h->indptr[I + 1]; k++)
+            if (h->ind[r + k] == (int32_t)I && h->val[r + k] > 0.0)
+              dc[I] = h->val[r + k];
+          r += h->indptr[I + 1];
+        }
+      });
+      run_blocks(nbc, nc, [&](int32_t t, int64_t lo, int64_t hi) {
+        int64_t r = h->base[t], o = r;  // read, write: o <= r
+        for (int64_t I = lo; I < hi; I++) {
+          double lump = 0.0;
+          int64_t diag_at = -1;
+          const int64_t start = o, end = r + h->indptr[I + 1];
+          for (; r < end; r++) {
+            const int32_t J = h->ind[r];
+            const double v = h->val[r];
+            if (J == (int32_t)I) {
+              diag_at = o;
+            } else if (std::abs(v) < drop_tol * std::sqrt(dc[I] * dc[J])) {
+              lump += v;
+              continue;
+            }
+            h->ind[o] = J;
+            h->val[o] = v;
+            o++;
           }
-          h->indices[o] = J;
-          h->data[o] = v;
-          o++;
+          if (lump != 0.0) {
+            if (diag_at < 0)  // cannot happen: diagonals always emit
+              throw GeomError("galerkin: missing diagonal slot");
+            h->val[diag_at] += lump;
+          }
+          h->indptr[I + 1] = (int32_t)(o - start);
         }
-        if (lump != 0.0) {
-          if (diag_at < 0)  // cannot happen: diagonals always emit
-            throw GeomError("galerkin: missing diagonal slot");
-          h->data[diag_at] += lump;
-        }
-        prev_end = h->indptr[I + 1];
-        h->indptr[I + 1] = (int32_t)o;
-      }
-      h->indices.resize(o);
-      h->data.resize(o);
+      });
     }
+    prefix_rows(nbc, nc, h->indptr.data(),
+                "galerkin: coarse nnz exceeds int32 range");
 
     *out = h.release();
     return 0;
@@ -1149,15 +1457,22 @@ int pg_galerkin(int64_t n, const int32_t* indptr, const int32_t* indices,
 void pg_csr_sizes(void* h, int64_t* sizes) {
   CsrHandle* ch = (CsrHandle*)h;
   sizes[0] = ch->n;
-  sizes[1] = (int64_t)ch->indices.size();
+  sizes[1] = ch->indptr[ch->n];
 }
 
+// The result into caller buffers: block t's rows from ind[base[t]] on,
+// one copy a block.
 void pg_csr_read(void* h, int32_t* indptr, int32_t* indices, double* data) {
   CsrHandle* ch = (CsrHandle*)h;
-  std::memcpy(indptr, ch->indptr.data(), ch->indptr.size() * sizeof(int32_t));
-  std::memcpy(indices, ch->indices.data(),
-              ch->indices.size() * sizeof(int32_t));
-  std::memcpy(data, ch->data.data(), ch->data.size() * sizeof(double));
+  const int64_t n = ch->n;
+  std::memcpy(indptr, ch->indptr.data(), (n + 1) * sizeof(int32_t));
+  const int32_t nb = (int32_t)ch->base.size() - 1;
+  run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+    const int64_t a = ch->indptr[lo], k = ch->indptr[hi] - a;
+    std::memcpy(indices + a, ch->ind.data() + ch->base[t],
+                k * sizeof(int32_t));
+    std::memcpy(data + a, ch->val.data() + ch->base[t], k * sizeof(double));
+  });
 }
 
 void pg_csr_free(void* h) { delete (CsrHandle*)h; }
@@ -1172,35 +1487,51 @@ void pg_csr_free(void* h) { delete (CsrHandle*)h; }
 int pg_csr_permute(int64_t n, const int32_t* indptr, const int32_t* indices,
                    const double* data, const int64_t* perm,
                    int32_t* out_indptr, int32_t* out_indices,
-                   double* out_data, char* err, int errlen) {
+                   double* out_data, int32_t threads, char* err,
+                   int errlen) {
   try {
-    std::vector<int32_t> inv(n);  // old -> new
-    for (int64_t i = 0; i < n; i++) inv[perm[i]] = (int32_t)i;
+    const int32_t nb = block_count(threads, n);
+    Buf<int32_t> inv(n);  // old -> new
+    run_blocks(nb, n, [&](int32_t, int64_t lo, int64_t hi) {
+      for (int64_t i = lo; i < hi; i++) inv[perm[i]] = (int32_t)i;
+    });
+    // Output rows by blocks: per-block entry counts, their prefix, then
+    // each block fills its rows.
+    std::vector<int64_t> counts(nb, 0);
+    run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+      int64_t k = 0;
+      for (int64_t i = lo; i < hi; i++)
+        k += indptr[perm[i] + 1] - indptr[perm[i]];
+      counts[t] = k;
+    });
+    const std::vector<int64_t> off = block_offsets(counts);
     out_indptr[0] = 0;
-    int64_t o = 0;
-    for (int64_t i = 0; i < n; i++) {
-      const int64_t old = perm[i];
-      const int64_t start = o;
-      for (int32_t jj = indptr[old]; jj < indptr[old + 1]; jj++) {
-        out_indices[o] = inv[indices[jj]];
-        out_data[o] = data[jj];
-        o++;
-      }
-      // Insertion sort by column (row degrees are small).
-      for (int64_t a = start + 1; a < o; a++) {
-        const int32_t ca = out_indices[a];
-        const double va = out_data[a];
-        int64_t b = a - 1;
-        while (b >= start && out_indices[b] > ca) {
-          out_indices[b + 1] = out_indices[b];
-          out_data[b + 1] = out_data[b];
-          b--;
+    run_blocks(nb, n, [&](int32_t t, int64_t lo, int64_t hi) {
+      int64_t o = off[t];
+      for (int64_t i = lo; i < hi; i++) {
+        const int64_t old = perm[i];
+        const int64_t start = o;
+        for (int32_t jj = indptr[old]; jj < indptr[old + 1]; jj++) {
+          out_indices[o] = inv[indices[jj]];
+          out_data[o] = data[jj];
+          o++;
         }
-        out_indices[b + 1] = ca;
-        out_data[b + 1] = va;
+        // Insertion sort by column (row degrees are small).
+        for (int64_t a = start + 1; a < o; a++) {
+          const int32_t ca = out_indices[a];
+          const double va = out_data[a];
+          int64_t b = a - 1;
+          while (b >= start && out_indices[b] > ca) {
+            out_indices[b + 1] = out_indices[b];
+            out_data[b + 1] = out_data[b];
+            b--;
+          }
+          out_indices[b + 1] = ca;
+          out_data[b + 1] = va;
+        }
+        out_indptr[i + 1] = (int32_t)o;
       }
-      out_indptr[i + 1] = (int32_t)o;
-    }
+    });
     return 0;
   } catch (const std::exception& e) {
     return fail(e, err, errlen);

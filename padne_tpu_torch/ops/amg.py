@@ -30,56 +30,49 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..utils.validation import checked
 from . import assembly, bell, dia
 
 
 def _lambda_max_dinv_a(A, iters: int = 12, seed: int = 3) -> float:
     """Power-iteration estimate of lambda_max(D^-1 A) (host, a dozen CSR
-    SpMVs).  Falls back to the Gershgorin-style bound 2.0 on degenerate
-    input."""
+    SpMVs).  The iterates live in two buffers: no fresh pages an
+    iteration.  Falls back to the Gershgorin-style bound 2.0 on
+    degenerate input."""
     n = A.shape[0]
     if n == 0:
         return 2.0
     d = np.asarray(A.diagonal())
     dinv = 1.0 / np.where(d > 0, d, 1.0)
+    y, x_next = np.empty(n), np.empty(n)
+
+    def dinv_a(v):
+        return np.multiply(dinv, A @ v, out=y)
+
     x = np.random.default_rng(seed).standard_normal(n)
     for _ in range(iters):
-        y = dinv * (A @ x)
+        y = dinv_a(x)
         ny = np.linalg.norm(y)
         if not np.isfinite(ny) or ny == 0:
             return 2.0
-        x = y / ny
-    lam = float(x @ (dinv * (A @ x)))
+        x = np.divide(y, ny, out=x_next)
+    lam = float(x @ dinv_a(x))
     if not np.isfinite(lam) or lam <= 0:
         return 2.0
     return lam
 
 
-def _strength_pattern(A, theta: float):
+def _strength_pattern(A, theta: float, threads=None):
     """(indptr, indices) int32 CSR pattern of the strong-connection graph
-    |a_ij| >= theta * sqrt(d_i d_j), diagonal excluded (one native pass)."""
-    import ctypes
-
+    |a_ij| >= theta * sqrt(d_i d_j), diagonal excluded (native, by row
+    blocks; `threads` as native.threads_for takes it)."""
     from .. import native
 
     A = A.tocsr()
-    n = A.shape[0]
     d = np.asarray(A.diagonal())
-    d = np.ascontiguousarray(np.where(d > 0, d, 1.0))
-    indptr = np.ascontiguousarray(A.indptr, dtype=np.int32)
-    indices = np.ascontiguousarray(A.indices, dtype=np.int32)
-    data = np.ascontiguousarray(A.data, dtype=np.float64)
-    out_indptr = np.empty(n + 1, dtype=np.int32)
-    out_indices = np.empty(len(indices), dtype=np.int32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f64p = ctypes.POINTER(ctypes.c_double)
-    nnz = native.lib.pg_strength_csr(
-        n, indptr.ctypes.data_as(i32p), indices.ctypes.data_as(i32p),
-        data.ctypes.data_as(f64p), d.ctypes.data_as(f64p), float(theta),
-        out_indptr.ctypes.data_as(i32p), out_indices.ctypes.data_as(i32p),
-    )
-    return out_indptr, out_indices[:nnz]
+    return native.strength_csr(A, np.where(d > 0, d, 1.0), theta,
+                               threads=threads)
 
 
 def _aggregate_capped(A, cap: int, theta: float = 0.08, strength=None):
@@ -134,6 +127,9 @@ class AlignedHierarchy:
     coarse_sp: object = None
     coarse_nL: int = 0
     coarse_npL: int = 0
+    # The most threads a native set-up loop of the build ran on
+    # (native.threads_for), 1 where all ran serially.
+    setup_threads: int = 1
 
     @property
     def coarse_inv(self) -> np.ndarray:
@@ -253,24 +249,36 @@ def build_hierarchy_dia(
 
     coarse_eigh: the host coarse inverse by the syevd pseudo-inverse
     alone (_eigh_pinv), without the Cholesky fast path (the JAX
-    package's PADNE_TPU_COARSE_EIGH)."""
+    package's PADNE_TPU_COARSE_EIGH).
+
+    The native loops (permutation, strength filter, DIA packing,
+    Galerkin product) run by row blocks on native.threads_for(rows)
+    threads, with the serial loop's bits (`setup_threads`: the most).
+    Spans: `hierarchy.order` (Hilbert orders, permutation),
+    `hierarchy.aggregate` (strength, aggregation), `hierarchy.lambda`,
+    `hierarchy.pack`, `hierarchy.galerkin` a level, and
+    `hierarchy.coarse_inv` where the host coarse inverse is built."""
     import scipy.sparse
+
+    from .. import native
 
     A = ell.to_scipy() if a_csr is None else a_csr
     n0 = A.shape[0]
-    # Group-aware sweep: stacked layers share one (x, y) footprint, and
-    # a layer-blind sweep interleaves them off the slab offsets.
-    perm0 = bell.hilbert_order(coords, group=group)
-    inv0 = np.empty(n0, dtype=np.int64)
-    inv0[perm0] = np.arange(n0)
-    if A.nnz >= 200_000:
-        from .. import native
-
-        A = native.csr_permute(A, perm0)
-    else:
-        A = A[perm0][:, perm0].tocsr()
-    lvl_group = (np.asarray(group)[perm0] if group is not None else None)
-    lvl_coords = coords[perm0]
+    threads = 1
+    with spans.span("hierarchy.order"):
+        # Group-aware sweep: stacked layers share one (x, y) footprint,
+        # and a layer-blind sweep interleaves them off the slab offsets.
+        perm0 = bell.hilbert_order(coords, group=group)
+        inv0 = np.empty(n0, dtype=np.int64)
+        inv0[perm0] = np.arange(n0)
+        if A.nnz >= 200_000:
+            A = native.csr_permute(A, perm0)
+            threads = native.threads_for(n0)
+        else:
+            A = A[perm0][:, perm0].tocsr()
+        lvl_group = (np.asarray(group)[perm0] if group is not None
+                     else None)
+        lvl_coords = coords[perm0]
 
     levels = []
     all_pos = []        # per level: row index -> padded position
@@ -282,42 +290,51 @@ def build_hierarchy_dia(
         # Deep levels relax the strength filter (denser, heterogeneous
         # Galerkin operators would otherwise stall coarsening).
         theta_l = theta if level_i < 3 else theta / 4.0
-        strength = _strength_pattern(A, theta_l)
-        agg, nc = _aggregate_capped(A, cap_l, theta_l, strength=strength)
-        while cap_l > 2 and nl / nc < 0.7 * cap_l:
-            cap_l //= 2
+        threads = max(threads, native.threads_for(nl))
+        # The estimate comes first: its norms leave numpy's BLAS threads
+        # spinning for a while, and the mostly serial aggregation and
+        # ordering, not the threaded pack and Galerkin product, then
+        # share the cores with them.
+        with spans.span("hierarchy.lambda"):
+            # 10% margin: an underestimated lambda_max would push
+            # omega_s past the Jacobi stability bound.
+            lam = 1.1 * _lambda_max_dinv_a(A, iters=16)
+        with spans.span("hierarchy.aggregate"):
+            strength = _strength_pattern(A, theta_l)
             agg, nc = _aggregate_capped(A, cap_l, theta_l,
                                         strength=strength)
-        if nc >= nl or nc == 0:
-            break
-        if nc > 0.6 * nl:
-            # Coarsening stalled: force progress with unfiltered pairwise
-            # aggregation.
-            agg, nc = _aggregate_capped(A, 2, theta=0.0)
-            cap_l = 2
-            if nc >= nl or nc == 0 or nc > 0.8 * nl:
+            while cap_l > 2 and nl / nc < 0.7 * cap_l:
+                cap_l //= 2
+                agg, nc = _aggregate_capped(A, cap_l, theta_l,
+                                            strength=strength)
+            if nc >= nl or nc == 0:
                 break
+            if nc > 0.6 * nl:
+                # Coarsening stalled: force progress with unfiltered
+                # pairwise aggregation.
+                agg, nc = _aggregate_capped(A, 2, theta=0.0)
+                cap_l = 2
+                if nc >= nl or nc == 0 or nc > 0.8 * nl:
+                    break
 
-        # Re-Hilbert-order the coarse level by aggregate centroids so
-        # every level keeps the locality the offsets rely on.
-        csum = np.zeros((nc, 2))
-        np.add.at(csum, agg, lvl_coords)
-        ccnt = np.bincount(agg, minlength=nc).astype(float)
-        coords_c = csum / np.maximum(ccnt, 1.0)[:, None]
-        group_c = None
-        if lvl_group is not None:
-            group_c = np.zeros(nc, dtype=lvl_group.dtype)
-            group_c[agg] = lvl_group
-        hperm = bell.hilbert_order(coords_c, group=group_c)
-        hinv = np.empty(nc, dtype=np.int64)
-        hinv[hperm] = np.arange(nc)
-        agg = hinv[agg]
-        coords_c = coords_c[hperm]
-        if group_c is not None:
-            group_c = group_c[hperm]
-        # 10% margin: an underestimated lambda_max would push omega_s
-        # past the Jacobi stability bound.
-        lam = 1.1 * _lambda_max_dinv_a(A, iters=16)
+        with spans.span("hierarchy.order"):
+            # Re-Hilbert-order the coarse level by aggregate centroids
+            # so every level keeps the locality the offsets rely on.
+            csum = np.zeros((nc, 2))
+            np.add.at(csum, agg, lvl_coords)
+            ccnt = np.bincount(agg, minlength=nc).astype(float)
+            coords_c = csum / np.maximum(ccnt, 1.0)[:, None]
+            group_c = None
+            if lvl_group is not None:
+                group_c = np.zeros(nc, dtype=lvl_group.dtype)
+                group_c[agg] = lvl_group
+            hperm = bell.hilbert_order(coords_c, group=group_c)
+            hinv = np.empty(nc, dtype=np.int64)
+            hinv[hperm] = np.arange(nc)
+            agg = hinv[agg]
+            coords_c = coords_c[hperm]
+            if group_c is not None:
+                group_c = group_c[hperm]
         omega_s = min(alpha, 1.6) / lam
         # Smooth only the top levels (smoothing densifies the Galerkin
         # operators and destroys the block-offset structure).
@@ -325,76 +342,75 @@ def build_hierarchy_dia(
         d = np.asarray(A.diagonal())
         dinv = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
 
-        # Padded positions for this level's rows.
-        order = np.argsort(agg, kind="stable")
-        slot = np.empty(nl, dtype=np.int64)
-        counts = np.bincount(agg, minlength=nc)
-        starts = np.concatenate([[0], np.cumsum(counts)])
-        slot[order] = np.arange(nl) - starts[agg[order]]
-        pos = agg * cap_l + slot
-        np_l = max(((cap_l * nc + 1023) // 1024) * 1024, 1024)
-        # Only a prefix of levels shards: once a level is too small (or
-        # not shardable), it and every deeper level run on one device.
-        shard_l = (tp > 1 and cap_l * nc >= max(shard_min, tp * 1024)
-                   and (not levels or levels[-1].shard))
-        if shard_l:
-            np_l = -(-np_l // (tp * 1024)) * (tp * 1024)
+        with spans.span("hierarchy.pack"):
+            # Padded positions for this level's rows.
+            order = np.argsort(agg, kind="stable")
+            slot = np.empty(nl, dtype=np.int64)
+            counts = np.bincount(agg, minlength=nc)
+            starts = np.concatenate([[0], np.cumsum(counts)])
+            slot[order] = np.arange(nl) - starts[agg[order]]
+            pos = agg * cap_l + slot
+            np_l = max(((cap_l * nc + 1023) // 1024) * 1024, 1024)
+            # Only a prefix of levels shards: once a level is too small (or
+            # not shardable), it and every deeper level run on one device.
+            shard_l = (tp > 1 and cap_l * nc >= max(shard_min, tp * 1024)
+                       and (not levels or levels[-1].shard))
+            if shard_l:
+                np_l = -(-np_l // (tp * 1024)) * (tp * 1024)
 
-        diag_pad = np.zeros(np_l)
-        diag_pad[pos] = np.asarray(A.diagonal(), dtype=np.float64)
-        widen_deep = level_i > 0 and not shard_l
-        mo_l = max_offsets if not widen_deep else (
-            deep_max_offsets if deep_max_offsets is not None
-            else max_offsets)
-        cov_l = coverage if not widen_deep else (
-            deep_coverage if deep_coverage is not None else coverage)
-        pack = dia.pack_csr_pos_as_dia(
-            A, pos, diag=diag_pad, coverage=cov_l,
-            max_offsets=mo_l, np_override=np_l,
-        )
-        if shard_l:
-            from . import dia_sharded
+            diag_pad = np.zeros(np_l)
+            diag_pad[pos] = np.asarray(A.diagonal(), dtype=np.float64)
+            widen_deep = level_i > 0 and not shard_l
+            mo_l = max_offsets if not widen_deep else (
+                deep_max_offsets if deep_max_offsets is not None
+                else max_offsets)
+            cov_l = coverage if not widen_deep else (
+                deep_coverage if deep_coverage is not None else coverage)
+            pack = dia.pack_csr_pos_as_dia(
+                A, pos, diag=diag_pad, coverage=cov_l,
+                max_offsets=mo_l, np_override=np_l)
+            if shard_l:
+                from . import dia_sharded
 
-            shard_l = dia_sharded.shardable(pack, tp)
-        dinv_pad = np.zeros(np_l)
-        dinv_pad[pos] = dinv
-        all_pos.append(pos)
+                shard_l = dia_sharded.shardable(pack, tp)
+            dinv_pad = np.zeros(np_l)
+            dinv_pad[pos] = dinv
+            all_pos.append(pos)
 
-        # Galerkin coarse operator (aggregate-id order) with the smoothed
-        # prolongation and the drop filter: relatively tiny couplings are
-        # dropped and LUMPED into the diagonal so row sums (the Neumann
-        # kernel) are preserved.
-        if A.nnz >= 200_000:
-            from .. import native
-
-            Ac = native.galerkin(A, agg, nc, dinv, omega_p, drop_tol)
-        else:
-            P0 = scipy.sparse.csr_matrix(
-                (np.ones(nl), (np.arange(nl), agg)), shape=(nl, nc)
-            )
-            if omega_p:
-                P = (P0
-                     - omega_p * (scipy.sparse.diags(dinv) @ (A @ P0))
-                     ).tocsr()
+        with spans.span("hierarchy.galerkin"):
+            # Galerkin coarse operator (aggregate-id order) with the smoothed
+            # prolongation and the drop filter: relatively tiny couplings are
+            # dropped and LUMPED into the diagonal so row sums (the Neumann
+            # kernel) are preserved.
+            if A.nnz >= 200_000:
+                Ac = native.galerkin(A, agg, nc, dinv, omega_p, drop_tol)
             else:
-                P = P0
-            Ac = (P.T @ A @ P).tocsr()
-            Ac.eliminate_zeros()
-            if drop_tol:
-                dc = np.asarray(Ac.diagonal())
-                dc = np.where(dc > 0, dc, 1.0)
-                coo_c = Ac.tocoo()
-                keep = (coo_c.row == coo_c.col) | (
-                    np.abs(coo_c.data)
-                    >= drop_tol * np.sqrt(dc[coo_c.row] * dc[coo_c.col])
+                P0 = scipy.sparse.csr_matrix(
+                    (np.ones(nl), (np.arange(nl), agg)), shape=(nl, nc)
                 )
-                lump = np.zeros(Ac.shape[0])
-                np.add.at(lump, coo_c.row[~keep], coo_c.data[~keep])
-                Ac = scipy.sparse.csr_matrix(
-                    (coo_c.data[keep], (coo_c.row[keep], coo_c.col[keep])),
-                    shape=Ac.shape,
-                )
-                Ac = (Ac + scipy.sparse.diags(lump)).tocsr()
+                if omega_p:
+                    P = (P0
+                         - omega_p * (scipy.sparse.diags(dinv) @ (A @ P0))
+                         ).tocsr()
+                else:
+                    P = P0
+                Ac = (P.T @ A @ P).tocsr()
+                Ac.eliminate_zeros()
+                if drop_tol:
+                    dc = np.asarray(Ac.diagonal())
+                    dc = np.where(dc > 0, dc, 1.0)
+                    coo_c = Ac.tocoo()
+                    keep = (coo_c.row == coo_c.col) | (
+                        np.abs(coo_c.data)
+                        >= drop_tol * np.sqrt(dc[coo_c.row] * dc[coo_c.col])
+                    )
+                    lump = np.zeros(Ac.shape[0])
+                    np.add.at(lump, coo_c.row[~keep], coo_c.data[~keep])
+                    Ac = scipy.sparse.csr_matrix(
+                        (coo_c.data[keep], (coo_c.row[keep], coo_c.col[keep])),
+                        shape=Ac.shape,
+                    )
+                    Ac = (Ac + scipy.sparse.diags(lump)).tocsr()
         levels.append(AlignedLevel(
             pack=pack, dinv=dinv_pad, omega_p=omega_p, omega_s=omega_s,
             cap=cap_l, child_len=0, child_perm=None,   # patched below
@@ -411,11 +427,12 @@ def build_hierarchy_dia(
     A_bottom = A
 
     def _compute_coarse_inv():
-        ci = np.zeros((npL, npL), np.float32)  # padding rows stay zero
-        if nL:
-            Ad = np.asarray(A_bottom.todense())
-            ci[:nL, :nL] = (_eigh_pinv(Ad) if coarse_eigh
-                            else _coarse_inv_dense(A_bottom, Ad))
+        with spans.span("hierarchy.coarse_inv"):
+            ci = np.zeros((npL, npL), np.float32)  # padding rows stay 0
+            if nL:
+                Ad = np.asarray(A_bottom.todense())
+                ci[:nL, :nL] = (_eigh_pinv(Ad) if coarse_eigh
+                                else _coarse_inv_dense(A_bottom, Ad))
         return ci
 
     for i, lv in enumerate(levels):
@@ -434,7 +451,8 @@ def build_hierarchy_dia(
         np0 = npL
     return AlignedHierarchy(levels=levels, posmap0=posmap0, np0=np0,
                             _coarse=_compute_coarse_inv, coarse_sp=A_bottom,
-                            coarse_nL=nL, coarse_npL=npL)
+                            coarse_nL=nL, coarse_npL=npL,
+                            setup_threads=threads)
 
 
 # ---------------------------------------------------------------------------

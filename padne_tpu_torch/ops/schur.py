@@ -447,13 +447,16 @@ class DiaBorderedSolver:
         (p), the border rows (m), the small Schur block's width (m + p)
         and how the projector of the CG it built sums by component over
         the deflation's p + 1 components, the padding rows' one
-        included (its `projector`: cg.projector_kind); and the SVDs of
+        included (its `projector`: cg.projector_kind); the SVDs of
         the small block taken since set-up (`small_factorizations`: 1
-        once the first solve has cached A^+ C, however many follow)."""
+        once the first solve has cached A^+ C, however many follow); and
+        the most threads a native loop of the hierarchy's build ran on
+        (`setup_threads`, 1 where all ran serially)."""
         return {"route": "dia", "components": self.p,
                 "border_rows": self.m, "small_width": self.m + self.p,
                 "projector": self.cg_solver.projector,
-                "small_factorizations": self.small_factorizations}
+                "small_factorizations": self.small_factorizations,
+                "setup_threads": self.hierarchy.setup_threads}
 
     def set_excitation(self, r_core, rhs) -> None:
         """Replace the excitation (core right-hand side r_core (n,) and
@@ -743,7 +746,9 @@ def solve_bordered(
     stats: optional dict that receives the route ("direct", "dia" or
     "ell"), the hierarchy's level sizes, setup_s (hierarchy build and
     uploads), tp and sharded (whether the inner solve sharded), on the
-    DIA route coarse (where the coarse inverse was built) and, on the
+    DIA route coarse (where the coarse inverse was built) and
+    setup_threads (the most threads a native loop of the hierarchy's
+    build ran on: DiaBorderedSolver.counters()) and, on the
     ELL route, ell_k and escalated; host_reads (the CG's continue tests
     read on the host) and capture_s (its CUDA graphs' capture, 0 without
     one); on the DIA route also ladder_exit and mopup_passes
@@ -793,7 +798,8 @@ def solve_bordered(
                              levels=[lv.pack.np_
                                      for lv in solver.hierarchy.levels],
                              tp=solver.tp, sharded=solver.sharded,
-                             coarse=solver.coarse)
+                             coarse=solver.coarse,
+                             setup_threads=solver.hierarchy.setup_threads)
                 sol = solver.solve(target_residual=target_residual,
                                    max_refinements=max_refinements)
                 stats.update(host_reads=solver.host_reads,
