@@ -72,6 +72,8 @@ class CGResult(NamedTuple):
     # Reads of the continue test by the host: one for the card's graph,
     # one per iteration (and one more) for the plain loop.
     host_reads: int = 0
+    # Bytes of the projector's own operands the call read (make_pcg).
+    projector_bytes: int = 0
 
 
 def one_card(devices) -> bool:
@@ -324,6 +326,9 @@ class _Components:
             self.seg = segment.SegmentSum(self.comp, num_components)
             self.counts = self.seg(torch.ones(
                 len(self.comp), dtype=torch.float64, device=self.comp.device))
+            # The sums' gather indices and pad slots, the spread's index.
+            self.operand_bytes = (self.seg.index_bytes()
+                                  + self.comp.numel() * 8)
             return
         self.seg = None
         # One-hot held in f32 (exact 0/1 values) and cast to the
@@ -332,6 +337,8 @@ class _Components:
         self.onehot = torch.nn.functional.one_hot(
             self.comp, num_components).to(torch.float32)         # (N, p)
         self.counts = self.onehot.sum(dim=0).double()
+        # The one-hot, read by the sums and again by the spread.
+        self.operand_bytes = 2 * self.onehot.numel() * 4
 
     def sums(self, x):
         """(p, R) for dim 0, (R, p) for dim 1."""
@@ -356,12 +363,14 @@ def make_projector(comp_id: torch.Tensor, num_components: int,
 
     One component: subtract the means.  More: component sums and their
     spread as _Components computes them.  project.kind names the branch
-    taken (projector_kind)."""
+    taken (projector_kind), project.operand_bytes the bytes of its own
+    operands an application reads (the one-hot twice, or the segment
+    sums' indices and the spread's; 0 for the means)."""
     if projector_kind(num_components) == "mean":
         def project(x):
             return x - x.mean(dim=dim, keepdim=True)
 
-        project.kind = "mean"
+        project.kind, project.operand_bytes = "mean", 0
         return project
 
     comps = _Components(comp_id, num_components, dim)
@@ -373,8 +382,16 @@ def make_projector(comp_id: torch.Tensor, num_components: int,
         means = comps.sums(x) / counts.to(x.dtype).unsqueeze(1 - dim)
         return x - comps.spread(means)
 
-    project.kind = comps.kind
+    project.kind, project.operand_bytes = comps.kind, comps.operand_bytes
     return project
+
+
+def projector_applications(iterations: int) -> int:
+    """Applications of the projector in a make_pcg(_sharded) call of
+    `iterations` iterations: two an iteration (the gated re-projection,
+    computed every iteration, and z's) and three a call (b, the first z
+    and the answer)."""
+    return 2 * iterations + 3
 
 
 def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
@@ -405,7 +422,11 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
     The loop is the one its device takes (module doc).  The solver
     keeps its CUDA graphs (solve.loop.graphs) for every later solve.
     Each call of solve is one `cg.solve` span (padne_tpu_torch.spans),
-    each graph it captures one `cg.capture` span inside it.
+    each graph it captures one `cg.capture` span inside it.  The
+    projector runs inside the loop, where no span can split it: its
+    result's projector_bytes counts the bytes of the projector's own
+    operands the call read (projector_applications times
+    project.operand_bytes).
 
     Returns solve(b, tol, maxiter) -> CGResult."""
     if operator is None and dim != 0:
@@ -497,7 +518,9 @@ def make_pcg(a: Optional[spmv.EllOperator], comp_id: torch.Tensor,
             x = project(s.x)
             return CGResult(x=x if dim == 0 else x.T, iterations=k,
                             residual_norms=dot(rtrue, rtrue).sqrt(),
-                            host_reads=reads)
+                            host_reads=reads,
+                            projector_bytes=projector_applications(k)
+                            * project.operand_bytes)
 
     solve.loop, solve.projector = loop, project.kind
     return solve
@@ -539,6 +562,7 @@ def make_projector_sharded(mesh, comp_id, num_components: int,
                 zip(xs, sharding.broadcast(mesh, means), comps)]
 
     project.kind = comps[0].kind
+    project.operand_bytes = sum(c.operand_bytes for c in comps)
     return project
 
 
@@ -631,7 +655,9 @@ def make_pcg_sharded(mesh, operator: tuple, comp_id, num_components: int,
             x = sharding.gather_to(project(s.x), dev0, dim)
             return CGResult(x=x if dim == 0 else x.T, iterations=k,
                             residual_norms=dot(rtrue, rtrue).sqrt(),
-                            host_reads=reads)
+                            host_reads=reads,
+                            projector_bytes=projector_applications(k)
+                            * project.operand_bytes)
 
     solve.loop, solve.projector = loop, project.kind
     return solve

@@ -209,6 +209,18 @@ def _dense_border(system: CoreSystem, device):
     return _f64(B, device), _f64(C, device)
 
 
+def count_regulators(border: BorderSpec) -> int:
+    """The border variables whose injection column (C) reaches a node
+    its constraint row (B) does not: a regulator's column also draws its
+    gain-scaled input current, where a voltage source's and the ground
+    pin's column name the nodes of its row."""
+    rows = set(zip(border.row_idx[border.row_val != 0].tolist(),
+                   border.row_node[border.row_val != 0].tolist()))
+    cols = set(zip(border.col_idx[border.col_val != 0].tolist(),
+                   border.col_node[border.col_val != 0].tolist()))
+    return len({k for k, _ in cols - rows})
+
+
 class DiaBorderedSolver:
     """The block-offset-DIA solve path, set up once and solvable
     repeatedly.
@@ -428,8 +440,10 @@ class DiaBorderedSolver:
             self.ZtC = np.zeros((p, m))
             np.add.at(self.ZtC, (system.comp_id[b.col_node], b.col_idx),
                       b.col_val)
+        self.regulators = count_regulators(b)
         self._cg_iters = 0
         self.host_reads = 0
+        self.projector_bytes = 0
         self.ladder_exit = None
         self.mopup_passes = 0
         # A^+ C: the m border columns never change across passes or
@@ -451,12 +465,21 @@ class DiaBorderedSolver:
         the small block taken since set-up (`small_factorizations`: 1
         once the first solve has cached A^+ C, however many follow); and
         the most threads a native loop of the hierarchy's build ran on
-        (`setup_threads`, 1 where all ran serially)."""
+        (`setup_threads`, 1 where all ran serially); the border variables
+        that are regulators (`regulators`: count_regulators); and the
+        bytes of the projector's own operands the last solve's CG calls
+        read (`projector_bytes`: cg.projector_applications of each call
+        times its projector's operand_bytes, the (padded rows, p + 1) f32
+        one-hot twice an application, the segment sums' indices, 0 for
+        the means).  The projector runs inside the CG loop's graph, where
+        no span can split it, so it is counted, not timed."""
         return {"route": "dia", "components": self.p,
                 "border_rows": self.m, "small_width": self.m + self.p,
                 "projector": self.cg_solver.projector,
                 "small_factorizations": self.small_factorizations,
-                "setup_threads": self.hierarchy.setup_threads}
+                "setup_threads": self.hierarchy.setup_threads,
+                "regulators": self.regulators,
+                "projector_bytes": self.projector_bytes}
 
     def set_excitation(self, r_core, rhs) -> None:
         """Replace the excitation (core right-hand side r_core (n,) and
@@ -516,6 +539,7 @@ class DiaBorderedSolver:
                              self.maxiter)
         self._cg_iters += res.iterations
         self.host_reads += res.host_reads
+        self.projector_bytes += res.projector_bytes
         return res.x
 
     def _solve_once(self, rc, rb, tol=None):
@@ -651,7 +675,7 @@ class DiaBorderedSolver:
 
     def _solve(self, target_residual, max_refinements) -> BorderedSolution:
         system, dev = self.system, self.device
-        self._cg_iters = self.host_reads = 0
+        self._cg_iters = self.host_reads = self.projector_bytes = 0
         v1_pad, j = self._solve_once(self._b64, self._rhs64)
         v, j, refinements = self._comp_refine(v1_pad, j, target_residual,
                                               max_refinements)

@@ -97,6 +97,12 @@ class SegmentSum:
         place[keys] = src
         self.place = _on(place, dev)
 
+    def index_bytes(self) -> int:
+        """Bytes of the layout a sum reads: each stage's gather index
+        and pad slots, and the last gather's."""
+        return sum(t.numel() * t.element_size()
+                   for stage in (*self.stages, self.place) for t in stage)
+
     def __call__(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         dim = dim % x.ndim
         if x.shape[dim] != self.n:
