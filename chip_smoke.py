@@ -193,11 +193,13 @@ numbers.  Every solve runs the CG as one WHILE graph a CG call, but where
 a phase runs the plain loop on the card for a comparison (plain_loop); a
 kernel's launches are the ones the card ran: a capture counts none of
 what it records, and each launch of the graph counts them once an
-iteration it ran.  L1 (the loop's begin and cond kernels) is held
-against its plain version, the same loop driven from the host
-(ops.cg._dispatch_plain), on a toy iteration right after the build: no
-iteration on a start with go false, a stop at convergence and at kmax,
-and a loop across a re-projection step.
+iteration it ran (a prologue's and an epilogue's once a launch).  L1
+(a CG call's graph: the captured prologue, the loop's begin and cond
+kernels, the captured epilogue) is held against its plain version, the
+same parts with the loop driven from the host (ops.cg._dispatch_plain),
+on a toy iteration right after the build: no iteration on a start with
+go false, a stop at convergence and at kmax, and a loop across a
+re-projection step.
 
 Beside each kernel, the line before the last reports the least time the
 card could take for the same call (bound_ms: the bytes the product
@@ -1978,20 +1980,20 @@ def jacobi_board(tmp: pathlib.Path):
 L1_N = 1000   # case L1: iterations of the toy loop it is timed on
 
 
-def _toy_state(kmax: int, target: float, go: bool = True):
-    """A scalar CG state and its constants on the card, for L1's case."""
+def _toy_prologue(i):
+    """A scalar CG state and its constants on the card, for L1's case:
+    x from b, go while k < kmax and x below the target (tol)."""
     import torch
 
     from padne_tpu_torch.ops import cg
 
-    z = torch.zeros((), device=DEV)
-    s = cg._State(x=z.clone(), r=z, p=z, rz=z, rn=z, best=z,
-                  stall=torch.zeros((), dtype=torch.int32, device=DEV),
-                  k=torch.zeros((), dtype=torch.int64, device=DEV),
-                  go=torch.full((), go, dtype=torch.bool, device=DEV))
-    c = cg._Consts(target=torch.tensor(target, device=DEV),
-                   kmax=torch.tensor(kmax, device=DEV))
-    return s, c
+    x = i.b.clone()
+    z = torch.zeros_like(x)
+    k = torch.zeros((), dtype=torch.int64, device=x.device)
+    s = cg._State(x=x, r=z, p=z, rz=z, rn=z, best=z,
+                  stall=torch.zeros((), dtype=torch.int32, device=x.device),
+                  k=k, go=(k < i.kmax) & (x < i.tol))
+    return s, cg._Consts(target=i.tol, kmax=i.kmax), None
 
 
 def _toy_body(s, c):
@@ -2004,38 +2006,64 @@ def _toy_body(s, c):
     return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
 
 
-def l1_case() -> dict:
-    """L1 (csrc/graph_loop.cu: loop_begin and loop_cond around a WHILE
-    node) against its plain version (ops.cg._dispatch_plain, the same
-    loop driven from the host) on the same CUDA state: a start with go
-    false, a stop where go turns false, a stop at kmax, and a loop
-    across a re-projection step; k and x must be equal (max_abs_err:
-    the largest difference of x and k).  Timed on a loop of L1_N toy
-    iterations (a few small kernels and the state's copies): ms and
-    plain_ms are a launch's time over its iterations; iteration_ms is a
-    torch replay of the same captured iteration, one launch each (the
-    host's launch in it).  bound_ms: L1's bytes (the begin's 17 read and
-    16 written once a launch, the cond's 17 read and 24 written an
-    iteration) over 3.35 TB/s."""
+def _toy_epilogue(s, _):
+    return (s.x * 1,)
+
+
+def _toy_graph(x0: float, kmax: int, target: float):
+    """L1's graph around the toy's three parts, its inputs written."""
     import torch
 
     from padne_tpu_torch.ops import cg
 
+    b = torch.tensor(x0, device=DEV)
+    g = cg._Graph(_toy_prologue, _toy_body, _toy_epilogue,
+                  cg._inputs(b, target, kmax))
+    g.write(b, target, kmax)
+    return g
+
+
+def _toy_plain(x0: float, kmax: int, target: float):
+    """The toy run by the plain loop: (x, k)."""
+    import torch
+
+    from padne_tpu_torch.ops import cg
+
+    s, c, keep = _toy_prologue(cg._inputs(torch.tensor(x0, device=DEV),
+                                          target, kmax))
+    k = cg._dispatch_plain(_toy_body, s, c)[0]
+    return _toy_epilogue(s, keep)[0], k
+
+
+def l1_case() -> dict:
+    """L1 (csrc/graph_loop.cu: a captured prologue, loop_begin and
+    loop_cond around a WHILE node, a captured epilogue) against its plain
+    version (the same prologue, ops.cg._dispatch_plain, the same loop
+    driven from the host, and the same epilogue) on a toy state: a start
+    with go false, a stop where go turns false, a stop at kmax, and a
+    loop across a re-projection step; k and x must be equal
+    (max_abs_err: the largest difference of x and k).  Timed on a loop
+    of L1_N toy iterations (a few small kernels and the state's copies):
+    ms and plain_ms are a call's time over its iterations; iteration_ms
+    is a torch replay of the same captured iteration, one launch each
+    (the host's launch in it).  bound_ms: L1's bytes (the begin's 17
+    read and 16 written once a launch, the cond's 17 read and 24 written
+    an iteration) over 3.35 TB/s."""
+    import torch
+
     err = 0.0
-    # (kmax, target, go on entry, k after the loop)
-    cases = ((100, 1e9, False, 0), (100, 5.0, True, 5), (4, 1e9, True, 4),
-             (120, 1e9, True, 120))
-    for kmax, target, go, want in cases:
-        s, c = _toy_state(kmax, target, go)
-        g = cg._Graph(_toy_body, s, c)
-        got = g.dispatch()
-        ps, pc = _toy_state(kmax, target, go)
-        plain = cg._dispatch_plain(_toy_body, ps, pc)[0]
+    # (kmax, target, x on entry, k after the loop)
+    cases = ((100, 5.0, 9.0, 0), (100, 5.0, 0.0, 5), (4, 1e9, 0.0, 4),
+             (120, 1e9, 0.0, 120))
+    for kmax, target, x0, want in cases:
+        g = _toy_graph(x0, kmax, target)
+        (x,), got = g.dispatch()
+        px, plain = _toy_plain(x0, kmax, target)
         check(got == plain == want, f"L1: k {got}, plain {plain}, "
                                     f"expected {want}")
         check(g.flag.tolist()[2] == want,
               f"L1: ran {g.flag.tolist()}, k {want}")
-        err = max(err, float((s.x - ps.x).abs()), abs(int(s.k) - int(ps.k)))
+        err = max(err, float((x - px).abs()), abs(int(g.state.k) - plain))
         g.close()
     check(err == 0.0, f"L1 differs from its plain version by {err}")
 
@@ -2051,22 +2079,16 @@ def l1_case() -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps / L1_N
 
-    s, c = _toy_state(L1_N, 1e30)
-    g = cg._Graph(_toy_body, s, c)
-
-    def fresh():
-        # Each launch from k = 0 (x stays finite: ~1e20 after L1_N).
-        s.x.zero_()
-        s.k.zero_()
-        s.go.fill_(True)
-
-    ms = timed(lambda: (fresh(), g.dispatch()))
-    plain_ms = timed(lambda: (fresh(), cg._dispatch_plain(_toy_body, s, c)))
-    g.graph.replay()   # instantiated by torch
+    # Each call from x = 0, k = 0 (x stays finite: ~1e20 after L1_N).
+    g = _toy_graph(0.0, L1_N, 1e30)
+    ms = timed(g.dispatch)
+    plain_ms = timed(lambda: _toy_plain(0.0, L1_N, 1e30))
+    iteration = g.parts[1]
+    iteration.replay()   # instantiated by torch
 
     def replays():
         for _ in range(L1_N):
-            g.graph.replay()
+            iteration.replay()
 
     iteration_ms = timed(replays)
     g.close()

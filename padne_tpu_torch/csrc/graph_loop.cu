@@ -1,26 +1,38 @@
-// L1 — the CG loop's exit at convergence on the card: one CUDA WHILE
-// conditional node a solve, for Hopper (sm_90a).
+// L1 — a CG call as one graph launch on the card, around one CUDA WHILE
+// conditional node, for Hopper (sm_90a).
 //
 // L1 has no Pallas counterpart: it is what XLA lowers the JAX package's
 // `jax.lax.while_loop` to (padne_tpu/ops/cg.py:270, :448, :589), the loop
 // whose `cond` runs on the device and ends a dispatch the moment it turns
-// false.  padne_tpu_torch/ops/cg.py captures ONE CG iteration into a CUDA
-// graph with torch; this file builds the graph a solve launches around it:
+// false, with the call's init before it and its finish after it in one
+// jitted function.  padne_tpu_torch/ops/cg.py captures the three parts of a
+// CG call with torch, each into a CUDA graph of its own (one memory pool for
+// the three); this file builds the graph a call launches from them:
 //
-//   [loop_begin] -> WHILE(handle) { iteration (child graph) -> [loop_cond] }
+//   prologue (child graph) -> [loop_begin]
+//     -> WHILE(handle) { iteration (child graph) -> [loop_cond] }
+//     -> epilogue (child graph)
 //
+//   prologue:   b projected, the state with its first preconditioner
+//               application, the target from the device scalar tol, go and
+//               k = 0, written into the buffers the iteration reads.
 //   loop_begin: handle = go && k < kmax; the flag (go, k) for the host.
 //               False on entry runs no iteration, as `cond` false on entry
 //               does in JAX.
 //   loop_cond:  after each iteration, from the device scalars it has just
 //               written: handle = go && k < kmax; flag = (go, k, ran + 1).
+//   epilogue:   the true residual, x projected and the residual norms, into
+//               output buffers the host copies out.
 //
 // k < kmax is always part of the test, so a faulty go cannot hang the card.
-// ran counts the iterations the card ran, for the host to hold against k.
-// What bounds L1: nothing of its own — two one-thread kernels of a few
-// scalars each; the iteration it wraps is the work.  Its design point is
-// the host: one launch and one read a solve instead of one of each an
-// iteration.
+// kmax is a device scalar the host writes before each launch, as it writes
+// tol and copies b in: nothing of one call is baked into the graph.  ran
+// counts the iterations the card ran, for the host to hold against k; the
+// host reads the flag once, after the whole graph.  What bounds L1: nothing
+// of its own — two one-thread kernels of a few scalars each; the parts it
+// wraps are the work.  Its design point is the host: one launch and one
+// read a CG call, where the host would otherwise launch the prologue's and
+// the epilogue's kernels one by one and read go every iteration.
 //
 // Plain C interface (bound with ctypes from padne_tpu_torch/kernels.py); no
 // PyTorch headers.  Every entry point returns a cudaError_t (0 on success)
@@ -79,17 +91,23 @@ cudaKernelNodeParams one_thread(void* func, void** args) {
   return p;
 }
 
-int build(Loop* lp, cudaGraph_t iteration, const bool* go, const int64_t* k,
+int build(Loop* lp, cudaGraph_t prologue, cudaGraph_t iteration,
+          cudaGraph_t epilogue, const bool* go, const int64_t* k,
           const int64_t* kmax, int64_t* flag, cudaStream_t stream) {
   PG_TRY(cudaGraphCreate(&lp->graph, 0));
   cudaGraphConditionalHandle handle;
   PG_TRY(cudaGraphConditionalHandleCreate(&handle, lp->graph, 0, 0));
 
+  // The three parts are cloned into the graph: their kernels keep the
+  // addresses the captures gave them, so the caller keeps the captured
+  // graphs' memory pool alive as long as this loop.
+  cudaGraphNode_t pro;
+  PG_TRY(cudaGraphAddChildGraphNode(&pro, lp->graph, nullptr, 0, prologue));
   void* begin_args[] = {&handle, &go, &k, &kmax, &flag};
   const cudaKernelNodeParams bp =
       one_thread(reinterpret_cast<void*>(loop_begin), begin_args);
   cudaGraphNode_t begin;
-  PG_TRY(cudaGraphAddKernelNode(&begin, lp->graph, nullptr, 0, &bp));
+  PG_TRY(cudaGraphAddKernelNode(&begin, lp->graph, &pro, 1, &bp));
 
   cudaGraphNodeParams wp = {};
   wp.type = cudaGraphNodeTypeConditional;
@@ -104,9 +122,6 @@ int build(Loop* lp, cudaGraph_t iteration, const bool* go, const int64_t* k,
 #endif
   cudaGraph_t body = wp.conditional.phGraph_out[0];
 
-  // The iteration is cloned into the body: its kernels keep the addresses
-  // the capture gave them, so the caller keeps the captured graph's memory
-  // pool alive as long as this loop.
   cudaGraphNode_t child;
   PG_TRY(cudaGraphAddChildGraphNode(&child, body, nullptr, 0, iteration));
   void* cond_args[] = {&handle, &go, &k, &kmax, &flag};
@@ -114,6 +129,9 @@ int build(Loop* lp, cudaGraph_t iteration, const bool* go, const int64_t* k,
       one_thread(reinterpret_cast<void*>(loop_cond), cond_args);
   cudaGraphNode_t cond;
   PG_TRY(cudaGraphAddKernelNode(&cond, body, &child, 1, &cp));
+
+  cudaGraphNode_t epi;
+  PG_TRY(cudaGraphAddChildGraphNode(&epi, lp->graph, &node, 1, epilogue));
 
   PG_TRY(cudaGraphInstantiate(&lp->exec, lp->graph, 0));
   PG_TRY(cudaGraphUpload(lp->exec, stream));
@@ -128,16 +146,20 @@ void release(Loop* lp) {
 
 }  // namespace
 
-// The loop around one captured iteration (a cudaGraph_t, which is cloned):
-// go (bool), k and kmax (int64) are the iteration's device scalars, flag
-// (int64[3]: go, k, iterations ran) a device buffer of the caller's.
-// Instantiates and uploads on `stream`; *out receives the loop's handle.
-extern "C" int pg_loop_create(void* iteration, const void* go, const void* k,
-                              const void* kmax, void* flag, void* stream,
-                              void** out) {
+// One CG call's graph from its three captured parts (a cudaGraph_t each,
+// cloned): go (bool) and k (int64) are the state's device scalars, which
+// the prologue writes; kmax (int64) the call's device scalar, which the host
+// writes; flag (int64[3]: go, k, iterations ran) a device buffer of the
+// caller's.  Instantiates and uploads on `stream`; *out receives the loop's
+// handle.
+extern "C" int pg_loop_create(void* prologue, void* iteration, void* epilogue,
+                              const void* go, const void* k, const void* kmax,
+                              void* flag, void* stream, void** out) {
   *out = nullptr;
   Loop* lp = new Loop;
-  const int rc = build(lp, static_cast<cudaGraph_t>(iteration),
+  const int rc = build(lp, static_cast<cudaGraph_t>(prologue),
+                       static_cast<cudaGraph_t>(iteration),
+                       static_cast<cudaGraph_t>(epilogue),
                        static_cast<const bool*>(go),
                        static_cast<const int64_t*>(k),
                        static_cast<const int64_t*>(kmax),
@@ -151,7 +173,7 @@ extern "C" int pg_loop_create(void* iteration, const void* go, const void* k,
   return 0;
 }
 
-// One solve's loop: the graph launched on `stream` (asynchronous).
+// One CG call: the graph launched on `stream` (asynchronous).
 extern "C" int pg_loop_launch(void* loop, void* stream) {
   PG_TRY(cudaGraphLaunch(static_cast<Loop*>(loop)->exec,
                          static_cast<cudaStream_t>(stream)));

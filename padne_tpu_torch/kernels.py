@@ -11,10 +11,12 @@ ops.comp.comp_sell, ops.spmv.ell_spmv) calls `count` once per launch it
 makes: its `launches` attribute goes up by one and every hook in HOOKS
 sees the launch's operands (L1, the CG loop's kernels, counts on
 ops.cg.loop_launch, without hooks).  Under
-`recording` (the capture of a CG iteration in ops.cg) a launch is
-recorded into the graph, not run: `count` keeps it on a tape instead,
-and `recount(tape, n)` counts the tape once per iteration a launch of
-the graph ran, so the counts are the launches the card ran.
+`recording` (the capture of a part of a CG call in ops.cg: its
+prologue, its iteration or its epilogue) a launch is recorded into the
+graph, not run: `count` keeps it on a tape instead, and `recount(tape,
+n)` counts the tape at each launch of the graph, the prologue's and the
+epilogue's once and the iteration's once per iteration it ran, so the
+counts are the launches the card ran.
 """
 
 from __future__ import annotations
@@ -93,10 +95,10 @@ def load() -> ctypes.CDLL:
     # f64, perm, ptr, col, val, diag, lanes, n, x, r, b, w, x0, y, stream
     lib.pg_ell_spmv.argtypes = ([i32] + [vp] * 5 + [i32, i64, vp, i32]
                                 + [vp] * 5)
-    # L1, the CG loop's WHILE graph (ops.cg): iteration graph, go, k, kmax,
-    # flag, stream, out.
+    # L1, a CG call's graph (ops.cg): prologue, iteration and epilogue
+    # graphs, go, k, kmax, flag, stream, out.
     lib.pg_loop_create.restype = i32
-    lib.pg_loop_create.argtypes = [vp] * 6 + [ctypes.POINTER(vp)]
+    lib.pg_loop_create.argtypes = [vp] * 8 + [ctypes.POINTER(vp)]
     lib.pg_loop_launch.restype = i32
     lib.pg_loop_launch.argtypes = [vp, vp]
     lib.pg_loop_destroy.restype = None
@@ -177,8 +179,7 @@ class recording:
 
 def recount(tape: list, times: int = 1) -> None:
     """Counts the launches of a tape again, `times` times: as a launch
-    of the graph that ran the captured iteration that many times runs
-    them."""
+    of a graph that ran the captured part that many times runs them."""
     for _ in range(times):
         for wrapper, operands in tape:
             count(wrapper, *operands)

@@ -280,12 +280,13 @@ class DiaBorderedSolver:
     it logs the decline and solves on the mesh's first device.  `device`
     is then that device.
 
-    The CG loop (ops.cg's module doc) is one launch of a CUDA WHILE graph
-    on one card and the plain loop elsewhere; the solver keeps the
-    graphs of the widths it still runs for every later solve
-    (`cg_solver.loop`: the R = m + 1 one is dropped once A^+ C is
-    cached), and `host_reads` counts the continue tests the last solve
-    read on the host.
+    A CG call (ops.cg's module doc) is one launch of one CUDA graph of
+    its prologue, WHILE loop and epilogue on one card, and the plain loop
+    elsewhere; the solver keeps the graphs of the widths it still runs
+    for every later solve (`cg_solver.loop`: the R = m + 1 one is dropped
+    once A^+ C is cached, after its answer was copied out), `host_reads`
+    counts the continue tests the last solve read on the host and
+    `graph_calls` its CG calls run as one graph launch.
     """
 
     def __init__(self, system: CoreSystem, device=None, tol: float = 1e-14,
@@ -472,14 +473,20 @@ class DiaBorderedSolver:
         times its projector's operand_bytes, the (padded rows, p + 1) f32
         one-hot twice an application, the segment sums' indices, 0 for
         the means).  The projector runs inside the CG loop's graph, where
-        no span can split it, so it is counted, not timed."""
+        no span can split it, so it is counted, not timed.  And the last
+        solve's CG calls that ran as one launch of one graph
+        (`graph_calls`: on one card each CG call is one launch and one
+        read, so `host_reads` there, 0 on the plain loop)."""
         return {"route": "dia", "components": self.p,
                 "border_rows": self.m, "small_width": self.m + self.p,
                 "projector": self.cg_solver.projector,
                 "small_factorizations": self.small_factorizations,
                 "setup_threads": self.hierarchy.setup_threads,
                 "regulators": self.regulators,
-                "projector_bytes": self.projector_bytes}
+                "projector_bytes": self.projector_bytes,
+                "graph_calls": self.host_reads if cg.one_card(
+                    self.mesh.devices if self.sharded else [self.device])
+                else 0}
 
     def set_excitation(self, r_core, rhs) -> None:
         """Replace the excitation (core right-hand side r_core (n,) and

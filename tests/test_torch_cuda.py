@@ -19,10 +19,16 @@ halos and past them), and the sharded products of ops.dia_sharded on
 four shards of the card against the one-device ones; the launch
 counters; the DIA solve's exact f64 residual through K3' (against
 SciPy's at the rounding of its terms); one SVD of the small Schur block
-over a fragmented board's repeat solves; and the CG loop as CUDA WHILE
-graphs (ops.cg, L1 in csrc/graph_loop.cu): bit-equal to the plain loop
-run eagerly on the same CUDA tensors, one host read a solve, no
-iteration and no byte of the state changed on a start that has
+over a fragmented board's repeat solves; and a CG call as one CUDA graph
+of its prologue, WHILE loop and epilogue (ops.cg, L1 in
+csrc/graph_loop.cu): bit-equal to the plain loop run eagerly on the same
+CUDA tensors in the ELL (N, R) layout, the DIA (R, N) layout with the
+mean, one-hot and segment projectors, and make_pcg_sharded on four
+shards of the card; calls with other b, tol and maxiter on one graph
+equal fresh plain runs; an answer survives the next call and the
+release of its graph; the launches counted are the parts' (prologue and
+epilogue once a call, the iteration once an iteration); one launch, one
+read and no eager launch a call; no iteration on a start that has
 converged, k equal to the iterations L1 counted on the card, the
 R = m + 1 graph released once A^+ C is cached, and a host read inside
 an iteration raising at capture.  Tolerances: f32 sums in
@@ -31,6 +37,7 @@ f64 bound 2e-13 * max(|A| |x|).
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -419,43 +426,280 @@ def _loop_solver(cuda):
 
 
 def _plain(monkeypatch):
-    """Every loop's iterations run by cg._dispatch_plain, eagerly on the
-    tensors the solve gives it (the card's included)."""
+    """Every CG call run by the plain loop (its prologue, cg._dispatch_plain
+    and its epilogue), eagerly on the tensors the solve gives it (the
+    card's included)."""
     from padne_tpu_torch.ops import cg
 
-    monkeypatch.setattr(cg._Loop, "__call__", lambda self, s, c, devices: (
-        (s,) + cg._dispatch_plain(self.body, s, c)))
+    monkeypatch.setattr(cg, "one_card", lambda devices: False)
+
+
+def _rhs(n, r, seed, dtype=torch.float64, device="cuda"):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, r))).to(device=device, dtype=dtype)
+
+
+def _same(got, want, graph=True):
+    """got equals want bit for bit: x, iterations, residual norms."""
+    assert got.iterations == want.iterations
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.residual_norms, want.residual_norms)
+    if graph:
+        assert (got.host_reads, got.graph_calls) == (1, 1)
 
 
 def test_graph_is_bit_equal_to_the_plain_loop(cuda, monkeypatch):
-    """One launch of a CUDA graph that runs the captured iteration while
-    the device flag go holds and k < kmax: the bits and iterations of the
-    plain loop run eagerly on the same CUDA tensors, one host read a
-    solve; the second solve launches the first's graph."""
-    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        (2 * 24 * 24, 3))).to(cuda)
+    """The ELL (N, R) layout: one launch of the CUDA graph that runs the
+    captured prologue, the captured iteration while the device flag go
+    holds and k < kmax, and the captured epilogue gives the bits and
+    iterations of the plain loop run eagerly on the same CUDA tensors,
+    with one host read a call; the second call launches the first's
+    graph."""
+    b = _rhs(2 * 24 * 24, 3, 5)
     with monkeypatch.context() as mp:
         _plain(mp)
         plain = _loop_solver(cuda)
         want = plain(b, 1e-10, 500)
     assert want.iterations > 10
     assert want.host_reads == want.iterations + 1
+    assert want.graph_calls == 0
     assert not plain.loop.graphs
     solve = _loop_solver(cuda)
     for _ in range(2):
-        got = solve(b, 1e-10, 500)
-        assert got.iterations == want.iterations
-        assert torch.equal(got.x, want.x)
-        assert torch.equal(got.residual_norms, want.residual_norms)
-        assert got.host_reads == 1
+        _same(solve(b, 1e-10, 500), want)
     assert len(solve.loop.graphs) == 1
+
+
+def _dia_solver(cuda, kind):
+    """A DIA-route CG ((R, N) layout: K1' operator and cycle, f32, stall
+    window 30) whose projector is `kind`, and a right-hand side (N, 3)
+    with zeros on the padding rows: the CG of a DiaBorderedSolver (one
+    copper component and the padding's: one-hot; the 65-component board
+    of chip_smoke: segment), or, for the means, a make_pcg over the same
+    operator and cycle with one component."""
+    from padne_tpu_torch.ops import amg, cg, schur
+
+    if kind == "segment":
+        import chip_smoke
+        from padne_tpu_torch import solver
+
+        prob, cfg = chip_smoke.fragmented_problem(8000, tiles=(8, 8),
+                                                  tile_mm=4.0)
+        s = schur.DiaBorderedSolver(solver.build_system(prob, cfg)[0],
+                                    device=cuda, coarse_size=300)
+    else:
+        s = schur.DiaBorderedSolver(_grid_system(64), device=cuda,
+                                    coarse_size=200)
+    h = s.hierarchy
+    solve = s.cg_solver
+    if kind == "mean":
+        meta0 = h.levels[0].pack.meta
+        solve = cg.make_pcg(
+            None, torch.zeros(h.np0, dtype=torch.int64, device=cuda), 1,
+            operator=(lambda prm, xt: dia.dia_matvec_t(meta0, prm, xt),
+                      s.op_params),
+            precond=amg.make_vcycle_dia_t(h, cuda), stall_window=30, dim=1)
+    assert solve.projector == kind
+    b = torch.zeros(h.np0, 3, dtype=torch.float32, device=cuda)
+    b[torch.from_numpy(h.posmap0).to(cuda)] = _rhs(len(h.posmap0), 3, 13,
+                                                   torch.float32, cuda)
+    return solve, b
+
+
+@pytest.mark.parametrize("kind", ["mean", "onehot", "segment"])
+def test_dia_graph_is_bit_equal_to_the_plain_loop(cuda, monkeypatch, kind):
+    """The DIA (R, N) layout with each projector: the graph's calls give
+    the plain loop's bits on the same solver, its cycle in the prologue
+    included."""
+    solve, b = _dia_solver(cuda, kind)
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        want = solve(b, 1e-5, 500)
+    assert want.iterations > 3 and not solve.loop.graphs
+    for _ in range(2):
+        _same(solve(b, 1e-5, 500), want)
+    assert len(solve.loop.graphs) == 1
+
+
+def _sharded_solver(cuda, dim):
+    """make_pcg_sharded on four shards of the card: the two-island ELL
+    system's K3' shard operators over an all-gathered x, Jacobi."""
+    from padne_tpu_torch.ops import amg, cg
+    from padne_tpu_torch.parallel import sharding
+
+    ell, comp_id = _islands()
+    n = len(ell.diag)
+    mesh = sharding.Mesh([cuda] * 4)
+    ops = amg.shard_ell_rows(ell.cols, ell.vals, ell.diag, n, n, mesh,
+                             torch.float64)
+
+    def matvec(prm, xs):
+        full = sharding.all_gather(mesh, [x if dim == 0 else x.T
+                                          for x in xs], dim=0)
+        ys = [spmv.ell_spmv(op, xf) for op, xf in zip(prm, full)]
+        return ys if dim == 0 else [y.T.contiguous() for y in ys]
+
+    diag = torch.from_numpy(ell.diag).to(cuda)
+    return cg.make_pcg_sharded(
+        mesh, (matvec, ops), torch.from_numpy(comp_id), 2,
+        cg.jacobi_sharded(sharding.split(mesh, diag, 0), dim=dim), dim=dim)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_sharded_graph_is_bit_equal_to_the_plain_loop(cuda, monkeypatch,
+                                                      dim):
+    """make_pcg_sharded on a mesh of one card takes the graph: its calls
+    give the plain loop's bits on the same solver."""
+    solve = _sharded_solver(cuda, dim)
+    b = _rhs(2 * 24 * 24, 3, 17)
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        want = solve(b, 1e-10, 500)
+    assert want.iterations > 10 and not solve.loop.graphs
+    for _ in range(2):
+        _same(solve(b, 1e-10, 500), want)
+    assert len(solve.loop.graphs) == 1
+
+
+def test_calls_on_one_graph_take_their_own_inputs(cuda, monkeypatch):
+    """Calls on one graph with another b, tol and maxiter each equal a
+    fresh plain run of the same call: nothing of a call is baked into
+    the capture (tol and maxiter are device scalars the host writes, b
+    is copied in)."""
+    solve = _loop_solver(cuda)
+    b1, b2 = _rhs(2 * 24 * 24, 3, 21), _rhs(2 * 24 * 24, 3, 22)
+    calls = [(b1, 1e-10, 500), (b2, 1e-7, 500), (b2, 1e-10, 5),
+             (b1, 1e-10, 500)]
+    got = [solve(*call) for call in calls]
+    assert len(solve.loop.graphs) == 1
+    assert got[2].iterations == 5
+    assert got[1].iterations < got[0].iterations
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        for call, g in zip(calls, got):
+            _same(g, _loop_solver(cuda)(*call))
+
+
+def test_answers_survive_the_next_call_and_the_release(cuda, monkeypatch):
+    """The x a call returns is its own, not the graph's buffer: the next
+    call on the graph leaves it as it was; and DiaBorderedSolver's A^+ C,
+    the answer of the R = m + 1 graph it releases, keeps the plain
+    loop's bits after the pool's memory went back to the device and was
+    written over, and after later solves."""
+    from padne_tpu_torch.ops import schur
+
+    solve = _loop_solver(cuda)
+    first = solve(_rhs(2 * 24 * 24, 3, 31), 1e-10, 500)
+    kept = (first.x.clone(), first.residual_norms.clone())
+    solve(_rhs(2 * 24 * 24, 3, 32), 1e-10, 500)
+    assert torch.equal(first.x, kept[0])
+    assert torch.equal(first.residual_norms, kept[1])
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        plain = schur.DiaBorderedSolver(_grid_system(64), device=cuda,
+                                        coarse_size=200)
+        plain.solve(target_residual=1e-10)
+    s = schur.DiaBorderedSolver(_grid_system(64), device=cuda,
+                                coarse_size=200)
+    s.solve(target_residual=1e-10)
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 24,), float("nan"), device=cuda)
+    s.solve(target_residual=1e-10)
+    del junk
+    assert s.m > 0 and torch.equal(s._Xc, plain._Xc)
+    assert s.counters()["graph_calls"] == s.host_reads > 0
+
+
+def _tape_count(tape, wrapper):
+    return sum(1 for w, _ in tape if w is wrapper)
+
+
+def test_graph_launches_count_their_parts(cuda, monkeypatch):
+    """The launches counted after n calls on a captured graph are n times
+    the prologue's and the epilogue's plus the iterations ran times the
+    iteration's (K3': the cycle in the prologue and each iteration, the
+    fused true residual in the epilogue), as many as the plain loop
+    counts for the same calls."""
+    solve = _loop_solver(cuda)
+    solve(_rhs(2 * 24 * 24, 3, 41), 1e-10, 500)
+    (g,) = solve.loop.graphs.values()
+    pro, it, epi = (_tape_count(t, spmv.ell_spmv) for t in g.tapes)
+    assert pro > 0 and it > 0 and epi > 0
+    calls = [(_rhs(2 * 24 * 24, 3, 42 + i), 1e-10, 500) for i in range(3)]
+    before = spmv.ell_spmv.launches
+    iters = [solve(*call).iterations for call in calls]
+    counted = spmv.ell_spmv.launches - before
+    assert counted == len(calls) * (pro + epi) + sum(iters) * it
+    with monkeypatch.context() as mp:
+        _plain(mp)
+        plain = _loop_solver(cuda)
+        before = spmv.ell_spmv.launches
+        assert [plain(*call).iterations for call in calls] == iters
+        assert spmv.ell_spmv.launches - before == counted
+
+
+def test_one_launch_and_one_read_a_call(cuda, monkeypatch):
+    """A call on a captured graph: one launch of L1's graph, one
+    synchronising read (the flag), and no kernel counted outside the
+    recount of the graph's tapes, so no part of the call, its
+    preconditioner application included, runs eagerly."""
+    from padne_tpu_torch import kernels
+
+    solve = _loop_solver(cuda)
+    solve(_rhs(2 * 24 * 24, 3, 51), 1e-10, 500)
+    lib = kernels.load()
+    launched, eager, recounting = [], [], [False]
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def pg_loop_launch(self, loop, stream):
+            launched.append(loop)
+            return lib.pg_loop_launch(loop, stream)
+
+    real_recount = kernels.recount
+
+    def recount(tape, times=1):
+        recounting[0] = True
+        try:
+            real_recount(tape, times)
+        finally:
+            recounting[0] = False
+
+    def hook(wrapper, *operands):
+        if not recounting[0]:
+            eager.append(wrapper)
+
+    monkeypatch.setattr(kernels, "load", lambda: Counting())
+    monkeypatch.setattr(kernels, "recount", recount)
+    b = _rhs(2 * 24 * 24, 3, 52)
+    torch.cuda.synchronize()
+    kernels.HOOKS.append(hook)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = solve(b, 1e-9, 500)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        kernels.HOOKS.remove(hook)
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert res.iterations > 0 and (res.host_reads, res.graph_calls) == (1, 1)
+    assert len(launched) == 1
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert not eager
 
 
 def test_graph_replays_count_their_launches(cuda, monkeypatch):
     """K3''s count is the launches the card ran: a capture counts none,
-    each launch of the graph counts the iteration's once per iteration
-    it ran.  A solve that launches a graph runs what the plain loop
-    runs, launch for launch."""
+    each launch of the graph counts the prologue's and the epilogue's
+    once and the iteration's once per iteration it ran.  A solve that
+    launches a graph runs what the plain loop runs, launch for
+    launch."""
     b = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
     graph = _loop_solver(cuda)
@@ -469,56 +713,41 @@ def test_graph_replays_count_their_launches(cuda, monkeypatch):
             res = solve(b, 1e-10, 500)
             counts.append(spmv.ell_spmv.launches - before)
     assert res.host_reads == 1
-    # The first graph solve adds the warm-up iteration before capture.
+    # The first graph solve adds the warm-up of the three parts before
+    # the capture.
     assert counts[2] == counts[0] < counts[1]
     assert len(graph.loop.graphs) == 1
 
 
-def _toy(cuda, kmax, target=1e9):
-    """A scalar state for a toy iteration on the card: x + 1 an
-    iteration, go while k < kmax and x below the target."""
-    from padne_tpu_torch.ops import cg
+def _toy(x0, kmax, target=1e9):
+    """chip_smoke's toy graph, its inputs written: (graph, its state)."""
+    import chip_smoke
 
-    z = torch.zeros((), device=cuda)
-    s = cg._State(x=z.clone(), r=z, p=z, rz=z, rn=z, best=z,
-                  stall=torch.zeros((), dtype=torch.int32, device=cuda),
-                  k=torch.zeros((), dtype=torch.int64, device=cuda),
-                  go=torch.ones((), dtype=torch.bool, device=cuda))
-    c = cg._Consts(target=torch.tensor(target, device=cuda),
-                   kmax=torch.tensor(kmax, device=cuda))
-    return s, c
-
-
-def _toy_body(s, c):
-    from padne_tpu_torch.ops import cg
-
-    x = cg._periodic_gated(lambda v: v * 10, s.x + 1, s.k)
-    k = s.k + 1
-    return s._replace(x=x, k=k, go=(k < c.kmax) & (x < c.target))
+    g = chip_smoke._toy_graph(float(x0), kmax, target)
+    return g, g.state
 
 
 def test_a_converged_start_runs_no_iteration(cuda):
-    """A launch whose go is false on entry runs no iteration and leaves
-    every byte of the state as it was; the next, with go set, runs to
-    the target; a solve whose right-hand side is zero (converged at
-    init) reads once and runs none."""
+    """A launch whose go is false on entry (x from b already at the
+    target) runs no iteration: the state and the answer are what the
+    prologue wrote; the next, with another b, runs to the target; a
+    solve whose right-hand side is zero (converged at its prologue)
+    reads once and runs none."""
     from padne_tpu_torch.ops import cg
 
-    s, c = _toy(cuda, 100, target=8.0)
-    g = cg._Graph(_toy_body, s, c)
-    s.go.fill_(False)
-    before = [x.clone() for x in s]
+    g, s = _toy(9.0, 100, target=8.0)
     launches = cg.loop_launch.launches
-    assert g.dispatch() == 0
-    assert all(torch.equal(a, b) for a, b in zip(s, before))
+    (x,), k = g.dispatch()
+    assert k == 0 and float(x) == 9.0
+    assert (float(s.x), int(s.k), bool(s.go)) == (9.0, 0, False)
     assert g.flag.tolist() == [0, 0, 0]
     assert cg.loop_launch.launches == launches + 1
-    s.go.fill_(True)
-    assert g.dispatch() == 8
+    g.write(torch.tensor(0.0, device=cuda), 8.0, 100)
+    (x,), k = g.dispatch()
+    assert k == 8 and float(x) == 8.0
     assert g.flag.tolist() == [0, 8, 8] and float(s.x) == 8.0
     solve = _loop_solver(cuda)
-    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
-        (2 * 24 * 24, 2))).to(cuda)
+    b = _rhs(2 * 24 * 24, 2, 8)
     assert solve(b, 1e-10, 500).iterations > 0
     res = solve(torch.zeros_like(b), 1e-10, 500)
     assert (res.iterations, res.host_reads) == (0, 1)
@@ -533,15 +762,14 @@ def test_k_equals_the_iterations_l1_counted(cuda):
     iteration."""
     from padne_tpu_torch.ops import cg
 
-    s, c = _toy(cuda, 100, target=12.0)
-    g = cg._Graph(_toy_body, s, c)
+    g, s = _toy(0.0, 100, target=12.0)
     launches = cg.loop_launch.launches
-    assert g.dispatch() == 12
+    (x,), k = g.dispatch()
+    assert k == 12 and float(x) == 12.0
     assert g.flag.tolist() == [0, 12, 12] and float(s.x) == 12.0
     assert cg.loop_launch.launches == launches + 1 + 12
-    s, c = _toy(cuda, 7)
-    g = cg._Graph(_toy_body, s, c)
-    assert g.dispatch() == 7 and g.flag.tolist() == [0, 7, 7]
+    g, s = _toy(0.0, 7)
+    assert g.dispatch()[1] == 7 and g.flag.tolist() == [0, 7, 7]
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (2 * 24 * 24, 3))).to(cuda)
     solve = _loop_solver(cuda)

@@ -1,19 +1,21 @@
-"""The CG loop (ops.cg's module doc): init, one body per iteration and
-finish, the iterations run by one loop chosen by the devices: the CUDA
-WHILE graph when all of the state is on one card, else the plain loop
-(`while go: iteration`), which reads the continue test `go` on the host
-once an iteration and once more.
+"""The CG loop (ops.cg's module doc): a prologue, one body per iteration
+and an epilogue, a call run by one loop chosen by the devices: one
+launch of one CUDA graph of the three parts when all of the state is on
+one card, else the same prologue, the plain loop (`while go:
+iteration`), which reads the continue test `go` on the host once an
+iteration and once more, and the same epilogue.
 
 On the CPU every solve takes the plain loop, so these tests hold its
-logic; on a CUDA tensor the same iteration runs inside one launch of a
-WHILE graph (tests/test_torch_cuda.py).
+logic; on a CUDA tensor the same parts run inside one launch of one
+graph (tests/test_torch_cuda.py).
 
 Gates:
 
 * the loop is chosen from the device list: one CUDA card (a mesh whose
   devices are all that card included) takes the graph, the CPU and a
   mesh over several cards the plain loop;
-* the plain loop's answer, and host_reads == iterations + 1: make_pcg
+* the plain loop's answer, host_reads == iterations + 1 and
+  graph_calls == 0: make_pcg
   in the (N, R) layout (ELL operator, AMG cycle, f64) and the (R, N)
   layout (DIA operator and cycle, f32, stall window) against the JAX
   package's make_pcg / make_pcg_t, make_pcg_sharded on Mesh(["cpu"] *
@@ -35,18 +37,26 @@ Gates:
 * the launch accounting a graph uses: launches counted under a
   recording (a capture) count nothing until each recount, once per
   iteration a launch of the graph ran;
+* a call runs its prologue and its epilogue once, the body once an
+  iteration, all three the _Loop's own functions; two calls on one
+  solver take their own b, tol and maxiter (device scalars beside b, in
+  its dtype), as fresh solvers do; DiaBorderedSolver.counters() carries
+  graph_calls, 0 on the plain loop;
 * a source guard: no host read (bool, int, float, .item(), .cpu(),
-  .tolist(), .numpy()) inside the body functions of ops/cg.py and the
-  iteration the graph captures.
+  .tolist(), .numpy()) inside the prologues, bodies and epilogues of
+  ops/cg.py and the helpers the graph captures.
 
-The WHILE graphs on the card are held by tests/test_torch_cuda.py (bit-
-equal to the plain loop on the same CUDA tensors; zero iterations on a
-converged start; L1's count; the R = m + 1 graph released; a host read
-in the body raises) and, with the benchmark's traced runs, by
-pdnbench/test_pdnbench_card.py.
+The graphs on the card are held by tests/test_torch_cuda.py (bit-equal
+to the plain loop on the same CUDA tensors in every layout and
+projector; calls with other b, tol and maxiter on one graph; answers
+that survive the next call and the R = m + 1 graph's release; launches
+counted; one launch and one read a call; zero iterations on a converged
+start; L1's count; a host read in the body raises) and, with the
+benchmark's traced runs, by pdnbench/test_pdnbench_card.py.
 """
 
 import ast
+import collections
 import pathlib
 
 import jax.numpy as jnp
@@ -206,6 +216,7 @@ def test_the_plain_loop_matches_the_reference(case):
     tol = TOLS[case]
     got = solve(b, tol, 500)
     assert got.iterations > 7 and got.host_reads == got.iterations + 1
+    assert got.graph_calls == 0
     assert not solve.loop.graphs
     want = ref(b, tol, 500)
     if case.startswith("sharded"):
@@ -307,6 +318,66 @@ def test_the_plain_loop_runs_on_the_cpu():
     assert not solve.loop.graphs and solve.loop.capture_s == 0.0
 
 
+@pytest.mark.parametrize("case", ["ell", "dia", "sharded_cols"])
+def test_a_call_runs_one_prologue_and_one_epilogue(case):
+    """The plain loop runs a call of the parts the card's graph captures:
+    the _Loop's own prologue once, its body once an iteration and its
+    epilogue once; the answer is the unwrapped solver's, bit for bit."""
+    solve, b, _ = CASES[case]()
+    tol = TOLS[case]
+    want = solve(b, tol, 500)
+    loop, calls = solve.loop, collections.Counter()
+
+    def counted(name, fn):
+        def run(*args):
+            calls[name] += 1
+            return fn(*args)
+        return run
+
+    for name in ("prologue", "body", "epilogue"):
+        setattr(loop, name, counted(name, getattr(loop, name)))
+    got = solve(b, tol, 500)
+    assert calls == {"prologue": 1, "body": got.iterations, "epilogue": 1}
+    assert (got.iterations, got.host_reads) == (want.iterations,
+                                                want.host_reads)
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.residual_norms, want.residual_norms)
+
+
+@pytest.mark.parametrize("case", ["ell", "dia"])
+def test_calls_on_one_solver_take_their_own_inputs(case):
+    """Two calls on one solver, the second with another b, a 10x tol and
+    maxiter 3, equal the same calls on fresh solvers: nothing of a call
+    is kept for the next."""
+    solve, b, _ = CASES[case]()
+    tol = TOLS[case]
+    calls = [(b, tol, 500), (3 * b.flip(0), 10 * tol, 3)]
+    got = [solve(*call) for call in calls]
+    assert got[1].iterations == 3
+    for call, g in zip(calls, got):
+        want = CASES[case]()[0](*call)
+        assert (g.iterations, g.host_reads) == (want.iterations,
+                                                want.host_reads)
+        assert torch.equal(g.x, want.x)
+        assert torch.equal(g.residual_norms, want.residual_norms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tol_and_maxiter_enter_as_device_scalars(dtype):
+    """A call's tol and maxiter are 0-dim tensors beside b (the first
+    shard's device; tol in b's dtype, maxiter int64), what the card's
+    graph reads from buffers the host writes before each launch."""
+    b = torch.ones(6, 2, dtype=dtype)
+    for bs in (b, [b[:3], b[3:]]):
+        i = cg._inputs(bs, 1e-5, 7)
+        assert i.b is bs
+        assert (i.tol.shape, i.tol.dtype, i.tol.device) == (
+            (), dtype, b.device)
+        assert torch.equal(i.tol, torch.tensor(1e-5, dtype=dtype))
+        assert (i.kmax.shape, i.kmax.dtype, int(i.kmax)) == (
+            (), torch.int64, 7)
+
+
 @pytest.fixture(scope="module")
 def dia_pair():
     """The JAX DiaBorderedSolver of one grid system at dispatch_cap=10,
@@ -334,6 +405,7 @@ def test_dia_solver_at_cap_10_matches_jax(dia_pair):
     # The plain loop: one read an iteration and one more a pass.
     passes = got.refinement_steps + 1
     assert s.host_reads == got.cg_iterations + passes
+    assert s.counters()["graph_calls"] == 0
 
 
 def test_solve_bordered_at_cap_10_matches_jax():
@@ -365,10 +437,12 @@ def test_sweep_matches_jax():
         assert np.abs(g.v - w.v).max() <= 1e-9
 
 
-# The functions of the iteration the graph captures: the bodies, the
-# in-place write and the periodic step on the device k.
-GRAPH_FUNCTIONS = ("body", "_iteration", "_copy_into", "_leaves",
-                   "_periodic_gated", "_where", "_go")
+# The functions of the parts the graph captures: the prologues, the
+# bodies, the epilogues, the in-place write and the periodic step on the
+# device k.
+GRAPH_FUNCTIONS = ("prologue", "body", "epilogue", "_iteration",
+                   "_copy_into", "_leaves", "_periodic_gated", "_where",
+                   "_go")
 
 
 def _body_functions():
@@ -384,12 +458,17 @@ HOST_METHODS = {"item", "cpu", "tolist", "numpy"}
 
 def test_no_host_read_inside_the_body():
     bodies = _body_functions()
-    # make_pcg's and make_pcg_sharded's bodies and the helpers.
-    assert len(bodies) == len(GRAPH_FUNCTIONS) + 1
-    # The bodies take the state and the constants, no periodic hook.
+    # make_pcg's and make_pcg_sharded's prologues, bodies and epilogues,
+    # and the helpers.
+    assert len(bodies) == len(GRAPH_FUNCTIONS) + 3
+    # The prologues take the call's inputs alone, the bodies the state
+    # and the constants (no periodic hook), the epilogues the state and
+    # the projected b.
+    args = {"prologue": [["i"]], "body": [["s", "c"]],
+            "epilogue": [["s", "bp"], ["s", "bs"]]}
     for fn in bodies:
-        if fn.name == "body":
-            assert [a.arg for a in fn.args.args] == ["s", "c"]
+        if fn.name in args:
+            assert [a.arg for a in fn.args.args] in args[fn.name]
     found = []
     for fn in bodies:
         for node in ast.walk(fn):

@@ -200,7 +200,7 @@ def test_the_wide_border_spans_nest_and_the_counters(board, log):
         "route": "dia", "components": SITES + 1, "border_rows": SITES + 1,
         "small_width": 2 * (SITES + 1), "projector": "segment",
         "small_factorizations": 0, "setup_threads": 1, "regulators": 0,
-        "projector_bytes": 0}
+        "projector_bytes": 0, "graph_calls": 0}
     log.clear()
     for _ in range(2):
         solver.solve()
